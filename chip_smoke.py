@@ -6,8 +6,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 
  1. the card: name and power limit (nvidia-smi) and torch's device name;
     no CUDA device exits 1 before anything else runs;
- 2. the build: every CUDA source of the port, compiled by parallel nvcc
-    processes, with build time and the ptxas register/shared-memory report;
+ 2. the build: the port's CUDA source, compiled by nvcc, with build time
+    and the ptxas register/shared-memory report;
  3. each kernel against its plain torch version on the card, at the main
     path's shapes: the sparse tick at 16 cores x 256 neurons x 512 CAM
     entries for all five arbiter schemes (plus 64 cores for many blocks),
@@ -20,7 +20,9 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     session (currents bitwise, stats under the conformance contract), to
     the CPU plain path on a 16-tick prefix, and the kernel's launch count
     to the number of non-overflowing ticks;
- 5. times, each printed beside the card's name and power limit;
+ 5. times, each printed beside the card's name and power limit: session
+    ms per tick as the median and quartiles of interleaved runs, and the
+    kernel's and plain version's device time per call from the profiler;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -31,6 +33,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -44,6 +47,7 @@ REL_TOL = 1e-6
 SCHEMES = ("binary_tree", "greedy_tree", "token_ring", "hier_ring",
            "hier_tree")
 TICKS = 256
+SESSION_RUNS = 7
 BURST_EVERY = 16
 RATE = 0.05
 SEED = 0
@@ -53,6 +57,16 @@ DEVICE = "cuda"
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def check_stats(label: str, got, want) -> None:
+    """Hold two StepStats to the conformance contract: EXACT_FIELDS
+    exactly, the rest within REL_TOL, every value finite."""
+    for field in want._fields:
+        a, b = float(getattr(got, field)), float(getattr(want, field))
+        ok = a == b if field in EXACT_FIELDS else math.isclose(
+            a, b, rel_tol=REL_TOL)
+        check(ok and math.isfinite(a), f"{label}: {field} {a} vs {b}")
 
 
 def card_line() -> str:
@@ -170,9 +184,9 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.ensure_built([sparse_kernel.SOURCE])
-    print(f"build: {time.perf_counter() - t0:.3f} s "
-          f"(nvcc per source: {built or 'already built'})")
+    nvcc_s = build.ensure_built(sparse_kernel.SOURCE)
+    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
+          f"{'already built' if nvcc_s is None else f'{nvcc_s:.3f} s'})")
     for line in build.ptxas_report(sparse_kernel.SOURCE).splitlines():
         if "Used" in line or "spill" in line:
             print(f"ptxas {sparse_kernel.SOURCE}: {line.strip()}")
@@ -192,7 +206,7 @@ def main() -> int:
         buf, counts = sparse_ops.compact_events(spikes, capacity)
         args = (spikes.reshape(spikes.shape[0], -1), buf, counts,
                 routing.src_idx, routing.active, params.weights, routing.csr)
-        return args, policy
+        return args, policy, params
 
     def kernel_call(args, policy, n=256):
         return sparse_kernel.sparse_tick_cuda(
@@ -209,7 +223,8 @@ def main() -> int:
     cases = [(s, 16) for s in SCHEMES] + [("hier_tree", 64)]
     for scheme, cores in cases:
         frame = torch.rand((1, cores, 256), generator=gen, device=dev) < RATE
-        args, policy = operands(config(scheme, cores), frame, SEED + cores)
+        args, policy, _ = operands(config(scheme, cores), frame,
+                                   SEED + cores)
         got, want = kernel_call(args, policy), plain_call(args, policy)
         torch.cuda.synchronize()
         for name, g, w in zip(("currents", "latency", "encode", "hits"),
@@ -254,11 +269,7 @@ def main() -> int:
         check(cur.shape == (TICKS, 16, 256) and bool(cur.isfinite().all()),
               f"{name}: currents shape/finite")
         check(torch.equal(cur, ref_cur), f"{name}: currents != xla session")
-        for field in st._fields:
-            a, b = float(getattr(st, field)), float(getattr(ref_st, field))
-            ok = a == b if field in EXACT_FIELDS else math.isclose(
-                a, b, rel_tol=REL_TOL)
-            check(ok and math.isfinite(a), f"{name}: {field} {a} vs {b}")
+        check_stats(name, st, ref_st)
         print(f"{name}: pallas_sparse == xla on the card (currents bitwise, "
               f"stats under the conformance contract); per-tick means "
               f"{json.dumps(st.summary(ticks=TICKS))}")
@@ -270,28 +281,31 @@ def main() -> int:
     cpu_cur, cpu_st = cpu_session.run(prefix.cpu())
     gpu_cur, gpu_st = sparse_session.run(prefix)
     check(torch.equal(gpu_cur.cpu(), cpu_cur), "card currents != CPU plain")
-    for field in cpu_st._fields:
-        a, b = float(getattr(gpu_st, field)), float(getattr(cpu_st, field))
-        ok = a == b if field in EXACT_FIELDS else math.isclose(
-            a, b, rel_tol=REL_TOL)
-        check(ok, f"card vs CPU: {field} {a} vs {b}")
+    check_stats("card vs CPU", gpu_st, cpu_st)
     print("card pallas_sparse == CPU plain xla on a 16-tick burst prefix")
 
     # ---- 5. times --------------------------------------------------------
     def session_ms(session, stream):
-        session.run(stream)                      # warm-up
         torch.cuda.synchronize()
         t = time.perf_counter()
         session.run(stream)
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / stream.shape[0]
 
+    sessions = (("pallas_sparse", sparse_session), ("xla", xla_session))
     for name, stream in streams.items():
-        for label, session in (("pallas_sparse", sparse_session),
-                               ("xla", xla_session)):
-            print(f"{tag} session {label} {name}: "
-                  f"{session_ms(session, stream):.4f} ms/tick "
-                  f"(host clock, {TICKS} ticks, synchronized)")
+        for _, session in sessions:
+            session.run(stream)                  # warm-up
+        samples = {label: [] for label, _ in sessions}
+        for _ in range(SESSION_RUNS):            # interleaved runs
+            for label, session in sessions:
+                samples[label].append(session_ms(session, stream))
+        for label, ms in samples.items():
+            q1, med, q3 = statistics.quantiles(ms, n=4)
+            print(f"{tag} session {label} {name}: median {med:.4f} ms/tick "
+                  f"(quartiles {q1:.4f}-{q3:.4f}; host clock, "
+                  f"{SESSION_RUNS} runs of {TICKS} ticks interleaved with "
+                  f"the other session, synchronized)")
 
     stages = (("overflow precheck (once per run)",
                session_mod.InterfaceSession, "_overflow"),
@@ -314,26 +328,30 @@ def main() -> int:
               f"{(total - top) / TICKS * 1e6:.1f} us")
 
     frame = sparse_stream[:1]
-    args, policy = operands(cfg, frame, SEED)
+    args, policy, params = operands(cfg, frame, SEED)
     kernel_call_ms = cuda_ms(lambda: kernel_call(args, policy), 2000)
     plain_call_ms = cuda_ms(lambda: plain_call(args, policy), 200)
     kernel_ms = device_ms_per_call(lambda: kernel_call(args, policy), 200,
                                    "sparse_tick_kernel")
     plain_ms = device_ms_per_call(lambda: plain_call(args, policy), 50)
-    source = "profiler device time"
-    if kernel_ms is None or plain_ms is None:
-        source = "CUDA events over back-to-back calls (profiler saw no kernel)"
-        kernel_ms, plain_ms = kernel_call_ms, plain_call_ms
+    check(kernel_ms is not None,
+          "the profiler recorded no sparse_tick_kernel device time")
+    check(plain_ms is not None,
+          "the profiler recorded no device time for the plain version")
+    # The bound counts what B1 itself reads and writes: its inputs
+    # (spikes, event buffer, counts, and the CAM entries' source index,
+    # active flag, weight and int32 target) and its four outputs, each
+    # once.  The port's CSR is a layout of the targets, not extra work.
     outs = kernel_call(args, policy)
-    nbytes = (sum(t.numel() * t.element_size() for t in args[:6]) +
-              sum(t.numel() * t.element_size() for t in args[6][:2]) +
-              sum(t.numel() * t.element_size() for t in outs))
-    ops = int(args[6].entry.numel()) + args[3].numel()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args[:6], params.targets, *outs))
+    ops = int(args[4].sum()) + args[3].numel()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"{tag} sparse_tick kernel: {kernel_ms * 1e3:.3f} us/launch; "
-          f"plain torch version: {plain_ms * 1e3:.3f} us/call ({source}); "
+          f"plain torch version: {plain_ms * 1e3:.3f} us/call (profiler "
+          f"device time); "
           f"bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at 3.35 TB/s; "
           f"{ops} fp32 ops at 67 TFLOP/s)")
     print(f"{tag} sparse_tick per call as a caller waits (CUDA events, "

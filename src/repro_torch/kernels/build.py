@@ -9,8 +9,7 @@ report (registers, shared memory, spills) is kept beside the library as
 ``<name>.ptxas.txt``.
 
 Nothing is built when this module is imported: the first kernel launch
-(or `ensure_built`) builds.  Several missing sources are compiled by
-parallel ``nvcc`` processes.
+(or `ensure_built`) builds.
 """
 
 from __future__ import annotations
@@ -51,41 +50,31 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def ensure_built(names) -> dict:
-    """Build every missing library, all ``nvcc`` processes at once.
+def ensure_built(name: str) -> float | None:
+    """Build ``csrc/<name>.cu`` unless its library is already there.
 
-    Returns ``{name: seconds}`` for the sources built by this call (empty
-    when every library was already there).
+    Returns the seconds ``nvcc`` took, or None when nothing was built.
 
     Raises:
       RuntimeError: when ``nvcc`` fails; the message holds its output.
     """
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
+    final = library_path(name)
+    if final.exists():
+        return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
     t0 = time.perf_counter()
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    seconds, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed on {name}.cu:\n{out}")
-            continue
-        final = library_path(name)
-        final.with_suffix(".ptxas.txt").write_text(out)
-        os.replace(tmp, final)          # atomic: parallel builders agree
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
+    final.with_suffix(".ptxas.txt").write_text(proc.stdout)
+    os.replace(tmp, final)              # atomic: concurrent builders agree
     return seconds
 
 
@@ -97,5 +86,5 @@ def ptxas_report(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if missing)."""
-    ensure_built([name])
+    ensure_built(name)
     return ctypes.CDLL(str(library_path(name)))
