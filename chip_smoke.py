@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -6,23 +6,30 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 
  1. the card: name and power limit (nvidia-smi) and torch's device name;
     no CUDA device exits 1 before anything else runs;
- 2. the build: the port's CUDA source, compiled by nvcc, with build time
-    and the ptxas register/shared-memory report;
+ 2. the build: the port's three CUDA sources (sparse_tick, cam_search,
+    hat_encode), one nvcc each, started together, with build times and
+    the ptxas register/shared-memory report;
  3. each kernel against its plain torch version on the card, at the main
-    path's shapes: the sparse tick at 16 cores x 256 neurons x 512 CAM
-    entries for all five arbiter schemes (plus 64 cores for many blocks),
-    currents bitwise and latency/energy/hits exactly equal;
- 4. the main path: `Interface(cfg).compile(params).run(spikes)` with
-    impl="pallas_sparse" on the paper's scaled DYNAPs fabric (16 x 256 x
-    512, hier_tree arbiter, multicast_tree NoC), over two 256-tick
-    streams - Bernoulli 0.05, and the same stream with every 16th frame a
-    full burst (forcing the dense fallback) - held to the impl="xla"
-    session (currents bitwise, stats under the conformance contract), to
-    the CPU plain path on a 16-tick prefix, and the kernel's launch count
-    to the number of non-overflowing ticks;
+    paths' shapes, exactly equal: the sparse tick at 16 cores x 256
+    neurons x 512 CAM entries for all five arbiter schemes (plus 64
+    cores); cam_search's match counts at 8192 queries x 4096 sources x 1
+    word with 1 and 3 lanes, and its match matrix, first match and
+    speculative search at odd shapes with 1-3 words; hat_encode at N in
+    {256, 512, 65536} and spike rates 0, 0.05, 0.5 and 1;
+ 4. the main paths: `Interface(cfg).compile(params).run(spikes)` on the
+    paper's scaled DYNAPs fabric (16 x 256 x 512, hier_tree arbiter,
+    multicast_tree NoC), over two 256-tick streams - Bernoulli 0.05, and
+    the same stream with every 16th frame a full burst - first with
+    impl="pallas_sparse" (the sparse kernel, the dense fallback on the
+    burst ticks), then with impl="pallas" (cam_search and hat_encode on
+    every tick), each driven with every launch count set to 0 just before
+    and read just after; each held to the impl="xla" session (currents
+    bitwise, stats under the conformance contract) and to the CPU plain
+    path on a 16-tick prefix;
  5. times, each printed beside the card's name and power limit: session
-    ms per tick as the median and quartiles of interleaved runs, and the
-    kernel's and plain version's device time per call from the profiler;
+    ms per tick as the median and quartiles of interleaved runs, the host
+    time per tick split by stage, a device profile of each tick, and
+    every kernel's, plain version's and library call's time per call;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -42,11 +49,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+# int32 on the CUDA cores: 64 INT32 lanes per SM against 128 FP32 lanes
+# (Hopper white paper), so half the data sheet's float32 rate
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 EXACT_FIELDS = ("events", "cam_searches", "noc_hops", "chip_hops")
 REL_TOL = 1e-6
 SCHEMES = ("binary_tree", "greedy_tree", "token_ring", "hier_ring",
            "hier_tree")
+CORES, NEURONS, ENTRIES = 16, 256, 512
 TICKS = 256
+PREFIX = 16
 SESSION_RUNS = 7
 BURST_EVERY = 16
 RATE = 0.05
@@ -109,18 +121,18 @@ def device_events(fn):
     return wall_us, device
 
 
-def device_ms_per_call(fn, calls: int, name: str | None = None):
+def device_ms_per_call(fn, calls: int, name: str | None = None) -> float:
     """Device busy ms per call over ``calls`` calls, from the profiler's
     device events (only those whose name holds ``name``, when given).
-    Returns None when the profiler recorded no such event."""
+    Fails when the profiler recorded no such event."""
     def many():
         for _ in range(calls):
             fn()
     _, events = device_events(many)
     if name is not None:
         events = [e for e in events if name in e.name]
-    if not events:
-        return None
+    check(bool(events), f"the profiler recorded no device time for "
+          f"{name or 'the call'}")
     return sum(e.device_time_total for e in events) / 1e3 / calls
 
 
@@ -157,6 +169,19 @@ def host_breakdown(fn, stages):
     return total, spent
 
 
+def bound(nbytes: int, ops: int, ops_per_s: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over their peak rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -168,11 +193,27 @@ def main() -> int:
     from repro_torch.interface import session as session_mod
     from repro_torch.interface.types import random_connectivity
     from repro_torch.kernels import build
+    from repro_torch.kernels.cam_search import kernel as cam_kernel
+    from repro_torch.kernels.cam_search import ops as cam_ops
+    from repro_torch.kernels.cam_search import ref as cam_ref
+    from repro_torch.kernels.hat_encode import kernel as hat_kernel
+    from repro_torch.kernels.hat_encode import ops as hat_ops
+    from repro_torch.kernels.hat_encode import ref as hat_ref
     from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
     from repro_torch.kernels.sparse_tick import ops as sparse_ops
     from repro_torch.kernels.sparse_tick import ref as sparse_ref
     from repro_torch.noc import router as noc_router
     from repro_torch.noc.topology import NocConfig
+
+    kernel_modules = {"sparse_tick": sparse_kernel, "cam_search": cam_kernel,
+                      "hat_encode": hat_kernel}
+
+    def reset_launches():
+        for module in kernel_modules.values():
+            module.launches = 0
+
+    def read_launches():
+        return {name: m.launches for name, m in kernel_modules.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -184,16 +225,19 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    nvcc_s = build.ensure_built(sparse_kernel.SOURCE)
-    print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
-          f"{'already built' if nvcc_s is None else f'{nvcc_s:.3f} s'})")
-    for line in build.ptxas_report(sparse_kernel.SOURCE).splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"ptxas {sparse_kernel.SOURCE}: {line.strip()}")
+    nvcc_s = build.ensure_built(*kernel_modules)
+    print(f"build: {time.perf_counter() - t0:.3f} s for {len(nvcc_s)} "
+          f"sources in parallel (nvcc " + ", ".join(
+              f"{k} {'already built' if v is None else f'{v:.3f} s'}"
+              for k, v in nvcc_s.items()) + ")")
+    for name in kernel_modules:
+        for line in build.ptxas_report(name).splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
 
-    def config(scheme, cores, impl="pallas_sparse"):
-        return InterfaceConfig(cores=cores, neurons_per_core=256,
-                               cam_entries_per_core=512, scheme=scheme,
+    def config(scheme, cores=CORES, impl="pallas_sparse"):
+        return InterfaceConfig(cores=cores, neurons_per_core=NEURONS,
+                               cam_entries_per_core=ENTRIES, scheme=scheme,
                                noc=NocConfig("multicast_tree"), impl=impl)
 
     def operands(cfg, spikes, seed):
@@ -208,21 +252,23 @@ def main() -> int:
                 routing.src_idx, routing.active, params.weights, routing.csr)
         return args, policy, params
 
-    def kernel_call(args, policy, n=256):
+    def kernel_call(args, policy):
         return sparse_kernel.sparse_tick_cuda(
-            *args, n=n, policy=policy.kernel_policy, levels=policy.levels)
+            *args, n=NEURONS, policy=policy.kernel_policy,
+            levels=policy.levels)
 
-    def plain_call(args, policy, n=256):
-        return sparse_ref.sparse_tick_ref(*args, n=n,
+    def plain_call(args, policy):
+        return sparse_ref.sparse_tick_ref(*args, n=NEURONS,
                                           latency_fn=policy.latency_fn,
                                           encode_fn=policy.encode_fn)
 
-    # ---- 3. kernel against plain, on the card ----------------------------
+    # ---- 3. kernels against their plain versions, on the card -------------
     gen = torch.Generator(dev).manual_seed(SEED + 1)
-    max_err = 0.0
-    cases = [(s, 16) for s in SCHEMES] + [("hier_tree", 64)]
+    max_err = dict.fromkeys(kernel_modules, 0.0)
+    cases = [(s, CORES) for s in SCHEMES] + [("hier_tree", 4 * CORES)]
     for scheme, cores in cases:
-        frame = torch.rand((1, cores, 256), generator=gen, device=dev) < RATE
+        frame = torch.rand((1, cores, NEURONS), generator=gen,
+                           device=dev) < RATE
         args, policy, _ = operands(config(scheme, cores), frame,
                                    SEED + cores)
         got, want = kernel_call(args, policy), plain_call(args, policy)
@@ -230,59 +276,155 @@ def main() -> int:
         for name, g, w in zip(("currents", "latency", "encode", "hits"),
                               got, want):
             check(torch.equal(g, w), f"{scheme}/{cores} cores: {name} differ")
-            max_err = max(max_err, float((g - w).abs().max()))
-        print(f"kernel == plain: sparse_tick {scheme} {cores}x256x512 "
-              f"(currents bitwise, latency/energy/hits exact)")
+            max_err["sparse_tick"] = max(max_err["sparse_tick"],
+                                         float((g - w).abs().max()))
+        print(f"kernel == plain: sparse_tick {scheme} "
+              f"{cores}x{NEURONS}x{ENTRIES} (currents bitwise, "
+              f"latency/energy/hits exact)")
 
-    # ---- 4. the main path ------------------------------------------------
-    cfg = config("hier_tree", 16)
+    # cam_search counts at the path's shapes: the fabric's own packed tags
+    # against every source address, valid = the lanes' spike frames
+    cfg = config("hier_tree", impl="pallas")
     params = random_connectivity(torch.Generator(dev).manual_seed(SEED), cfg)
-    sparse_session = Interface(cfg).compile(params)
-    xla_session = Interface(config("hier_tree", 16, "xla")).compile(params)
-    check(sparse_session.device == xla_session.device == dev,
-          "sessions not on the card")
+    routing = pipeline.build_routing_index(params, cfg)
+    q_words, src_words = routing.q_words, routing.src_words
+    for rates in ((RATE,), (RATE, 0.5, 1.0)):
+        valid = torch.rand((len(rates), src_words.shape[0]), generator=gen,
+                           device=dev) < torch.tensor(rates, device=dev)[:, None]
+        got = cam_kernel.cam_match_counts_cuda(q_words, src_words, valid)
+        want = cam_ref.match_counts_ref(q_words, src_words, valid)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"cam_match_counts differ at "
+              f"{tuple(q_words.shape)} x {tuple(valid.shape)}")
+        check(int(want.sum()) > 0, "cam_match_counts check saw no match")
+        max_err["cam_search"] = max(max_err["cam_search"], float(
+            (got - want).abs().max()))
+        print(f"kernel == plain: cam_match_counts {q_words.shape[0]} queries "
+              f"x {src_words.shape[0]} sources x W={q_words.shape[1]}, "
+              f"{len(rates)} lane(s) at rates {rates} (exact)")
+
+    # cam_search matrix, first match and speculative search at odd shapes
+    for words in (1, 2, 3):
+        bits = 32 * words - 5
+        for b, e in ((1000, 777), (96, 100), (1024, 640)):
+            tags = cam_ref.pack_bits(torch.rand((e, bits), generator=gen,
+                                                device=dev) < 0.5)
+            q = cam_ref.pack_bits(torch.rand((b, bits), generator=gen,
+                                             device=dev) < 0.5)
+            q[: min(b, e) // 2] = tags[: min(b, e) // 2]
+            valid = torch.rand(e, generator=gen, device=dev) < 0.9
+            want = cam_ref.cam_search_ref(q, tags, valid)
+            got = cam_kernel.cam_search_cuda(q, tags, valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and int(want.sum()) > 0,
+                  f"cam_search matrix differs at B={b} E={e} W={words}")
+            check(torch.equal(cam_ref.first_match_ref(got),
+                              cam_ref.first_match_ref(want)),
+                  f"first match differs at B={b} E={e} W={words}")
+            if b % min(128, b) == 0 and e % min(128, e) == 0:
+                check(torch.equal(
+                    cam_ops.cam_first_match(q, tags, valid, impl="pallas"),
+                    cam_ref.first_match_ref(want)),
+                    f"cam_first_match differs at B={b} E={e} W={words}")
+                check(torch.equal(cam_ops.cam_search_speculative(
+                    q, tags, valid, impl="pallas"), want),
+                    f"cam_search_speculative differs at B={b} E={e} "
+                    f"W={words}")
+        print(f"kernel == plain: cam_search matrix and first match at "
+              f"(1000, 777), (96, 100), (1024, 640), W={words}; "
+              f"cam_first_match and cam_search_speculative through the ops "
+              f"where the block rule admits them (exact)")
+
+    # hat_encode, with the AER stream it writes in the same pass
+    for n, rows in ((256, CORES), (512, 8), (65536, 2)):
+        for rate in (0.0, RATE, 0.5, 1.0):
+            spikes = torch.rand((rows, n), generator=gen, device=dev) < rate
+            ranks, count, clusters, stream = hat_kernel.hat_encode_cuda(
+                spikes, row=256, stream=True)
+            want = hat_ref.hat_encode_ref(spikes, row=256)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("ranks", "count", "cluster counts"),
+                                  (ranks, count, clusters), want):
+                check(torch.equal(g, w), f"hat_encode {name} differ at "
+                      f"N={n} rate={rate}")
+            check(torch.equal(stream, hat_ref.compact_stream(*want[:2])),
+                  f"hat_encode stream differs at N={n} rate={rate}")
+        print(f"kernel == plain: hat_encode {rows} bitmaps of N={n} at rates "
+              f"0, {RATE}, 0.5, 1 (ranks, counts, clusters, stream exact)")
+
+    # ---- 4. the main paths -----------------------------------------------
+    sparse_session = Interface(config("hier_tree")).compile(params)
+    pallas_session = Interface(cfg).compile(params)
+    xla_session = Interface(config("hier_tree", impl="xla")).compile(params)
+    sessions = (("pallas", pallas_session), ("pallas_sparse", sparse_session),
+                ("xla", xla_session))
+    check(all(s.device == dev for _, s in sessions), "sessions not on the card")
     capacity = sparse_session.plan.sparse[2]
     gen = torch.Generator(dev).manual_seed(SEED + 2)
-    sparse_stream = torch.rand((TICKS, 16, 256), generator=gen,
+    sparse_stream = torch.rand((TICKS, CORES, NEURONS), generator=gen,
                                device=dev) < RATE
     burst_stream = sparse_stream.clone()
     burst_stream[::BURST_EVERY] = True
     streams = {"bernoulli_0.05": sparse_stream, "burst_every_16": burst_stream}
     fits = {k: int((s.sum(-1).amax(-1) <= capacity).sum())
             for k, s in streams.items()}
+    ticks_all = len(streams) * TICKS
 
-    sparse_kernel.launches = 0
-    results = {k: sparse_session.run(s) for k, s in streams.items()}
-    torch.cuda.synchronize()
-    main_launches = sparse_kernel.launches
-    check(main_launches == sum(fits.values()),
-          f"sparse_tick launches {main_launches} != non-overflowing ticks "
-          f"{sum(fits.values())}")
-    check(main_launches > 0, "the main path never launched sparse_tick")
-    print(f"main path: sparse_tick launched {main_launches} times over "
-          f"{len(streams) * TICKS} ticks (non-overflowing ticks: {fits}; "
-          f"capacity {capacity})")
+    launches = {}
+    results = {}
+    for label, session in (("pallas_sparse", sparse_session),
+                           ("pallas", pallas_session)):
+        reset_launches()
+        results[label] = {k: session.run(s) for k, s in streams.items()}
+        torch.cuda.synchronize()
+        launches[label] = read_launches()
+        print(f"main path {label}: launches over {ticks_all} ticks "
+              f"{launches[label]} (non-overflowing ticks: {fits}; "
+              f"capacity {capacity})")
+    check(launches["pallas_sparse"] == {
+        "sparse_tick": sum(fits.values()), "cam_search": 0, "hat_encode": 0},
+        f"pallas_sparse launches {launches['pallas_sparse']}: want "
+        f"sparse_tick once per non-overflowing tick, no cam_search or "
+        f"hat_encode")
+    check(launches["pallas"] == {"sparse_tick": 0, "cam_search": ticks_all,
+                                 "hat_encode": ticks_all},
+          f"pallas launches {launches['pallas']}: want cam_search and "
+          f"hat_encode once per tick")
+    path_launches = {"sparse_tick": launches["pallas_sparse"]["sparse_tick"],
+                     "cam_search": launches["pallas"]["cam_search"],
+                     "hat_encode": launches["pallas"]["hat_encode"]}
+    check(all(v > 0 for v in path_launches.values()),
+          f"a kernel never launched on its path: {path_launches}")
 
     for name, stream in streams.items():
-        cur, st = results[name]
         ref_cur, ref_st = xla_session.run(stream)
-        check(cur.shape == (TICKS, 16, 256) and bool(cur.isfinite().all()),
-              f"{name}: currents shape/finite")
-        check(torch.equal(cur, ref_cur), f"{name}: currents != xla session")
-        check_stats(name, st, ref_st)
-        print(f"{name}: pallas_sparse == xla on the card (currents bitwise, "
-              f"stats under the conformance contract); per-tick means "
-              f"{json.dumps(st.summary(ticks=TICKS))}")
+        for label in ("pallas_sparse", "pallas"):
+            cur, st = results[label][name]
+            check(cur.shape == (TICKS, CORES, NEURONS)
+                  and bool(cur.isfinite().all()),
+                  f"{label} {name}: currents shape/finite")
+            check(torch.equal(cur, ref_cur),
+                  f"{label} {name}: currents != xla session")
+            check_stats(f"{label} {name}", st, ref_st)
+            print(f"{name}: {label} == xla on the card (currents bitwise, "
+                  f"stats under the conformance contract); per-tick means "
+                  f"{json.dumps(st.summary(ticks=TICKS))}")
 
-    # the card against the CPU plain path, on a short prefix
-    cpu_session = Interface(config("hier_tree", 16, "xla")).compile(
-        params, device="cpu")
-    prefix = burst_stream[:16]
-    cpu_cur, cpu_st = cpu_session.run(prefix.cpu())
-    gpu_cur, gpu_st = sparse_session.run(prefix)
-    check(torch.equal(gpu_cur.cpu(), cpu_cur), "card currents != CPU plain")
-    check_stats("card vs CPU", gpu_st, cpu_st)
-    print("card pallas_sparse == CPU plain xla on a 16-tick burst prefix")
+    # the card against the CPU plain paths, on a short prefix
+    prefix = burst_stream[:PREFIX]
+    cpu_params = params.to("cpu")
+    for label, session, cpu_impl in (
+            ("pallas_sparse", sparse_session, "xla"),
+            ("pallas", pallas_session, "pallas")):
+        cpu_session = Interface(config("hier_tree", impl=cpu_impl)).compile(
+            cpu_params, device="cpu")
+        cpu_cur, cpu_st = cpu_session.run(prefix.cpu())
+        gpu_cur, gpu_st = session.run(prefix)
+        check(torch.equal(gpu_cur.cpu(), cpu_cur),
+              f"card {label} currents != CPU plain {cpu_impl}")
+        check_stats(f"card {label} vs CPU {cpu_impl}", gpu_st, cpu_st)
+        print(f"card {label} == CPU plain {cpu_impl} on a {PREFIX}-tick "
+              f"burst prefix")
 
     # ---- 5. times --------------------------------------------------------
     def session_ms(session, stream):
@@ -292,7 +434,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / stream.shape[0]
 
-    sessions = (("pallas_sparse", sparse_session), ("xla", xla_session))
     for name, stream in streams.items():
         for _, session in sessions:
             session.run(stream)                  # warm-up
@@ -305,89 +446,132 @@ def main() -> int:
             print(f"{tag} session {label} {name}: median {med:.4f} ms/tick "
                   f"(quartiles {q1:.4f}-{q3:.4f}; host clock, "
                   f"{SESSION_RUNS} runs of {TICKS} ticks interleaved with "
-                  f"the other session, synchronized)")
+                  f"the other sessions, synchronized)")
 
-    stages = (("overflow precheck (once per run)",
-               session_mod.InterfaceSession, "_overflow"),
-              ("compact_events", sparse_ops, "compact_events"),
-              ("sparse_tick (kernel wrapper)", sparse_ops, "sparse_tick"),
-              ("event_indices", sparse_ops, "event_indices"),
-              ("event-indexed accounting", pipeline,
-               "sparse_accounting_stats"),
-              ("  of it NoC costs", noc_router, "noc_step_costs_events"),
-              ("dense fallback tick", pipeline, "dense_tick"))
-    for name, stream in streams.items():
-        total, spent = host_breakdown(lambda: sparse_session.run(stream),
-                                      stages)
-        top = sum(v for k, v in spent.items() if not k.startswith(" "))
-        parts = "; ".join(f"{k.strip()} {v / TICKS * 1e6:.1f}"
-                          for k, v in spent.items())
-        print(f"{tag} host time per tick, pallas_sparse {name}: total "
-              f"{total / TICKS * 1e6:.1f} us = {parts}; rest of the loop "
-              f"(stats stack and accumulate, currents) "
-              f"{(total - top) / TICKS * 1e6:.1f} us")
+    def print_breakdown(label, session, stages, rest):
+        for name, stream in streams.items():
+            total, spent = host_breakdown(lambda: session.run(stream),
+                                          stages)
+            top = sum(v for k, v in spent.items() if not k.startswith(" "))
+            parts = "; ".join(f"{k.strip()} {v / TICKS * 1e6:.1f}"
+                              for k, v in spent.items())
+            print(f"{tag} host time per tick, {label} {name}: total "
+                  f"{total / TICKS * 1e6:.1f} us = {parts}; {rest} "
+                  f"{(total - top) / TICKS * 1e6:.1f} us")
 
-    frame = sparse_stream[:1]
-    args, policy, params = operands(cfg, frame, SEED)
-    kernel_call_ms = cuda_ms(lambda: kernel_call(args, policy), 2000)
-    plain_call_ms = cuda_ms(lambda: plain_call(args, policy), 200)
-    kernel_ms = device_ms_per_call(lambda: kernel_call(args, policy), 200,
-                                   "sparse_tick_kernel")
-    plain_ms = device_ms_per_call(lambda: plain_call(args, policy), 50)
-    check(kernel_ms is not None,
-          "the profiler recorded no sparse_tick_kernel device time")
-    check(plain_ms is not None,
-          "the profiler recorded no device time for the plain version")
-    # The bound counts what B1 itself reads and writes: its inputs
-    # (spikes, event buffer, counts, and the CAM entries' source index,
-    # active flag, weight and int32 target) and its four outputs, each
-    # once.  The port's CSR is a layout of the targets, not extra work.
-    outs = kernel_call(args, policy)
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args[:6], params.targets, *outs))
-    ops = int(args[4].sum()) + args[3].numel()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"{tag} sparse_tick kernel: {kernel_ms * 1e3:.3f} us/launch; "
-          f"plain torch version: {plain_ms * 1e3:.3f} us/call (profiler "
-          f"device time); "
-          f"bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at 3.35 TB/s; "
-          f"{ops} fp32 ops at 67 TFLOP/s)")
-    print(f"{tag} sparse_tick per call as a caller waits (CUDA events, "
-          f"back-to-back, host overhead included): wrapper "
-          f"{kernel_call_ms * 1e3:.3f} us (2000 calls), plain torch "
-          f"{plain_call_ms * 1e3:.3f} us (200 calls)")
+    print_breakdown("pallas_sparse", sparse_session, (
+        ("overflow precheck (once per run)", session_mod.InterfaceSession,
+         "_overflow"),
+        ("compact_events", sparse_ops, "compact_events"),
+        ("sparse_tick (kernel wrapper)", sparse_ops, "sparse_tick"),
+        ("event_indices", sparse_ops, "event_indices"),
+        ("event-indexed accounting", pipeline, "sparse_accounting_stats"),
+        ("  of it NoC costs", noc_router, "noc_step_costs_events"),
+        ("dense fallback tick", pipeline, "dense_tick")),
+        "rest of the loop (stats stack and accumulate, currents)")
+    print_breakdown("pallas", pallas_session, (
+        ("_entry_drive", pipeline, "_entry_drive"),
+        ("  of it the cam_match_counts op", cam_ops, "cam_match_counts"),
+        ("_addr_streams", pipeline, "_addr_streams"),
+        ("  of it the encode_stream op", hat_ops, "encode_stream"),
+        ("accounting_stats", pipeline, "accounting_stats"),
+        ("  of it NoC costs", noc_router, "noc_step_costs")),
+        "rest (arbiter latency, CSR scatter, encode energy, stats "
+        "accumulate, currents)")
 
-    ticks = 32
-    wall_us, events = device_events(
-        lambda: sparse_session.run(sparse_stream[:ticks]))
-    busy_us = sum(e.device_time_total for e in events)
-    by_name = {}
-    for e in events:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.device_time_total, count + 1)
-    if not events:
-        print(f"{tag} profile: device time not measured (the profiler "
-              f"recorded no device op)")
-    else:
-        print(f"{tag} profile pallas_sparse bernoulli_0.05, {ticks} ticks: "
+    for label, session in sessions[:2]:
+        ticks = 32
+        wall_us, events = device_events(
+            lambda: session.run(sparse_stream[:ticks]))
+        busy_us = sum(e.device_time_total for e in events)
+        by_name = {}
+        for e in events:
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, count + 1)
+        check(bool(events), f"the profiler recorded no device op in the "
+              f"{label} session")
+        print(f"{tag} profile {label} bernoulli_0.05, {ticks} ticks: "
               f"wall {wall_us:.1f} us (host clock, profiler on), device "
               f"busy {busy_us:.1f} us in {len(events)} device ops, idle "
               f"share {1 - busy_us / wall_us:.4f}; device ops per tick "
               f"{len(events) / ticks:.1f}")
-    for key, (us, count) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
-        print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+        for key, (us, count) in sorted(by_name.items(),
+                                       key=lambda r: -r[1][0])[:8]:
+            print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+
+    rows = []
+
+    def report(name, kernel_fn, kernel_name, plain_fn, library_fn, nbytes_,
+               ops, ops_per_s, ops_note, reps):
+        """Time one kernel beside its plain version and library call on
+        the same inputs; print its line and add its kernels-line row."""
+        call_ms = cuda_ms(kernel_fn, reps)
+        plain_call_ms = cuda_ms(plain_fn, reps // 10)
+        ms = device_ms_per_call(kernel_fn, reps // 10, kernel_name)
+        plain_ms = device_ms_per_call(plain_fn, reps // 40)
+        library_ms = (device_ms_per_call(library_fn, reps // 10)
+                      if library_fn is not None else None)
+        bound_ms, bound_by = bound(nbytes_, ops, ops_per_s)
+        lib = ("none" if library_ms is None
+               else f"{library_ms * 1e3:.3f} us/call")
+        print(f"{tag} {name} kernel: {ms * 1e3:.3f} us/launch; plain torch "
+              f"version: {plain_ms * 1e3:.3f} us/call; library call: {lib} "
+              f"(profiler device time); bound {bound_ms * 1e3:.4f} us by "
+              f"{bound_by} ({nbytes_} bytes at 3.35 TB/s; {ops} {ops_note})")
+        print(f"{tag} {name} per call as a caller waits (CUDA events, "
+              f"back-to-back, host overhead included): wrapper "
+              f"{call_ms * 1e3:.3f} us ({reps} calls), plain torch "
+              f"{plain_call_ms * 1e3:.3f} us ({reps // 10} calls)")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": kernel_modules[name].REPLACES,
+            "launches": path_launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+
+    # B1: the bound counts what it reads and writes (its inputs, the CAM
+    # entries' int32 targets among them, and its four outputs), each once;
+    # the port's CSR is a layout of the targets, not extra work.
+    args, policy, sparse_params = operands(config("hier_tree"),
+                                           sparse_stream[:1], SEED)
+    outs = kernel_call(args, policy)
+    report("sparse_tick", lambda: kernel_call(args, policy),
+           "sparse_tick_kernel", lambda: plain_call(args, policy), None,
+           nbytes(*args[:6], sparse_params.targets, *outs),
+           int(args[4].sum()) + args[3].numel(), FP32_OPS_PER_S,
+           "fp32 ops at 67 TFLOP/s", 2000)
+
+    # B2 on the path: one tick's match counts, one lane; about 2W + 1
+    # integer operations per (query, source) pair (compares, ANDs, add)
+    valid = sparse_stream[:1].reshape(1, -1)
+    counts = cam_kernel.cam_match_counts_cuda(q_words, src_words, valid)
+    b, w = q_words.shape
+    report("cam_search",
+           lambda: cam_kernel.cam_match_counts_cuda(q_words, src_words,
+                                                    valid),
+           "cam_match_counts_kernel",
+           lambda: cam_ref.match_counts_ref(q_words, src_words, valid), None,
+           nbytes(q_words, src_words, valid, counts),
+           valid.shape[0] * b * src_words.shape[0] * (2 * w + 1),
+           INT32_OPS_PER_S, "int32 ops at 33.5 TOP/s", 2000)
+
+    # B3 on the path: one tick's bitmaps (every core of one lane), with
+    # the AER stream; its library call is torch.cumsum over the same
+    # bitmaps as int32, which gives the ranks up to the where.
+    bitmaps = sparse_stream[0]
+    hat_outs = hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True)
+    as_int = bitmaps.to(torch.int32)
+    report("hat_encode",
+           lambda: hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True),
+           "hat_encode_kernel",
+           lambda: hat_ops.encode_stream(bitmaps, row=256, impl="xla"),
+           lambda: torch.cumsum(as_int, -1),
+           nbytes(bitmaps, *hat_outs), bitmaps.numel(), INT32_OPS_PER_S,
+           "int32 adds at 33.5 TOP/s", 2000)
 
     # ---- 6. result lines -------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "sparse_tick", "route": "cuda",
-        "source": "src/repro_torch/csrc/sparse_tick.cu",
-        "replaces": sparse_kernel.REPLACES, "launches": main_launches,
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,8 +72,9 @@ class InterfaceConfig:
     selects the tick backend: ``"xla"`` (the gather/scatter event tick in
     plain torch), ``"pallas_sparse"`` (per-core event compaction feeding
     the fused `repro_torch.kernels.sparse_tick` kernel, with the dense
-    tick as the overflow fallback), or ``"pallas"`` (accepted here for
-    config parity; sessions refuse it until ROADMAP queue A item 6).
+    tick as the overflow fallback), or ``"pallas"`` (the dense tick with
+    the CAM match through the `repro_torch.kernels.cam_search` kernel and
+    the AER streams through the `repro_torch.kernels.hat_encode` kernel).
     """
 
     cores: int | None = None                  # total; default 4 when omitted

@@ -10,15 +10,20 @@ deterministic per-target sum (`kernels.sparse_tick.ref.scatter_currents`).
 ``cfg.impl`` selects the tick:
 
   ``"xla"``            the dense event tick in plain torch (`dense_tick`);
+  ``"pallas"``         the same dense tick with the CAM match through the
+                       CUDA `cam_search` kernel (match counts of every CAM
+                       entry's tag against every source address) and the
+                       AER address streams through the CUDA `hat_encode`
+                       kernel (their plain versions on CPU tensors);
   ``"pallas_sparse"``  per-core event compaction feeding the fused CUDA
                        `sparse_tick` kernel (its plain version on CPU
                        tensors), with the dense tick as the fallback on a
                        tick where some core overflows its event buffer.
                        Both branches give the same bits.
 
-Not ported yet, and refused with `NotImplementedError`: ``impl="pallas"``
-(ROADMAP queue A item 6), ``oracle=True`` (item 8), ``telemetry``
-(item 7) and multi-chip tables (item 7).
+Not ported yet, and refused with `NotImplementedError`: ``oracle=True``
+(ROADMAP queue A item 8), ``telemetry`` (item 7) and multi-chip tables
+(item 7).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.core import cam as cam_mod
 from repro_torch.interface import registry as interface_registry
 from repro_torch.interface.stats import StepStats
 from repro_torch.interface.types import int_to_bits
+from repro_torch.kernels.cam_search import ops as cam_ops
 from repro_torch.kernels.hat_encode import ops as hat_ops
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
@@ -74,20 +80,6 @@ class RoutingIndex(NamedTuple):
     csr: sparse_ref.TargetCSR
 
 
-def pack_bits(bits: torch.Tensor, word_bits: int = 32) -> torch.Tensor:
-    """(..., nbits) {0,1} -> (..., ceil(nbits/word)) int32, little-endian
-    words (port of `repro.kernels.cam_search.ref.pack_bits`)."""
-    nbits = bits.shape[-1]
-    nwords = -(-nbits // word_bits)
-    pad = nwords * word_bits - nbits
-    b = torch.nn.functional.pad(bits.long(), (0, pad))
-    b = b.reshape(bits.shape[:-1] + (nwords, word_bits))
-    weights = 1 << torch.arange(word_bits, device=bits.device)
-    words = (b * weights).sum(-1) & 0xFFFFFFFF
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
-        torch.int32)
-
-
 def build_routing_index(params, cfg) -> RoutingIndex:
     """Decode each CAM entry's tag to a source index, once (int-pack)."""
     dev = params.tags.device
@@ -101,8 +93,9 @@ def build_routing_index(params, cfg) -> RoutingIndex:
     per_chip = getattr(cfg, "cores_per_chip", None) or cfg.cores
     src_chip, src_core = hierarchy.chip_of_core(
         src_idx // cfg.neurons_per_core, per_chip)
-    q_words = pack_bits(params.tags.reshape(-1, bits))
-    src_words = pack_bits(int_to_bits(torch.arange(total, device=dev), bits))
+    q_words = cam_ops.pack_bits(params.tags.reshape(-1, bits))
+    src_words = cam_ops.pack_bits(
+        int_to_bits(torch.arange(total, device=dev), bits))
     csr = sparse_ref.build_target_csr(params.targets, active,
                                       cfg.neurons_per_core)
     return RoutingIndex(src_idx=src_idx, active=active,
@@ -111,17 +104,36 @@ def build_routing_index(params, cfg) -> RoutingIndex:
                         q_words=q_words, src_words=src_words, csr=csr)
 
 
-def _entry_drive(spikes_flat, routing: RoutingIndex):
+def _entry_drive(params, spikes_flat, routing: RoutingIndex, impl: str):
     """(B, cores, entries) float32 {0,1}: is this entry's source spiking?
-    (The gather branch; the cam_search kernel branch is queue A item 6.)"""
+
+    ``impl="pallas"`` matches every entry's packed tag against every
+    source address (one `cam_search` count launch for all B lanes) and
+    masks with ``params.valid``, as the JAX package does; every other impl
+    takes the compile-time gather.  A tag outside the address space
+    matches no source, so both give the same drive.
+    """
+    if impl == "pallas":
+        counts = cam_ops.cam_match_counts(routing.q_words, routing.src_words,
+                                          spikes_flat, impl="pallas")
+        hit = counts.reshape((-1,) + tuple(params.valid.shape)) > 0
+        return (hit & params.valid).to(torch.float32)
     return sparse_ref.entry_drive(spikes_flat, routing.src_idx,
                                   routing.active).to(torch.float32)
 
 
-def _addr_streams(spikes):
-    """(..., cores, n) int32 AER address streams (service order, pad n),
-    through the hat_encode reference (the kernel is queue A item 6)."""
-    stream, _ = hat_ops.encode_stream(spikes, row=256)
+def _addr_streams(spikes, impl: str):
+    """(..., cores, n) int32 AER address streams (service order, pad n).
+
+    ``impl="pallas"`` takes the `hat_encode` kernel path when n is a
+    multiple of its 256-neuron cluster and within its size limit (one
+    launch for every lane and core), as the JAX package does; otherwise
+    the plain version.
+    """
+    row, n = 256, spikes.shape[-1]
+    hat_impl = ("pallas" if impl == "pallas" and n % row == 0
+                and n <= hat_ops.MAX_PALLAS_N else "xla")
+    stream, _ = hat_ops.encode_stream(spikes, row=row, impl=hat_impl)
     return stream
 
 
@@ -247,11 +259,9 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
     Raises:
       ValueError: on tables built for another NoC scheme or chip count,
         or an unsupported ``pallas_sparse`` configuration.
-      NotImplementedError: on a surface not ported yet (``impl="pallas"``,
-        chips > 1, a scheme that would need the arbiter simulator).
+      NotImplementedError: on a surface not ported yet (chips > 1, a
+        scheme that would need the arbiter simulator).
     """
-    if cfg.impl == "pallas":
-        raise not_ported("impl='pallas' (cam_search and hat_encode)", 6)
     if tables is None:
         tables = build_tables(params, cfg)
     if tables.scheme != cfg.noc.scheme:
@@ -289,11 +299,11 @@ def dense_tick(plan: TickPlan, params, spikes):
     cfg, n = plan.cfg, plan.cfg.neurons_per_core
     latencies = plan.tick_latency(spikes)
     spikes_flat = spikes.reshape(spikes.shape[0], -1)
-    drive = _entry_drive(spikes_flat, plan.routing)
+    drive = _entry_drive(params, spikes_flat, plan.routing, cfg.impl)
     currents = sparse_ref.scatter_currents(drive * params.weights,
                                            plan.routing.csr, n)
     hits_total = drive.sum((-2, -1))
-    addr_seq = _addr_streams(spikes)
+    addr_seq = _addr_streams(spikes, cfg.impl)
     enc_per_core = arb.encode_energy_units(cfg.scheme, n, addr_seq)
     stats = accounting_stats(cfg, plan.tables, spikes, latencies,
                              enc_per_core, hits_total, params.valid,

@@ -20,8 +20,7 @@ takes the sparse branch on every tick.
 
 Not ported yet (`NotImplementedError`, naming the ROADMAP queue A item):
 ``chips > 1``, ``shard=``, ``mask=``/``stats0=``, ``telemetry=`` and
-``fault_tick0=`` (item 7), ``fault=`` (item 9), ``impl="pallas"``
-(item 6).
+``fault_tick0=`` (item 7), ``fault=`` (item 9).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ report (registers, shared memory, spills) is kept beside the library as
 ``<name>.ptxas.txt``.
 
 Nothing is built when this module is imported: the first kernel launch
-(or `ensure_built`) builds.
+(or `ensure_built`, which builds several sources in parallel) builds.
 """
 
 from __future__ import annotations
@@ -50,31 +50,42 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def ensure_built(name: str) -> float | None:
-    """Build ``csrc/<name>.cu`` unless its library is already there.
+def ensure_built(*names: str) -> dict[str, float | None]:
+    """Build each ``csrc/<name>.cu`` whose library is not there yet.
 
-    Returns the seconds ``nvcc`` took, or None when nothing was built.
+    One ``nvcc`` per source, all started together and then awaited, so a
+    fresh checkout pays for the slowest build, not for their sum.
+    Returns, per name, the seconds its ``nvcc`` took, or None when nothing
+    was built.
 
     Raises:
-      RuntimeError: when ``nvcc`` fails; the message holds its output.
+      RuntimeError: when an ``nvcc`` fails; the message holds its output.
     """
-    final = library_path(name)
-    if final.exists():
-        return None
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
-    final.with_suffix(".ptxas.txt").write_text(proc.stdout)
-    os.replace(tmp, final)              # atomic: concurrent builders agree
+    started = {}
+    for name in names:
+        final = library_path(name)
+        if final.exists() or name in started:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, final, time.perf_counter())
+    seconds = dict.fromkeys(names)
+    failed = []
+    for name, (proc, tmp, final, t0) in started.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {name}.cu:\n{out}")
+            continue
+        final.with_suffix(".ptxas.txt").write_text(out)
+        os.replace(tmp, final)          # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

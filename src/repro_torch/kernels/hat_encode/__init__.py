@@ -1,2 +1,2 @@
-"""hat_encode: hierarchical AER address encoding (plain torch reference;
-the CUDA port of the Pallas kernel is ROADMAP queue B item 3)."""
+"""hat_encode: hierarchical AER address encoding (CUDA kernel in
+``repro_torch/csrc/hat_encode.cu``, plain torch version in ``ref.py``)."""

@@ -2,10 +2,12 @@
 
 Both packages get the same routing state (the JAX package's
 `random_connectivity`, carried across with `params_from_numpy`) and the
-same numpy spike streams.  `run` and `run_batched`, under impl="xla" and
-"pallas_sparse", over a sample of the 5 x 3 arbiter x NoC grid on
-`tests/conformance/paths.small_config` (4 x 16 x 32), with sparse,
-overflowing and full-burst frames.  The tolerance is the conformance
+same numpy spike streams.  `run` and `run_batched`, under impl="xla",
+"pallas" and "pallas_sparse", over a sample of the 5 x 3 arbiter x NoC
+grid on `tests/conformance/paths.small_config` (4 x 16 x 32), with
+sparse, overflowing and full-burst frames; impl="pallas" also at
+4 x 256 x 64, where the address streams take the hat_encode kernel
+branch; and the six `repro.traffic` scenarios through all three impls.  The tolerance is the conformance
 contract: currents bitwise, `EXACT_FIELDS` exact, every other stat within
 `REL_TOL` (energies multiply float32 counts by Python-float constants,
 whose rounding may differ between the two frameworks).
@@ -27,11 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import traffic
 from repro.core import fabric
 from repro.interface import Interface as JInterface
 from repro.kernels.hat_encode import ops as jhat_ops
 from repro_torch.interface import Interface, StepStats, interface_tick
 from repro_torch.interface import config as tconfig
+from repro_torch.interface import pipeline as tpipeline
 from repro_torch.interface.types import params_from_numpy, random_connectivity
 from repro_torch.kernels.hat_encode import ops as that_ops
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
@@ -54,9 +58,9 @@ def _stream(seed, ticks=6, cores=4, n=16, p=0.15):
     return s
 
 
-def _setup(arb_scheme, noc_scheme, impl, seed=3):
-    jcfg = dataclasses.replace(paths.small_config(arb_scheme, noc_scheme),
-                               impl=impl)
+def _setup(arb_scheme, noc_scheme, impl, seed=3, **shape):
+    jcfg = dataclasses.replace(paths.small_config(arb_scheme, noc_scheme,
+                                                  **shape), impl=impl)
     jparams = fabric.random_connectivity(jax.random.PRNGKey(seed), jcfg)
     tparams = params_from_numpy(*(np.asarray(x) for x in jparams))
     return jcfg, jparams, tconfig.as_interface_config(jcfg), tparams
@@ -77,7 +81,7 @@ def _assert_conformant(got, want, label):
                                        err_msg=f"{label}: {field}")
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas_sparse"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_sparse"])
 @pytest.mark.parametrize("arb_scheme,noc_scheme", SAMPLED_GRID)
 def test_run_matches_jax(arb_scheme, noc_scheme, impl):
     jcfg, jparams, tcfg, tparams = _setup(arb_scheme, noc_scheme, impl)
@@ -95,7 +99,7 @@ def test_run_matches_jax(arb_scheme, noc_scheme, impl):
                            f"{arb_scheme}/{noc_scheme}/{impl}/{name}")
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas_sparse"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_sparse"])
 @pytest.mark.parametrize("arb_scheme,noc_scheme",
                          [("hier_tree", "multicast_tree"),
                           ("token_ring", "broadcast"),
@@ -109,6 +113,54 @@ def test_run_batched_matches_jax(arb_scheme, noc_scheme, impl):
     want = JInterface(jcfg).compile(jparams).run_batched(jnp.asarray(lanes))
     _assert_conformant(got, want, f"{arb_scheme}/{noc_scheme}/{impl}")
     assert got[0].shape == (3, 6, 4, 16)
+
+
+@pytest.mark.parametrize("arb_scheme,noc_scheme",
+                         [("hier_tree", "multicast_tree"),
+                          ("binary_tree", "broadcast")])
+def test_pallas_at_256_neurons_takes_the_hat_encode_branch(
+        arb_scheme, noc_scheme, monkeypatch):
+    """At n = 256 the address streams go through hat_encode's kernel
+    path (its plain version on the CPU); run and run_batched still match
+    the JAX package's pallas path (`paths.run_pallas`)."""
+    jcfg, jparams, tcfg, tparams = _setup(arb_scheme, noc_scheme, "pallas",
+                                          n=256, entries=64)
+    calls = []
+    encode = tpipeline.hat_ops.encode_stream
+
+    def spy(spikes, **kw):
+        calls.append(kw["impl"])
+        return encode(spikes, **kw)
+    monkeypatch.setattr(tpipeline.hat_ops, "encode_stream", spy)
+    rng = np.random.default_rng(11)
+    lanes = rng.random((2, 3, 4, 256)) < np.array([0.05, 0.3])[:, None,
+                                                                None, None]
+    lanes[1, 1] = True
+    session = Interface(tcfg).compile(tparams, device="cpu")
+    _assert_conformant(session.run(torch.from_numpy(lanes[1])),
+                       paths.run_pallas(jcfg, jparams, jnp.asarray(lanes[1])),
+                       f"{arb_scheme}/{noc_scheme}/run")
+    want = JInterface(jcfg).compile(jparams).run_batched(jnp.asarray(lanes))
+    _assert_conformant(session.run_batched(torch.from_numpy(lanes)), want,
+                       f"{arb_scheme}/{noc_scheme}/run_batched")
+    assert calls and set(calls) == {"pallas"}
+
+
+@pytest.mark.parametrize("scenario", traffic.scenario_names())
+def test_traffic_scenarios_match_jax(scenario):
+    """Each `repro.traffic` scenario (made by the JAX package, carried as
+    numpy) through the port's three impls, held to the JAX session."""
+    index = traffic.scenario_names().index(scenario)
+    arb_scheme, noc_scheme = paths.GRID[(5 * index + 2) % len(paths.GRID)]
+    jcfg, jparams, tcfg, tparams = _setup(arb_scheme, noc_scheme, "xla",
+                                          seed=index)
+    spikes = np.array(traffic.generate(scenario, 17 + index, 4, jcfg))
+    want = JInterface(jcfg).compile(jparams).run(jnp.asarray(spikes))
+    for impl in ("xla", "pallas", "pallas_sparse"):
+        session = Interface(dataclasses.replace(tcfg, impl=impl)).compile(
+            tparams, device="cpu")
+        _assert_conformant(session.run(torch.from_numpy(spikes)), want,
+                           f"{scenario}/{arb_scheme}/{noc_scheme}/{impl}")
 
 
 def test_sparse_and_dense_branches_agree_tick_by_tick():
@@ -201,8 +253,6 @@ REFUSED = {
                                             fault=object()), 9),
     "oracle": (lambda: interface_tick(_session()[1], _zeros()[0],
                                       _session()[0].config, oracle=True), 8),
-    "pallas": (lambda: _session("pallas")[0].compile(_session()[1],
-                                                     device="cpu"), 6),
 }
 
 
@@ -247,12 +297,16 @@ import repro_torch
 from repro_torch.interface import Interface, InterfaceConfig
 from repro_torch.interface.types import random_connectivity
 import repro_torch.kernels.sparse_tick.kernel
-cfg = InterfaceConfig(cores=4, neurons_per_core=16, cam_entries_per_core=32,
-                      impl="pallas_sparse")
-params = random_connectivity(torch.Generator().manual_seed(0), cfg)
-cur, st = Interface(cfg).compile(params, device="cpu").run(
-    torch.rand((3, 4, 16), generator=torch.Generator().manual_seed(1)) < 0.2)
-assert cur.shape == (3, 4, 16)
+import repro_torch.kernels.cam_search.kernel
+import repro_torch.kernels.hat_encode.kernel
+for impl in ("pallas_sparse", "pallas"):
+    cfg = InterfaceConfig(cores=4, neurons_per_core=256,
+                          cam_entries_per_core=32, impl=impl)
+    params = random_connectivity(torch.Generator().manual_seed(0), cfg)
+    cur, st = Interface(cfg).compile(params, device="cpu").run(
+        torch.rand((3, 4, 256), generator=torch.Generator().manual_seed(1))
+        < 0.05)
+    assert cur.shape == (3, 4, 256)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -1,4 +1,4 @@
-"""The CUDA sparse tick kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Marked ``gpu``: each test decides inside itself whether there is a CUDA
 device and skips with a reason when there is none.  Run on a machine
@@ -14,6 +14,12 @@ import torch
 from repro_torch.core import arbiter as arb
 from repro_torch.interface import InterfaceConfig, pipeline
 from repro_torch.interface.types import random_connectivity
+from repro_torch.kernels.cam_search import kernel as cam_kernel
+from repro_torch.kernels.cam_search import ops as cam_ops
+from repro_torch.kernels.cam_search import ref as cam_ref
+from repro_torch.kernels.hat_encode import kernel as hat_kernel
+from repro_torch.kernels.hat_encode import ops as hat_ops
+from repro_torch.kernels.hat_encode import ref as hat_ref
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
@@ -79,3 +85,107 @@ def test_cuda_dispatch_launches_kernel_and_never_falls_back():
     with pytest.raises(ValueError):
         sparse_ops.sparse_tick(*args, n=n,
                                policy=policy._replace(kernel_policy=None))
+
+
+# ---- cam_search (B2) ----------------------------------------------------------
+
+
+def _tags(rng, rows, bits, device):
+    return cam_ref.pack_bits(torch.from_numpy(
+        rng.random((rows, bits)) < 0.5)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,e,bits", [(1000, 777, 12), (96, 100, 40),
+                                      (256, 384, 70), (33, 5, 200)])
+def test_cam_search_kernel_matches_plain_version(b, e, bits):
+    device = _cuda()
+    rng = np.random.default_rng(b + e)
+    t = _tags(rng, e, bits, device)
+    q = _tags(rng, b, bits, device)
+    q[: min(b, e) // 2] = t[: min(b, e) // 2]           # force matches
+    valid = torch.from_numpy(rng.random(e) < 0.9).to(device)
+    before = cam_kernel.launches
+    got = cam_kernel.cam_search_cuda(q, t, valid)
+    torch.cuda.synchronize()
+    assert cam_kernel.launches == before + 1
+    want = cam_ref.cam_search_ref(q, t, valid)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+    assert torch.equal(cam_ref.first_match_ref(got),
+                       cam_ref.first_match_ref(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,e,bits,lanes", [(8192, 4096, 12, 1),
+                                            (8192, 4096, 12, 3),
+                                            (1000, 777, 40, 2),
+                                            (64, 3000, 150, 1)])
+def test_cam_match_counts_kernel_matches_plain_version(b, e, bits, lanes):
+    device = _cuda()
+    rng = np.random.default_rng(b * lanes)
+    t = _tags(rng, e, bits, device)
+    q = torch.cat([t, _tags(rng, b, bits, device)])[:b].contiguous()
+    valid = torch.from_numpy(rng.random((lanes, e)) < 0.3).to(device)
+    before = cam_kernel.launches
+    got = cam_ops.cam_match_counts(q, t, valid, impl="pallas")
+    torch.cuda.synchronize()
+    assert cam_kernel.launches == before + 1
+    want = cam_ref.match_counts_ref(q, t, valid)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cam_ops_on_cuda_launch_and_keep_the_block_rule():
+    device = _cuda()
+    rng = np.random.default_rng(0)
+    t = _tags(rng, 256, 44, device)
+    q = t[:128].contiguous()
+    valid = torch.ones(256, dtype=torch.bool, device=device)
+    before = cam_kernel.launches
+    first = cam_ops.cam_first_match(q, t, valid, impl="pallas")
+    spec = cam_ops.cam_search_speculative(q, t, valid, impl="pallas")
+    assert cam_kernel.launches == before + 3
+    assert torch.equal(first, cam_ref.first_match_ref(
+        cam_ref.cam_search_ref(q, t, valid)))
+    assert torch.equal(spec, cam_ref.cam_search_ref(q, t, valid))
+    with pytest.raises(ValueError, match="must divide block sizes"):
+        cam_ops.cam_search(q, t[:200].contiguous(), valid[:200],
+                           impl="pallas")
+
+
+# ---- hat_encode (B3) ----------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,row", [(16, 256, 256), (48, 256, 256),
+                                        (4, 512, 256), (2, 65536, 256),
+                                        (3, 4096, 128), (5, 300, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.05, 0.5, 1.0])
+def test_hat_encode_kernel_matches_plain_version(rows, n, row, rate):
+    device = _cuda()
+    rng = np.random.default_rng(rows + n)
+    spikes = torch.from_numpy(rng.random((rows, n)) < rate).to(device)
+    before = hat_kernel.launches
+    ranks, count, clusters, stream = hat_kernel.hat_encode_cuda(
+        spikes, row=row, stream=True)
+    torch.cuda.synchronize()
+    assert hat_kernel.launches == before + 1
+    want = hat_ref.hat_encode_ref(spikes, row=row)
+    for g, w in zip((ranks, count, clusters), want):
+        assert torch.equal(g, w)
+    assert torch.equal(stream, hat_ref.compact_stream(*want[:2]))
+
+
+@pytest.mark.gpu
+def test_hat_ops_on_cuda_launch_once_per_call():
+    device = _cuda()
+    spikes = torch.rand((2, 16, 256), device=device) < 0.05
+    before = hat_kernel.launches
+    stream, count = hat_ops.encode_stream(spikes, impl="pallas")
+    ranks, _, _ = hat_ops.hat_encode(spikes, impl="pallas")
+    assert hat_kernel.launches == before + 2
+    want = hat_ref.hat_encode_ref(spikes)
+    assert torch.equal(ranks, want[0]) and torch.equal(count, want[1])
+    assert torch.equal(stream, hat_ref.compact_stream(*want[:2]))
+    with pytest.raises(ValueError, match="N % 256 == 0"):
+        hat_ops.hat_encode(spikes[..., :100], impl="pallas")
