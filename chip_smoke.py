@@ -6,16 +6,18 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 
  1. the card: name and power limit (nvidia-smi) and torch's device name;
     no CUDA device exits 1 before anything else runs;
- 2. the build: the port's three CUDA sources (sparse_tick, cam_search,
-    hat_encode), one nvcc each, started together, with build times and
-    the ptxas register/shared-memory report;
+ 2. the build: the port's four CUDA sources (sparse_tick, cam_search,
+    hat_encode, lif_step), one nvcc each, started together, with build
+    times and the ptxas register/shared-memory report;
  3. each kernel against its plain torch version on the card, at the main
     paths' shapes, exactly equal: the sparse tick at 16 cores x 256
     neurons x 512 CAM entries for all five arbiter schemes (plus 64
     cores); cam_search's match counts at 8192 queries x 4096 sources x 1
     word with 1 and 3 lanes, and its match matrix, first match and
     speculative search at odd shapes with 1-3 words; hat_encode at N in
-    {256, 512, 65536} and spike rates 0, 0.05, 0.5 and 1;
+    {256, 512, 65536} and spike rates 0, 0.05, 0.5 and 1; lif_step
+    bitwise at (128, 4096), (8, 512) and (32, 128), with values exactly
+    at the threshold and one ulp below it;
  4. the main paths: `Interface(cfg).compile(params).run(spikes)` on the
     paper's scaled DYNAPs fabric (16 x 256 x 512, hier_tree arbiter,
     multicast_tree NoC), over two 256-tick streams - Bernoulli 0.05, and
@@ -25,11 +27,17 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     every tick), each driven with every launch count set to 0 just before
     and read just after; each held to the impl="xla" session (currents
     bitwise, stats under the conformance contract) and to the CPU plain
-    path on a 16-tick prefix;
+    path on a 16-tick prefix; then the paper's SNN workload,
+    `snn_forward` at `paper_dynaps.scaled_config()` (16 x 256 neurons,
+    512 CAM entries, 32 steps) on a batch of 128 rasters, impl="pallas"
+    (lif_step once per step) against impl="xla" (spikes, rates and
+    logits bitwise), the card against the CPU port on an 8-sample
+    prefix, and account=True on 32 samples (1024 ticks);
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
-    time per tick split by stage, a device profile of each tick, and
-    every kernel's, plain version's and library call's time per call;
+    time per tick split by stage, a device profile of each tick, the SNN
+    forward's ms per batch, host split and device profile, and every
+    kernel's, plain version's and library call's time per call;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -64,6 +72,10 @@ BURST_EVERY = 16
 RATE = 0.05
 SEED = 0
 DEVICE = "cuda"
+LIF_SHAPES = ((128, 4096), (8, 512), (32, 128))
+SNN_BATCH = 128                 # examples/snn_multicore.py's EVAL_BATCH
+SNN_PREFIX = 8
+ACCOUNT_BATCH = 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -188,7 +200,9 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.configs import paper_dynaps
     from repro_torch.core import arbiter as arb
+    from repro_torch.data.pipeline import snn_batch
     from repro_torch.interface import Interface, InterfaceConfig, pipeline
     from repro_torch.interface import session as session_mod
     from repro_torch.interface.types import random_connectivity
@@ -199,14 +213,18 @@ def main() -> int:
     from repro_torch.kernels.hat_encode import kernel as hat_kernel
     from repro_torch.kernels.hat_encode import ops as hat_ops
     from repro_torch.kernels.hat_encode import ref as hat_ref
+    from repro_torch.kernels.lif_step import kernel as lif_kernel
+    from repro_torch.kernels.lif_step import ops as lif_ops
+    from repro_torch.kernels.lif_step import ref as lif_ref
     from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
     from repro_torch.kernels.sparse_tick import ops as sparse_ops
     from repro_torch.kernels.sparse_tick import ref as sparse_ref
+    from repro_torch.models import snn
     from repro_torch.noc import router as noc_router
     from repro_torch.noc.topology import NocConfig
 
     kernel_modules = {"sparse_tick": sparse_kernel, "cam_search": cam_kernel,
-                      "hat_encode": hat_kernel}
+                      "hat_encode": hat_kernel, "lif_step": lif_kernel}
 
     def reset_launches():
         for module in kernel_modules.values():
@@ -352,6 +370,37 @@ def main() -> int:
         print(f"kernel == plain: hat_encode {rows} bitmaps of N={n} at rates "
               f"0, {RATE}, 0.5, 1 (ranks, counts, clusters, stream exact)")
 
+    # lif_step, bitwise: a sixty-fourth of the elements land exactly on the
+    # threshold (v = 0, I = threshold), as many one float32 ulp below it
+    snn_cfg = paper_dynaps.scaled_config()
+    lif_args = dict(decay=snn_cfg.decay, threshold=snn_cfg.threshold)
+    below = torch.nextafter(torch.tensor(snn_cfg.threshold),
+                            torch.tensor(0.0)).item()
+    for shape in LIF_SHAPES:
+        v = torch.randn(shape, generator=gen, device=dev) * 3
+        i = torch.randn(shape, generator=gen, device=dev) * 3
+        pick = torch.rand(shape, generator=gen, device=dev)
+        at, under = pick < 1 / 64, (pick >= 1 / 64) & (pick < 1 / 32)
+        v[at | under] = 0.0
+        i[at], i[under] = snn_cfg.threshold, below
+        got = lif_kernel.lif_step_cuda(v, i, snn_cfg.decay,
+                                       snn_cfg.threshold, 0.0)
+        want = lif_ref.lif_step_ref(v, i, **lif_args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("v_next", "spikes"), got, want):
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"lif_step {name} differ at {shape}")
+            max_err["lif_step"] = max(max_err["lif_step"],
+                                      float((g - w).abs().max()))
+        check(bool(got[1][at].eq(1).all()) and not bool(got[1][under].any())
+              and 0 < int(got[1].sum()) < got[1].numel(),
+              f"lif_step at {shape}: threshold values must fire, values an "
+              f"ulp below must not")
+        print(f"kernel == plain: lif_step {shape} float32, decay "
+              f"{snn_cfg.decay}, threshold {snn_cfg.threshold}, "
+              f"{int(at.sum())} values at the threshold and {int(under.sum())}"
+              f" an ulp below (v_next and spikes bitwise)")
+
     # ---- 4. the main paths -----------------------------------------------
     sparse_session = Interface(config("hier_tree")).compile(params)
     pallas_session = Interface(cfg).compile(params)
@@ -382,19 +431,18 @@ def main() -> int:
               f"{launches[label]} (non-overflowing ticks: {fits}; "
               f"capacity {capacity})")
     check(launches["pallas_sparse"] == {
-        "sparse_tick": sum(fits.values()), "cam_search": 0, "hat_encode": 0},
+        "sparse_tick": sum(fits.values()), "cam_search": 0, "hat_encode": 0,
+        "lif_step": 0},
         f"pallas_sparse launches {launches['pallas_sparse']}: want "
         f"sparse_tick once per non-overflowing tick, no cam_search or "
         f"hat_encode")
     check(launches["pallas"] == {"sparse_tick": 0, "cam_search": ticks_all,
-                                 "hat_encode": ticks_all},
+                                 "hat_encode": ticks_all, "lif_step": 0},
           f"pallas launches {launches['pallas']}: want cam_search and "
           f"hat_encode once per tick")
     path_launches = {"sparse_tick": launches["pallas_sparse"]["sparse_tick"],
                      "cam_search": launches["pallas"]["cam_search"],
                      "hat_encode": launches["pallas"]["hat_encode"]}
-    check(all(v > 0 for v in path_launches.values()),
-          f"a kernel never launched on its path: {path_launches}")
 
     for name, stream in streams.items():
         ref_cur, ref_st = xla_session.run(stream)
@@ -425,6 +473,147 @@ def main() -> int:
         check_stats(f"card {label} vs CPU {cpu_impl}", gpu_st, cpu_st)
         print(f"card {label} == CPU plain {cpu_impl} on a {PREFIX}-tick "
               f"burst prefix")
+
+    # the paper's SNN workload at scaled_config, batch 128: pallas runs
+    # the lif_step kernel once per step, xla the surrogate-gradient step
+    snn_params, snn_topo = snn.init_snn(
+        torch.Generator(dev).manual_seed(SEED), snn_cfg)
+    x = snn_batch(torch.Generator(dev).manual_seed(SEED + 3), SNN_BATCH,
+                  snn_cfg.t_steps, snn_cfg.d_in, snn_cfg.d_out)["x"]
+    n_total, steps = snn_cfg.n_total, snn_cfg.t_steps
+
+    def forward(impl, inputs=x, account=False):
+        return snn.snn_forward(snn_params, snn_topo, inputs, snn_cfg,
+                               impl=impl, account=account)
+
+    snn_out, snn_launches = {}, {}
+    for impl in ("pallas", "xla"):
+        reset_launches()
+        snn_out[impl] = forward(impl)
+        torch.cuda.synchronize()
+        snn_launches[impl] = read_launches()
+        print(f"main path snn_forward impl={impl}: launches over one "
+              f"forward of {SNN_BATCH} x {steps} steps {snn_launches[impl]}")
+    no_launch = dict.fromkeys(kernel_modules, 0)
+    check(snn_launches["pallas"] == {**no_launch, "lif_step": steps},
+          f"snn pallas launches {snn_launches['pallas']}: want lif_step "
+          f"once per step and nothing else")
+    check(snn_launches["xla"] == no_launch,
+          f"snn xla launches {snn_launches['xla']}: want none")
+    path_launches["lif_step"] = snn_launches["pallas"]["lif_step"]
+    check(all(v > 0 for v in path_launches.values()),
+          f"a kernel never launched on its path: {path_launches}")
+
+    r_mat = snn.routing_matrix(snn.fabric_params(snn_params, snn_topo),
+                               snn_cfg.fabric)
+    rasters = {impl: snn.spike_raster(snn_params, r_mat, x, snn_cfg,
+                                      impl=impl) for impl in ("pallas", "xla")}
+    logits, rates, _ = snn_out["pallas"]
+    check(logits.shape == (SNN_BATCH, snn_cfg.d_out)
+          and rates.shape == (SNN_BATCH, n_total)
+          and bool(logits.isfinite().all()), "snn forward shapes/finite")
+    check(0 < float(rates.mean()) < 1, "snn forward: no neuron fires, or all")
+    for name, a, b in (("spikes", *rasters.values()),
+                       ("logits", logits, snn_out["xla"][0]),
+                       ("rates", rates, snn_out["xla"][1])):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"snn pallas {name} != xla on the card")
+    check(torch.equal(rasters["pallas"].mean(1), rates),
+          "snn spike_raster does not give the forward's rates")
+    print(f"snn_forward scaled_config ({n_total} neurons, {steps} steps, "
+          f"batch {SNN_BATCH}): pallas == xla on the card (spikes, rates, "
+          f"logits bitwise); mean rate {float(rates.mean()):.6f}; "
+          f"nonzero routing weights {int((r_mat != 0).sum())}")
+
+    # the card against the CPU port on a prefix.  The step's matrix
+    # products sum in another order on the card than on the CPU (a few
+    # float32 ulps), and the network is chaotic: a membrane value within
+    # those ulps of the threshold flips a spike on one side, and the flip
+    # spreads through that sample's later steps.  So (1) a sample whose
+    # free-running raster has no flipped spike must agree exactly (rates)
+    # and within rtol 1e-5 / atol 1e-6 (logits), and so must the account
+    # stats of those samples; (2) every step of the card, redone on the
+    # CPU from the card's own state, must give currents within that
+    # tolerance, and every spike that differs must come from a membrane
+    # value no farther from the threshold than the two currents differ.
+    x8 = x[:SNN_PREFIX]
+    cpu_params = {k: t.cpu() for k, t in snn_params.items()}
+    cpu_topo = {k: t.cpu() for k, t in snn_topo.items()}
+    cpu_r = snn.routing_matrix(snn.fabric_params(cpu_params, cpu_topo),
+                               snn_cfg.fabric)
+    check(torch.equal(cpu_r, r_mat.cpu()), "routing_matrix card != CPU")
+    flips = (snn.spike_raster(snn_params, r_mat, x8, snn_cfg,
+                              impl="pallas").cpu()
+             != snn.spike_raster(cpu_params, cpu_r, x8.cpu(), snn_cfg,
+                                 impl="pallas"))          # (B, T, N)
+    flipped = flips.flatten(1).sum(1)
+    first_flip = [int(f.any(1).nonzero()[0]) for f in flips if f.any()]
+    same = flipped == 0
+    check(bool(same.any()), f"every prefix sample flipped a spike: "
+          f"{flipped.tolist()}")
+    xs = x8[same.to(dev)]
+    card_s = forward("pallas", xs, account=True)
+    cpu_s = snn.snn_forward(cpu_params, cpu_topo, xs.cpu(), snn_cfg,
+                            impl="pallas", account=True)
+    logit_gap = float((card_s[0].cpu() - cpu_s[0]).abs().max())
+    check(torch.equal(card_s[1].cpu(), cpu_s[1]),
+          "snn rates card != CPU on samples without a flipped spike")
+    check(torch.allclose(card_s[0].cpu(), cpu_s[0], rtol=1e-5, atol=1e-6),
+          f"snn logits card vs CPU beyond rtol 1e-5 / atol 1e-6: max "
+          f"{logit_gap}")
+    check_stats("snn account card vs CPU", card_s[2], cpu_s[2])
+
+    v = torch.zeros((SNN_PREFIX, n_total), device=dev)
+    s = torch.zeros_like(v)
+    current_gap, differ, unequal = 0.0, 0, 0
+    two_ulps = 2.0 ** -22 * snn_cfg.threshold
+    for t in range(steps):
+        cur = x8[:, t] @ snn_params["w_in"] + s @ r_mat
+        cur_cpu = x8[:, t].cpu() @ cpu_params["w_in"] + s.cpu() @ cpu_r
+        gap = (cur.cpu() - cur_cpu).abs()
+        check(torch.allclose(cur.cpu(), cur_cpu, rtol=1e-5, atol=1e-6),
+              f"snn step {t}: card currents vs CPU beyond rtol 1e-5 / "
+              f"atol 1e-6: max {float(gap.max())}")
+        current_gap = max(current_gap, float(gap.max()))
+        unequal += int((gap > 0).sum())
+        v_cpu = lif_ref.mul_add_once(v.cpu(), snn_cfg.decay, cur_cpu)
+        v, s = lif_ops.lif_step(v, cur, impl="pallas", **lif_args)
+        miss = s.cpu() != (v_cpu >= snn_cfg.threshold).to(torch.float32)
+        margin = (v_cpu - snn_cfg.threshold).abs()
+        check(bool((margin <= gap + two_ulps)[miss].all()),
+              f"snn step {t}: a spike differs from the CPU's farther from "
+              f"the threshold than the currents differ")
+        differ += int(miss.sum())
+    print(f"snn_forward card vs CPU port on a {SNN_PREFIX}-sample prefix: "
+          f"routing matrix bitwise; free runs: flipped spikes per sample "
+          f"{flipped.tolist()} of {steps * n_total} each, first at step "
+          f"{first_flip}; the {int(same.sum())} samples without a flip "
+          f"agree (rates bitwise, logits max abs diff {logit_gap:.3e} "
+          f"within rtol 1e-5 / atol 1e-6, account stats under the "
+          f"conformance contract); step by step from the card's state: "
+          f"currents differ from the CPU's (summation order) in {unequal} "
+          f"of {steps * x8.shape[0] * n_total} values, max abs diff "
+          f"{current_gap:.3e} (within rtol 1e-5 / atol 1e-6); {differ} "
+          f"spikes differ, each within that of the threshold")
+
+    reset_launches()
+    _, acc_rates, acc_stats = forward("pallas", x[:ACCOUNT_BATCH],
+                                      account=True)
+    torch.cuda.synchronize()
+    acc_launches = read_launches()
+    check(acc_launches == {**no_launch, "lif_step": steps},
+          f"snn account launches {acc_launches}")
+    acc_summary = acc_stats.summary()
+    check(all(math.isfinite(v) for v in acc_summary.values()),
+          "snn account stats not finite")
+    check(math.isclose(acc_summary["events"],
+                       float(acc_rates.sum()) / ACCOUNT_BATCH,
+                       rel_tol=REL_TOL),
+          f"snn account: events per tick {acc_summary['events']} != spikes "
+          f"per step {float(acc_rates.sum()) / ACCOUNT_BATCH}")
+    print(f"snn_forward account=True, {ACCOUNT_BATCH} samples "
+          f"({ACCOUNT_BATCH * steps} ticks, fabric impl "
+          f"{snn_cfg.fabric.impl!r}): per-tick means {json.dumps(acc_summary)}")
 
     # ---- 5. times --------------------------------------------------------
     def session_ms(session, stream):
@@ -499,6 +688,53 @@ def main() -> int:
                                        key=lambda r: -r[1][0])[:8]:
             print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
 
+    # the SNN forward: ms per batch, host split, device profile
+    for impl in ("pallas", "xla"):
+        forward(impl)                            # warm-up
+    fwd_ms = {"pallas": [], "xla": []}
+    for _ in range(SESSION_RUNS):                # interleaved runs
+        for impl, ms in fwd_ms.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            forward(impl)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    for impl, ms in fwd_ms.items():
+        q1, med, q3 = statistics.quantiles(ms, n=4)
+        print(f"{tag} snn_forward {impl} scaled_config batch {SNN_BATCH}: "
+              f"median {med:.4f} ms/batch (quartiles {q1:.4f}-{q3:.4f}; "
+              f"host clock, {SESSION_RUNS} runs interleaved with the other "
+              f"impl, synchronized)")
+    snn_stages = (
+        ("routing_matrix", snn, "routing_matrix"),
+        ("step loop (spike_raster)", snn, "spike_raster"),
+        ("  of it the lif_step op", lif_ops, "lif_step"),
+        ("  of it mul_add_once", lif_ref, "mul_add_once"))
+    for impl in ("pallas", "xla"):
+        total, spent = host_breakdown(lambda: forward(impl), snn_stages)
+        top = sum(v for k, v in spent.items() if not k.startswith(" "))
+        parts = "; ".join(f"{k.strip()} {v * 1e3:.3f}"
+                          for k, v in spent.items())
+        print(f"{tag} host ms per snn_forward {impl}: total "
+              f"{total * 1e3:.3f} = {parts}; readout (rates, logits) and "
+              f"the rest {(total - top) * 1e3:.3f}")
+    for impl in ("pallas", "xla"):
+        wall_us, events = device_events(lambda: forward(impl))
+        check(bool(events), f"the profiler recorded no device op in the "
+              f"snn {impl} forward")
+        busy_us = sum(e.device_time_total for e in events)
+        by_name = {}
+        for e in events:
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, count + 1)
+        print(f"{tag} profile snn_forward {impl}: wall {wall_us:.1f} us "
+              f"(host clock, profiler on), device busy {busy_us:.1f} us in "
+              f"{len(events)} device ops, idle share "
+              f"{1 - busy_us / wall_us:.4f}")
+        for key, (us, count) in sorted(by_name.items(),
+                                       key=lambda r: -r[1][0])[:8]:
+            print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+
     rows = []
 
     def report(name, kernel_fn, kernel_name, plain_fn, library_fn, nbytes_,
@@ -569,6 +805,20 @@ def main() -> int:
            lambda: torch.cumsum(as_int, -1),
            nbytes(bitmaps, *hat_outs), bitmaps.numel(), INT32_OPS_PER_S,
            "int32 adds at 33.5 TOP/s", 2000)
+
+    # B4 on the path: one step's (128, 4096) float32 state; v and I in,
+    # v' and s out; three float32 operations an element (the FMA as two,
+    # the compare).  No one PyTorch call computes the LIF update.
+    v = torch.randn((SNN_BATCH, n_total), generator=gen, device=dev) * 3
+    i = torch.randn((SNN_BATCH, n_total), generator=gen, device=dev) * 3
+    lif_outs = lif_kernel.lif_step_cuda(v, i, snn_cfg.decay,
+                                        snn_cfg.threshold, 0.0)
+    report("lif_step",
+           lambda: lif_kernel.lif_step_cuda(v, i, snn_cfg.decay,
+                                            snn_cfg.threshold, 0.0),
+           "lif_step", lambda: lif_ref.lif_step_ref(v, i, **lif_args), None,
+           nbytes(v, i, *lif_outs), 3 * v.numel(), FP32_OPS_PER_S,
+           "fp32 ops at 67 TFLOP/s", 2000)
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

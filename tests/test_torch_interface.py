@@ -299,6 +299,10 @@ from repro_torch.interface.types import random_connectivity
 import repro_torch.kernels.sparse_tick.kernel
 import repro_torch.kernels.cam_search.kernel
 import repro_torch.kernels.hat_encode.kernel
+import repro_torch.kernels.lif_step.kernel
+from repro_torch.configs import paper_dynaps
+from repro_torch.data.pipeline import snn_batch
+from repro_torch.models import snn
 for impl in ("pallas_sparse", "pallas"):
     cfg = InterfaceConfig(cores=4, neurons_per_core=256,
                           cam_entries_per_core=32, impl=impl)
@@ -307,6 +311,15 @@ for impl in ("pallas_sparse", "pallas"):
         torch.rand((3, 4, 256), generator=torch.Generator().manual_seed(1))
         < 0.05)
     assert cur.shape == (3, 4, 256)
+cfg = paper_dynaps.smoke_config()
+params, topo = snn.init_snn(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+x = snn_batch(torch.Generator().manual_seed(1), 2, cfg.t_steps, cfg.d_in,
+              cfg.d_out, device="cpu")["x"]
+with torch.no_grad():
+    logits, rates, stats = snn.snn_forward(params, topo, x, cfg,
+                                           impl="pallas", account=True)
+assert logits.shape == (2, cfg.d_out) and float(stats.events) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

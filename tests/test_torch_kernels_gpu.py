@@ -20,6 +20,9 @@ from repro_torch.kernels.cam_search import ref as cam_ref
 from repro_torch.kernels.hat_encode import kernel as hat_kernel
 from repro_torch.kernels.hat_encode import ops as hat_ops
 from repro_torch.kernels.hat_encode import ref as hat_ref
+from repro_torch.kernels.lif_step import kernel as lif_kernel
+from repro_torch.kernels.lif_step import ops as lif_ops
+from repro_torch.kernels.lif_step import ref as lif_ref
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
@@ -189,3 +192,63 @@ def test_hat_ops_on_cuda_launch_once_per_call():
     assert torch.equal(stream, hat_ref.compact_stream(*want[:2]))
     with pytest.raises(ValueError, match="N % 256 == 0"):
         hat_ops.hat_encode(spikes[..., :100], impl="pallas")
+
+
+# ---- lif_step (B4) ------------------------------------------------------------
+
+
+def _lif_state(shape, seed, threshold, device):
+    """N(0, 3^2) v and I; a sixty-fourth of the elements land exactly on
+    the threshold (v = 0, I = threshold)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal(shape) * 3).astype(np.float32)
+    i = (rng.standard_normal(shape) * 3).astype(np.float32)
+    at = rng.random(shape) < 1 / 64
+    v[at], i[at] = 0.0, np.float32(threshold)
+    return torch.from_numpy(v).to(device), torch.from_numpy(i).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 4096), (8, 512), (32, 128),
+                                   (3, 5), (1, 4099)])
+@pytest.mark.parametrize("decay,threshold,v_reset", [(0.9, 1.0, 0.0),
+                                                     (0.7, 0.3, -0.25)])
+def test_lif_step_kernel_matches_plain_version(shape, decay, threshold,
+                                               v_reset):
+    device = _cuda()
+    v, i = _lif_state(shape, sum(shape), threshold, device)
+    before = lif_kernel.launches
+    got = lif_kernel.lif_step_cuda(v, i, decay, threshold, v_reset)
+    torch.cuda.synchronize()
+    assert lif_kernel.launches == before + 1
+    want = lif_ref.lif_step_ref(v, i, decay=decay, threshold=threshold,
+                                v_reset=v_reset)
+    for g, w in zip(got, want):                    # bitwise
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert 0 < int(got[1].sum()) < got[1].numel()
+    # the unaligned scalar path: a view one float past a 16-byte boundary
+    flat_v, flat_i = v.reshape(-1)[1:], i.reshape(-1)[1:]
+    got = lif_kernel.lif_step_cuda(flat_v, flat_i, decay, threshold, v_reset)
+    want = lif_ref.lif_step_ref(flat_v, flat_i, decay=decay,
+                                threshold=threshold, v_reset=v_reset)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_lif_ops_on_cuda_launch_and_keep_the_block_rule():
+    device = _cuda()
+    v, i = _lif_state((16, 1024), 3, 1.0, device)
+    before = lif_kernel.launches
+    got = lif_ops.lif_step(v, i, decay=0.9, threshold=1.0, impl="pallas")
+    assert lif_kernel.launches == before + 1
+    want = lif_ops.lif_step(v, i, decay=0.9, threshold=1.0, impl="xla")
+    assert lif_kernel.launches == before + 1       # xla: the plain version
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        lif_ops.lif_step(v[:12], i[:12], decay=0.9, threshold=1.0,
+                         impl="pallas")
+    with pytest.raises(RuntimeError, match="no backward"):
+        lif_kernel.lif_step_cuda(v.requires_grad_(), i, 0.9, 1.0)
+    assert lif_kernel.launches == before + 1
