@@ -6,9 +6,9 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 
  1. the card: name and power limit (nvidia-smi) and torch's device name;
     no CUDA device exits 1 before anything else runs;
- 2. the build: the port's four CUDA sources (sparse_tick, cam_search,
-    hat_encode, lif_step), one nvcc each, started together, with build
-    times and the ptxas register/shared-memory report;
+ 2. the build: the port's five CUDA sources (sparse_tick, cam_search,
+    hat_encode, lif_step, moe_dispatch), one nvcc each, started together,
+    with build times and the ptxas register/shared-memory report;
  3. each kernel against its plain torch version on the card, at the main
     paths' shapes, exactly equal: the sparse tick at 16 cores x 256
     neurons x 512 CAM entries for all five arbiter schemes (plus 64
@@ -17,7 +17,11 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     speculative search at odd shapes with 1-3 words; hat_encode at N in
     {256, 512, 65536} and spike rates 0, 0.05, 0.5 and 1; lif_step
     bitwise at (128, 4096), (8, 512) and (32, 128), with values exactly
-    at the threshold and one ulp below it;
+    at the threshold and one ulp below it; moe_dispatch exactly at the
+    JAX sweep's (M, E) = (256, 16), (2048, 160), (512, 64), (4096, 128)
+    and at the served streams (decode: 4 x 6 events padded to 256,
+    prefill: M = 3072, E = 64), each uniform, all on one expert, and
+    with pad and stray ids;
  4. the main paths: `Interface(cfg).compile(params).run(spikes)` on the
     paper's scaled DYNAPs fabric (16 x 256 x 512, hier_tree arbiter,
     multicast_tree NoC), over two 256-tick streams - Bernoulli 0.05, and
@@ -32,12 +36,21 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     512 CAM entries, 32 steps) on a batch of 128 rasters, impl="pallas"
     (lif_step once per step) against impl="xla" (spikes, rates and
     logits bitwise), the card against the CPU port on an 8-sample
-    prefix, and account=True on 32 samples (1024 ticks);
+    prefix, and account=True on 32 samples (1024 ticks); then the served
+    LM: DeepSeek-V2-Lite at full width and depth (15.71 B float32
+    parameters drawn on the card), `ServeEngine.generate` greedy on 4
+    requests of 128 prompt tokens and 32 new tokens, moe_dispatch once per
+    MoE layer per forward (26 x 33); the route of every MoE layer of one
+    prefill on the card against `hat_route` on the CPU; and the model at
+    full width cut to its dense layer and one MoE layer, in float32,
+    teacher-forced on the card and on the CPU from the same parameters;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
-    forward's ms per batch, host split and device profile, and every
-    kernel's, plain version's and library call's time per call;
+    forward's ms per batch, host split and device profile, the served
+    LM's prefill ms, decode ms per step, tokens/s, host split and device
+    profile, and every kernel's, plain version's and library call's time
+    per call;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -45,6 +58,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -76,6 +90,16 @@ LIF_SHAPES = ((128, 4096), (8, 512), (32, 128))
 SNN_BATCH = 128                 # examples/snn_multicore.py's EVAL_BATCH
 SNN_PREFIX = 8
 ACCOUNT_BATCH = 32
+MOE_SWEEP = ((256, 16), (2048, 160), (512, 64), (4096, 128))
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 128, 32
+LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 32
+LM_RUNS = 3
+# card against CPU on the same inputs, float32 softmax and sums in
+# another order: route weights, aux and z losses (an H100 read 1.9e-6),
+# and the logits of the 2-layer full-width float32 cut (an H100 read
+# 8.9e-6 with logits up to 5.4)
+ROUTE_RTOL, ROUTE_ATOL = 1e-5, 1e-6
+LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -194,13 +218,286 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+class Capture:
+    """Record every call of ``owner.attribute`` (its arguments and result)
+    while the block runs; the real function still does the work."""
+
+    def __init__(self, owner, attribute):
+        self.owner, self.attribute = owner, attribute
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.owner, self.attribute)
+
+        def wrapper(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+        setattr(self.owner, self.attribute, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attribute, self.orig)
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def route_gap(card, cpu, label):
+    """Hold a route from the card to one from the CPU on the same logits:
+    integer fields exactly, float fields within ROUTE_RTOL / ROUTE_ATOL.
+    Returns the largest gap of a float field."""
+    gap = 0.0
+    for field in card._fields:
+        a, b = getattr(card, field).cpu(), getattr(cpu, field)
+        if a.is_floating_point():
+            check(torch.allclose(a, b, rtol=ROUTE_RTOL, atol=ROUTE_ATOL),
+                  f"{label}: route {field} beyond rtol {ROUTE_RTOL} / atol "
+                  f"{ROUTE_ATOL}: max {float((a - b).abs().max())}")
+            gap = max(gap, float((a - b).abs().max()))
+        else:
+            check(torch.equal(a, b), f"{label}: route {field} differs")
+    return gap
+
+
+def served_lm(dev, tag, reset_launches, read_launches, no_launch):
+    """The served DeepSeek-V2-Lite: the model cut to two layers at full
+    width, card against CPU; then the full model served on the card,
+    its launches, routes, times and device profile.  Returns the B5
+    launches of the served run and one MoE layer's padded prefill
+    event stream."""
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.core import event_router
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.models import blocks, lm
+    from repro_torch.serve.lm_engine import ServeEngine
+
+    cfg = deepseek_v2_lite_16b.config()
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+
+    # ---- the model cut to its dense layer and one MoE layer, float32,
+    # teacher-forced on the card and on the CPU from the same parameters.
+    # Layer 1's router sees layer 0's output, which the card sums in
+    # another order: a token whose top-k gates are nearly tied may choose
+    # another expert there (a flip, counted), and through the shared
+    # capacity a later token of that expert may be kept on one side and
+    # dropped on the other.  Every other token must agree.
+    small = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED), small)
+    cpu_params = tree_to(params, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH, LM_CHECK_TOKENS),
+                           generator=gen, device=dev, dtype=torch.int32)
+    with Capture(event_router, "hat_route") as card_routes:
+        card = lm.forward(params, {"tokens": tokens}, small)
+    with Capture(event_router, "hat_route") as cpu_routes:
+        cpu = lm.forward(cpu_params, {"tokens": tokens.cpu()}, small)
+    check(len(card_routes) == len(cpu_routes) == 1, "one MoE layer routes")
+    (c_args, _, rc), (p_args, _, rp) = card_routes[0], cpu_routes[0]
+    k = cfg.moe.top_k
+    logit_in_gap = float((c_args[0].cpu() - p_args[0]).abs().max())
+    gates_c = torch.softmax(c_args[0].cpu().float(), -1)
+    gates_p = torch.softmax(p_args[0].float(), -1)
+    flips = (rc.expert_ids.cpu() != rp.expert_ids).any(-1)
+    cascade = ~flips & (rc.kept.cpu() != rp.kept).any(-1)
+    top = torch.sort(gates_p, -1, descending=True).values[:, :k + 1]
+    tie_gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+    drift = (gates_c - gates_p).abs().amax(-1)
+    for t in flips.nonzero()[:, 0].tolist():
+        check(float(tie_gap[t]) <= 2 * float(drift[t]) + 1e-7,
+              f"token {t} chose other experts on the card without a near "
+              f"tie: top-{k + 1} gate gap {float(tie_gap[t])}, gates "
+              f"differ by {float(drift[t])}")
+    if bool(cascade.any()):
+        check(bool(flips.any()) and int(flips.nonzero()[0]) <
+              int(cascade.nonzero()[0]), "a kept/dropped event differs "
+              "with no earlier flip to explain it")
+    same = ~(flips | cascade)
+    check(bool(same.any()), "every token's route differs")
+    lc = card["logits"].cpu().reshape(-1, cfg.vocab)[same]
+    lp = cpu["logits"].reshape(-1, cfg.vocab)[same]
+    logit_gap = float((lc - lp).abs().max())
+    check(bool(card["logits"].isfinite().all())
+          and card["logits"].shape == (LM_CHECK_BATCH, LM_CHECK_TOKENS,
+                                       cfg.vocab), "reduced logits shape")
+    check(torch.allclose(lc, lp, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          f"reduced-depth logits card vs CPU beyond rtol {LOGIT_RTOL} / atol "
+          f"{LOGIT_ATOL}: max {logit_gap}")
+    weight_gap = float((rc.weights.cpu() - rp.weights)[same].abs().max())
+    check(torch.allclose(rc.weights.cpu()[same], rp.weights[same],
+                         rtol=ROUTE_RTOL, atol=ROUTE_ATOL),
+          f"reduced-depth route weights beyond tolerance: {weight_gap}")
+    check(torch.equal(rc.event_slot.cpu()[same] >= 0, rp.kept[same]),
+          "reduced-depth kept events differ")
+    if not bool(flips.any()):
+        route_gap(rc, rp, "reduced-depth layer 1")
+    print(f"LM card vs CPU port, full width cut to 2 layers (dense layer 0, "
+          f"MoE layer 1), float32, teacher-forced on {LM_CHECK_BATCH} x "
+          f"{LM_CHECK_TOKENS} tokens: layer 1 gate logits differ by at most "
+          f"{logit_in_gap:.3e}; route flips from near ties "
+          f"{int(flips.sum())} of {flips.numel()} tokens, kept/dropped "
+          f"changes they cascade into {int(cascade.sum())}; on the "
+          f"{int(same.sum())} other tokens logits max abs diff "
+          f"{logit_gap:.3e} (within rtol {LOGIT_RTOL} / atol {LOGIT_ATOL}; "
+          f"largest logit {float(lp.abs().max()):.3f}) and route weights "
+          f"{weight_gap:.3e} (within rtol {ROUTE_RTOL} / atol {ROUTE_ATOL})")
+    del params, cpu_params, card, cpu, card_routes, cpu_routes
+    torch.cuda.empty_cache()
+
+    # ---- the full model on the card ----------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"served LM {cfg.name}: {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB float32) drawn on the card in "
+          f"{init_s:.3f} s; groups {cfg.scan_groups()}; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    engine = ServeEngine(cfg, params)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    want_ops = n_moe * (1 + LM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = engine.generate(prompts, LM_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == {**no_launch, "moe_dispatch": want_ops},
+          f"served LM launches {launches}: want moe_dispatch once per MoE "
+          f"layer per forward ({n_moe} x {1 + LM_STEPS}) and nothing else")
+    check(out.shape == (LM_BATCH, LM_STEPS) and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          "served tokens shape/range")
+    print(f"main path ServeEngine.generate: {LM_BATCH} requests x "
+          f"{LM_PROMPT} prompt tokens, {LM_STEPS} new tokens greedy; "
+          f"launches {launches}; peak {peak:.2f} GiB allocated")
+
+    # the route of every MoE layer of one prefill: card against CPU
+    cache = lm.init_cache(cfg, LM_BATCH, engine.max_len)
+    with Capture(event_router, "hat_route") as routes:
+        logits, _ = engine._prefill(params, {"tokens": prompts}, cache)
+    check(len(routes) == n_moe and bool(logits.isfinite().all()),
+          "prefill: one route per MoE layer, finite logits")
+    gap = 0.0
+    kept = dropped = 0
+    for layer, (args, kwargs, card_route) in enumerate(routes, start=1):
+        cpu_route = event_router.hat_route(args[0].cpu(), *args[1:], **kwargs)
+        gap = max(gap, route_gap(card_route, cpu_route, f"prefill layer "
+                                                        f"{layer}"))
+        kept += int(cpu_route.kept.sum())
+        dropped += int((~cpu_route.kept).sum())
+    stream = routes[0][2].expert_ids.reshape(-1)
+    capacity = routes[0][0][2]
+    print(f"served prefill routes, {n_moe} MoE layers: the card (B5) == the "
+          f"CPU (plain version) on the same bfloat16 gate logits - "
+          f"expert ids, buffer rows, slots, kept and loads exact, weights "
+          f"and losses within {gap:.3e}; {kept} events kept and {dropped} "
+          f"dropped at capacity {capacity} ({stream.numel()} events a layer)")
+
+    # times: prefill ms and decode ms per step (each call synchronized),
+    # then whole generate calls for tokens/s
+    step_ms = {"prefill": [], "decode": []}
+
+    def timed(label, fn):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            step_ms[label].append((time.perf_counter() - t) * 1e3)
+            return res
+        return wrapper
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    timed_out = engine.generate(prompts, LM_STEPS)
+    engine.__post_init__()
+    check(torch.equal(timed_out, out), "greedy generate is not deterministic")
+    gen_s = []
+    for _ in range(LM_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.generate(prompts, LM_STEPS)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t)
+    dq1, dmed, dq3 = statistics.quantiles(step_ms["decode"], n=4)
+    med_s = statistics.median(gen_s)
+    print(f"{tag} served LM {cfg.name}, {LM_BATCH} requests: prefill "
+          f"{step_ms['prefill'][0]:.3f} ms ({LM_BATCH} x {LM_PROMPT} tokens); "
+          f"decode median {dmed:.3f} ms/step (quartiles {dq1:.3f}-{dq3:.3f}, "
+          f"{LM_STEPS} steps); generate median {med_s * 1e3:.3f} ms of "
+          f"{LM_RUNS} runs = {LM_BATCH * LM_STEPS / med_s:.3f} new tokens/s "
+          f"(host clock, synchronized)")
+
+    # host split of one generate
+    total, spent = host_breakdown(lambda: engine.generate(prompts, LM_STEPS), (
+        ("attention (mla_apply)", blocks, "mla_apply"),
+        ("router and hat_route (route_tokens)", blocks, "route_tokens"),
+        ("  of it hat_route", event_router, "hat_route"),
+        ("  of it the dispatch_positions op (B5)", moe_ops,
+         "dispatch_positions"),
+        ("expert weight casts (_moe_weight)", blocks, "_moe_weight"),
+        ("expert FFN (_expert_ffn)", blocks, "_expert_ffn"),
+        ("dense and shared MLPs (mlp_apply)", blocks, "mlp_apply"),
+        ("final norm and head (_head)", lm, "_head")))
+    top = sum(v for k_, v in spent.items() if not k_.startswith(" "))
+    parts = "; ".join(f"{k_.strip()} {v * 1e3:.3f}" for k_, v in spent.items())
+    print(f"{tag} host ms per generate ({1 + LM_STEPS} forwards): total "
+          f"{total * 1e3:.3f} = {parts}; embedding, norms, MoE gather and "
+          f"combine, sampling and the wait for the device "
+          f"{(total - top) * 1e3:.3f}")
+
+    # device profile of one generate
+    wall_us, events = device_events(lambda: engine.generate(prompts,
+                                                            LM_STEPS))
+    check(bool(events), "the profiler recorded no device op in generate")
+    busy_us = sum(e.device_time_total for e in events)
+    by_name = {}
+    for e in events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.device_time_total, count + 1)
+    b5 = {kernel: sum(c for n, (_, c) in by_name.items() if kernel in n)
+          for kernel in moe_kernel.KERNEL_NAMES}
+    check(all(c == want_ops for c in b5.values()),
+          f"profile: B5 kernels {b5}, want {want_ops} of each")
+    print(f"{tag} profile generate: wall {wall_us:.1f} us (host clock, "
+          f"profiler on), device busy {busy_us:.1f} us in {len(events)} "
+          f"device ops, idle share {1 - busy_us / wall_us:.4f}; B5 kernels "
+          f"counted {b5} against {n_moe} x {1 + LM_STEPS} = {want_ops} ops")
+    for key, (us, count) in sorted(by_name.items(),
+                                   key=lambda r: -r[1][0])[:14]:
+        print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches["moe_dispatch"], stream
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch.configs import paper_dynaps
+    from repro_torch.configs import deepseek_v2_lite_16b, paper_dynaps
     from repro_torch.core import arbiter as arb
     from repro_torch.data.pipeline import snn_batch
     from repro_torch.interface import Interface, InterfaceConfig, pipeline
@@ -216,6 +513,8 @@ def main() -> int:
     from repro_torch.kernels.lif_step import kernel as lif_kernel
     from repro_torch.kernels.lif_step import ops as lif_ops
     from repro_torch.kernels.lif_step import ref as lif_ref
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
     from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
     from repro_torch.kernels.sparse_tick import ops as sparse_ops
     from repro_torch.kernels.sparse_tick import ref as sparse_ref
@@ -224,7 +523,10 @@ def main() -> int:
     from repro_torch.noc.topology import NocConfig
 
     kernel_modules = {"sparse_tick": sparse_kernel, "cam_search": cam_kernel,
-                      "hat_encode": hat_kernel, "lif_step": lif_kernel}
+                      "hat_encode": hat_kernel, "lif_step": lif_kernel,
+                      "moe_dispatch": moe_kernel}
+    no_launch = dict.fromkeys(kernel_modules, 0)
+    lm_cfg = deepseek_v2_lite_16b.config()
 
     def reset_launches():
         for module in kernel_modules.values():
@@ -234,6 +536,9 @@ def main() -> int:
         return {name: m.launches for name, m in kernel_modules.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bfloat16 products sum in float32 and round once, as the JAX package's
+    # preferred_element_type=float32 asks
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     card = card_line()
@@ -401,6 +706,43 @@ def main() -> int:
               f"{int(at.sum())} values at the threshold and {int(under.sum())}"
               f" an ulp below (v_next and spikes bitwise)")
 
+    # moe_dispatch: the JAX sweep's shapes and the served streams, each
+    # uniform, on one expert, and with the router's pad id E and stray ids
+    moe_cases = [(f"{m}x{e}", torch.randint(0, e, (m,), generator=gen,
+                                             device=dev, dtype=torch.int32),
+                  e) for m, e in MOE_SWEEP]
+    experts, top_k = lm_cfg.moe.num_experts, lm_cfg.moe.top_k
+    decode_ids = torch.full((256,), experts, dtype=torch.int32, device=dev)
+    decode_ids[:LM_BATCH * top_k] = torch.randint(
+        0, experts, (LM_BATCH * top_k,), generator=gen, device=dev)
+    prefill_m = LM_BATCH * LM_PROMPT * top_k
+    moe_cases += [(f"decode {LM_BATCH * top_k} events + pads", decode_ids,
+                   experts),
+                  (f"prefill {prefill_m}", torch.randint(
+                      0, experts, (prefill_m,), generator=gen, device=dev,
+                      dtype=torch.int32), experts)]
+    for label, ids, e in moe_cases:
+        one = torch.full_like(ids, e - 1)
+        stray = ids.clone()
+        stray[ids.numel() // 2:] = e
+        stray[::29] = -3
+        for kind, x in (("uniform", ids), ("one expert", one),
+                        ("pad and stray ids", stray)):
+            got = moe_kernel.dispatch_positions_cuda(x, e)
+            want = moe_ref.dispatch_positions_ref(x, e)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("pos", "load"), got, want):
+                check(torch.equal(g, w), f"moe_dispatch {name} differ at "
+                      f"{label} E={e} ({kind})")
+                max_err["moe_dispatch"] = max(max_err["moe_dispatch"], float(
+                    (g - w).abs().max()))
+        check(torch.equal(moe_kernel.dispatch_positions_cuda(one, e)[0],
+                          torch.arange(one.numel(), device=dev,
+                                       dtype=torch.int32)),
+              f"moe_dispatch on one expert at {label}: positions not 0..M-1")
+        print(f"kernel == plain: moe_dispatch {label} E={e}, uniform, one "
+              f"expert, pad and stray ids (positions and loads exact)")
+
     # ---- 4. the main paths -----------------------------------------------
     sparse_session = Interface(config("hier_tree")).compile(params)
     pallas_session = Interface(cfg).compile(params)
@@ -431,13 +773,12 @@ def main() -> int:
               f"{launches[label]} (non-overflowing ticks: {fits}; "
               f"capacity {capacity})")
     check(launches["pallas_sparse"] == {
-        "sparse_tick": sum(fits.values()), "cam_search": 0, "hat_encode": 0,
-        "lif_step": 0},
+        **no_launch, "sparse_tick": sum(fits.values())},
         f"pallas_sparse launches {launches['pallas_sparse']}: want "
         f"sparse_tick once per non-overflowing tick, no cam_search or "
         f"hat_encode")
-    check(launches["pallas"] == {"sparse_tick": 0, "cam_search": ticks_all,
-                                 "hat_encode": ticks_all, "lif_step": 0},
+    check(launches["pallas"] == {**no_launch, "cam_search": ticks_all,
+                                 "hat_encode": ticks_all},
           f"pallas launches {launches['pallas']}: want cam_search and "
           f"hat_encode once per tick")
     path_launches = {"sparse_tick": launches["pallas_sparse"]["sparse_tick"],
@@ -494,7 +835,6 @@ def main() -> int:
         snn_launches[impl] = read_launches()
         print(f"main path snn_forward impl={impl}: launches over one "
               f"forward of {SNN_BATCH} x {steps} steps {snn_launches[impl]}")
-    no_launch = dict.fromkeys(kernel_modules, 0)
     check(snn_launches["pallas"] == {**no_launch, "lif_step": steps},
           f"snn pallas launches {snn_launches['pallas']}: want lif_step "
           f"once per step and nothing else")
@@ -735,6 +1075,10 @@ def main() -> int:
                                        key=lambda r: -r[1][0])[:8]:
             print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
 
+    # the served LM: its checks, times and profile (moe_dispatch's path)
+    path_launches["moe_dispatch"], moe_ids = served_lm(
+        dev, tag, reset_launches, read_launches, no_launch)
+
     rows = []
 
     def report(name, kernel_fn, kernel_name, plain_fn, library_fn, nbytes_,
@@ -819,6 +1163,17 @@ def main() -> int:
            "lif_step", lambda: lif_ref.lif_step_ref(v, i, **lif_args), None,
            nbytes(v, i, *lif_outs), 3 * v.numel(), FP32_OPS_PER_S,
            "fp32 ops at 67 TFLOP/s", 2000)
+
+    # B5 on the path: the first MoE layer's prefill stream (4 x 128 tokens x
+    # top-6 = 3072 events, E = 64); ids in, positions and loads out; about
+    # two integer operations an event (its count, its rank).  No one
+    # PyTorch call computes arrival-order positions.
+    moe_outs = moe_kernel.dispatch_positions_cuda(moe_ids, experts)
+    report("moe_dispatch",
+           lambda: moe_kernel.dispatch_positions_cuda(moe_ids, experts),
+           "moe_dispatch",
+           lambda: moe_ref.dispatch_positions_ref(moe_ids, experts), None, nbytes(moe_ids, *moe_outs), 2 * moe_ids.numel(),
+           INT32_OPS_PER_S, "int32 ops at 33.5 TOP/s", 2000)
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -1,1 +1,2 @@
-"""Core models of the PyTorch port: PPA constants, CAM PPA, arbiters."""
+"""Core models of the PyTorch port: PPA constants, CAM PPA, arbiters, and
+the HAT event router applied to MoE dispatch (`event_router`)."""

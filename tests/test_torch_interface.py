@@ -300,6 +300,11 @@ import repro_torch.kernels.sparse_tick.kernel
 import repro_torch.kernels.cam_search.kernel
 import repro_torch.kernels.hat_encode.kernel
 import repro_torch.kernels.lif_step.kernel
+import repro_torch.kernels.moe_dispatch.kernel
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import event_router
+from repro_torch.models import lm
+from repro_torch.serve.lm_engine import ServeEngine
 from repro_torch.configs import paper_dynaps
 from repro_torch.data.pipeline import snn_batch
 from repro_torch.models import snn
@@ -320,6 +325,14 @@ with torch.no_grad():
     logits, rates, stats = snn.snn_forward(params, topo, x, cfg,
                                            impl="pallas", account=True)
 assert logits.shape == (2, cfg.d_out) and float(stats.events) > 0
+lm_cfg = get_smoke_config("deepseek-v2-lite-16b")
+lm_params = lm.init_model(torch.Generator().manual_seed(0), lm_cfg,
+                          device="cpu")
+toks = ServeEngine(lm_cfg, lm_params, max_len=16).generate(
+    torch.zeros((2, 4), dtype=torch.int32), 3)
+assert toks.shape == (2, 3)
+route = event_router.hat_route(torch.randn(10, 8), 2, 4)
+assert int(route.load.sum()) == 20
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -23,6 +23,9 @@ from repro_torch.kernels.hat_encode import ref as hat_ref
 from repro_torch.kernels.lif_step import kernel as lif_kernel
 from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.lif_step import ref as lif_ref
+from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+from repro_torch.kernels.moe_dispatch import ops as moe_ops
+from repro_torch.kernels.moe_dispatch import ref as moe_ref
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
@@ -252,3 +255,48 @@ def test_lif_ops_on_cuda_launch_and_keep_the_block_rule():
     with pytest.raises(RuntimeError, match="no backward"):
         lif_kernel.lif_step_cuda(v.requires_grad_(), i, 0.9, 1.0)
     assert lif_kernel.launches == before + 1
+
+
+# ---- moe_dispatch (B5) --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,e", [(256, 16), (2048, 160), (512, 64),
+                                 (4096, 128), (3072, 64), (256, 64),
+                                 (1000, 7), (70000, 64), (4096, 20000)])
+@pytest.mark.parametrize("stream", ["uniform", "one_expert", "padded"])
+def test_moe_dispatch_kernel_matches_plain_version(m, e, stream):
+    device = _cuda()
+    rng = np.random.default_rng(m + e)
+    ids = rng.integers(0, e, m).astype(np.int32)
+    if stream == "one_expert":
+        ids[:] = e - 1
+    elif stream == "padded":             # the router's pad, and stray ids
+        ids[m // 2:] = e
+        ids[::29] = -3
+    ids = torch.from_numpy(ids).to(device)
+    before = moe_kernel.launches
+    got = moe_kernel.dispatch_positions_cuda(ids, e)
+    torch.cuda.synchronize()
+    assert moe_kernel.launches == before + 1
+    want = moe_ref.dispatch_positions_ref(ids, e)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_ops_on_cuda_launch_and_keep_the_row_rule():
+    device = _cuda()
+    ids = torch.randint(0, 64, (3072,), device=device, dtype=torch.int32)
+    before = moe_kernel.launches
+    got = moe_ops.dispatch_positions(ids, num_experts=64, impl="pallas")
+    assert moe_kernel.launches == before + 1
+    want = moe_ops.dispatch_positions(ids, num_experts=64, impl="xla")
+    assert moe_kernel.launches == before + 1       # xla: the plain version
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="multiple of row=256"):
+        moe_ops.dispatch_positions(ids[:300], num_experts=64, impl="pallas")
+    with pytest.raises(ValueError, match="must lie in"):
+        moe_kernel.dispatch_positions_cuda(ids, 0)
+    assert moe_kernel.launches == before + 1
