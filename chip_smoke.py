@@ -13,15 +13,18 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     paths' shapes, exactly equal: the sparse tick at 16 cores x 256
     neurons x 512 CAM entries for all five arbiter schemes (plus 64
     cores); cam_search's match counts at 8192 queries x 4096 sources x 1
-    word with 1 and 3 lanes, and its match matrix, first match and
-    speculative search at odd shapes with 1-3 words; hat_encode at N in
-    {256, 512, 65536} and spike rates 0, 0.05, 0.5 and 1; lif_step
-    bitwise at (128, 4096), (8, 512) and (32, 128), with values exactly
-    at the threshold and one ulp below it; moe_dispatch exactly at the
-    JAX sweep's (M, E) = (256, 16), (2048, 160), (512, 64), (4096, 128)
-    and at the served streams (decode: 4 x 6 events padded to 256,
-    prefill: M = 3072, E = 64), each uniform, all on one expert, and
-    with pad and stray ids;
+    and 5 words, one lane at valid densities 0, one live source, 0.05,
+    0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
+    source), and its match matrix, first match and speculative search at
+    odd shapes with 1-3 words; hat_encode at N in {256, 512, 65536} and
+    spike rates 0, 0.05, 0.5 and 1; lif_step bitwise at (128, 4096),
+    (8, 512) and (32, 128), with values exactly at the threshold and one
+    ulp below it; moe_dispatch exactly at the JAX sweep's (M, E) = (256,
+    16), (2048, 160), (512, 64), (4096, 128), at the served streams
+    (decode: 4 x 6 events padded to 256, prefill: M = 3072, E = 64) and
+    at M = 65536 and 1048576 with E = 64 and 160 (a cluster of blocks),
+    each uniform, all on one expert, with pad and stray ids, and only
+    pads;
  4. the main paths: `Interface(cfg).compile(params).run(spikes)` on the
     paper's scaled DYNAPs fabric (16 x 256 x 512, hier_tree arbiter,
     multicast_tree NoC), over two 256-tick streams - Bernoulli 0.05, and
@@ -50,7 +53,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     forward's ms per batch, host split and device profile, the served
     LM's prefill ms, decode ms per step, tokens/s, host split and device
     profile, and every kernel's, plain version's and library call's time
-    per call;
+    per call (cam_search at the Bernoulli 0.05 and all-ones frames, with
+    its bound over all pairs and over (query, live source) pairs;
+    moe_dispatch at the served prefill and decode streams and at
+    benchmarks/kernel_bench.py's 16384 x 160 and 65536 x 160);
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -91,6 +97,8 @@ SNN_BATCH = 128                 # examples/snn_multicore.py's EVAL_BATCH
 SNN_PREFIX = 8
 ACCOUNT_BATCH = 32
 MOE_SWEEP = ((256, 16), (2048, 160), (512, 64), (4096, 128))
+MOE_LONG = ((65536, 64), (65536, 160), (1048576, 64), (1048576, 160))
+MOE_BENCH = ((16384, 160), (65536, 160))   # benchmarks/kernel_bench.py times
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 128, 32
 LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 32
 LM_RUNS = 3
@@ -606,25 +614,55 @@ def main() -> int:
               f"latency/energy/hits exact)")
 
     # cam_search counts at the path's shapes: the fabric's own packed tags
-    # against every source address, valid = the lanes' spike frames
+    # against every source address, valid = the lanes' spike frames, at
+    # every density the kernel's live-source compaction meets (none, one
+    # live source, a frame's 0.05, half, all), one lane, three lanes of one
+    # frame rate and three of mixed densities; then W = 5 tags (the
+    # kernel's runtime-W path) at the same shapes
     cfg = config("hier_tree", impl="pallas")
     params = random_connectivity(torch.Generator(dev).manual_seed(SEED), cfg)
     routing = pipeline.build_routing_index(params, cfg)
     q_words, src_words = routing.q_words, routing.src_words
-    for rates in ((RATE,), (RATE, 0.5, 1.0)):
-        valid = torch.rand((len(rates), src_words.shape[0]), generator=gen,
-                           device=dev) < torch.tensor(rates, device=dev)[:, None]
-        got = cam_kernel.cam_match_counts_cuda(q_words, src_words, valid)
-        want = cam_ref.match_counts_ref(q_words, src_words, valid)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"cam_match_counts differ at "
-              f"{tuple(q_words.shape)} x {tuple(valid.shape)}")
-        check(int(want.sum()) > 0, "cam_match_counts check saw no match")
-        max_err["cam_search"] = max(max_err["cam_search"], float(
-            (got - want).abs().max()))
-        print(f"kernel == plain: cam_match_counts {q_words.shape[0]} queries "
-              f"x {src_words.shape[0]} sources x W={q_words.shape[1]}, "
-              f"{len(rates)} lane(s) at rates {rates} (exact)")
+
+    def frame(densities, e):
+        rows = []
+        for d in densities:
+            if d == "one":
+                row = torch.zeros(e, dtype=torch.bool, device=dev)
+                row[int(torch.randint(e, (1,), generator=gen,
+                                      device=dev))] = True
+            else:
+                row = torch.rand(e, generator=gen, device=dev) < d
+            rows.append(row)
+        return torch.stack(rows)
+
+    wide_src = torch.randint(-4, 4, (src_words.shape[0], 5), generator=gen,
+                             device=dev, dtype=torch.int32)
+    wide_src[:, 0] = src_words[:, 0]
+    wide_q = torch.randint(-4, 4, (q_words.shape[0], 5), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pick = torch.randint(0, src_words.shape[0], (q_words.shape[0] // 2,),
+                         generator=gen, device=dev)
+    wide_q[: q_words.shape[0] // 2] = wide_src[pick]
+    for qw, sw in ((q_words, src_words), (wide_q, wide_src)):
+        for densities in ((0.0,), ("one",), (RATE,), (0.5,), (1.0,),
+                          (RATE, 0.5, 1.0), (1.0, 0.0, "one")):
+            valid = frame(densities, sw.shape[0])
+            got = cam_kernel.cam_match_counts_cuda(qw, sw, valid)
+            want = cam_ref.match_counts_ref(qw, sw, valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"cam_match_counts differ at "
+                  f"{tuple(qw.shape)} x {tuple(valid.shape)}, densities "
+                  f"{densities}")
+            if any(d not in (0.0, "one") for d in densities):
+                check(int(want.sum()) > 0, "cam_match_counts check saw no "
+                      "match")
+            max_err["cam_search"] = max(max_err["cam_search"], float(
+                (got - want).abs().max()))
+        print(f"kernel == plain: cam_match_counts {qw.shape[0]} queries x "
+              f"{sw.shape[0]} sources x W={qw.shape[1]}, one lane each at "
+              f"densities 0, one live source, {RATE}, 0.5, 1; three lanes at "
+              f"({RATE}, 0.5, 1) and (1, 0, one live source) (exact)")
 
     # cam_search matrix, first match and speculative search at odd shapes
     for words in (1, 2, 3):
@@ -721,13 +759,18 @@ def main() -> int:
                   (f"prefill {prefill_m}", torch.randint(
                       0, experts, (prefill_m,), generator=gen, device=dev,
                       dtype=torch.int32), experts)]
+    # longer streams: a cluster of blocks, each walking many rounds
+    moe_cases += [(f"{m}", torch.randint(0, e, (m,), generator=gen,
+                                         device=dev, dtype=torch.int32), e)
+                  for m, e in MOE_LONG]
     for label, ids, e in moe_cases:
         one = torch.full_like(ids, e - 1)
         stray = ids.clone()
         stray[ids.numel() // 2:] = e
         stray[::29] = -3
         for kind, x in (("uniform", ids), ("one expert", one),
-                        ("pad and stray ids", stray)):
+                        ("pad and stray ids", stray),
+                        ("only pads", torch.full_like(ids, e))):
             got = moe_kernel.dispatch_positions_cuda(x, e)
             want = moe_ref.dispatch_positions_ref(x, e)
             torch.cuda.synchronize()
@@ -741,7 +784,9 @@ def main() -> int:
                                        dtype=torch.int32)),
               f"moe_dispatch on one expert at {label}: positions not 0..M-1")
         print(f"kernel == plain: moe_dispatch {label} E={e}, uniform, one "
-              f"expert, pad and stray ids (positions and loads exact)")
+              f"expert, pad and stray ids, only pads (positions and loads "
+              f"exact; {moe_kernel.launch_geometry(ids.numel())[0]} "
+              f"block(s))")
 
     # ---- 4. the main paths -----------------------------------------------
     sparse_session = Interface(config("hier_tree")).compile(params)
@@ -1082,9 +1127,10 @@ def main() -> int:
     rows = []
 
     def report(name, kernel_fn, kernel_name, plain_fn, library_fn, nbytes_,
-               ops, ops_per_s, ops_note, reps):
+               ops, ops_per_s, ops_note, reps, label=None, row=True):
         """Time one kernel beside its plain version and library call on
-        the same inputs; print its line and add its kernels-line row."""
+        the same inputs; print its line and, with ``row``, add its
+        kernels-line row.  Returns (device ms per call, bound ms)."""
         call_ms = cuda_ms(kernel_fn, reps)
         plain_call_ms = cuda_ms(plain_fn, reps // 10)
         ms = device_ms_per_call(kernel_fn, reps // 10, kernel_name)
@@ -1094,21 +1140,25 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes_, ops, ops_per_s)
         lib = ("none" if library_ms is None
                else f"{library_ms * 1e3:.3f} us/call")
-        print(f"{tag} {name} kernel: {ms * 1e3:.3f} us/launch; plain torch "
+        what = name if label is None else f"{name} ({label})"
+        print(f"{tag} {what} kernel: {ms * 1e3:.3f} us/launch; plain torch "
               f"version: {plain_ms * 1e3:.3f} us/call; library call: {lib} "
               f"(profiler device time); bound {bound_ms * 1e3:.4f} us by "
-              f"{bound_by} ({nbytes_} bytes at 3.35 TB/s; {ops} {ops_note})")
-        print(f"{tag} {name} per call as a caller waits (CUDA events, "
+              f"{bound_by} ({nbytes_} bytes at 3.35 TB/s; {ops} {ops_note}); "
+              f"launches on its path {path_launches[name]}")
+        print(f"{tag} {what} per call as a caller waits (CUDA events, "
               f"back-to-back, host overhead included): wrapper "
               f"{call_ms * 1e3:.3f} us ({reps} calls), plain torch "
               f"{plain_call_ms * 1e3:.3f} us ({reps // 10} calls)")
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": kernel_modules[name].REPLACES,
-            "launches": path_launches[name], "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+        if row:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": kernel_modules[name].REPLACES,
+                "launches": path_launches[name], "max_abs_err": max_err[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+        return ms, bound_ms
 
     # B1: the bound counts what it reads and writes (its inputs, the CAM
     # entries' int32 targets among them, and its four outputs), each once;
@@ -1122,19 +1172,38 @@ def main() -> int:
            int(args[4].sum()) + args[3].numel(), FP32_OPS_PER_S,
            "fp32 ops at 67 TFLOP/s", 2000)
 
-    # B2 on the path: one tick's match counts, one lane; about 2W + 1
-    # integer operations per (query, source) pair (compares, ANDs, add)
-    valid = sparse_stream[:1].reshape(1, -1)
-    counts = cam_kernel.cam_match_counts_cuda(q_words, src_words, valid)
+    # B2 on the path: one tick's match counts, one lane, at the Bernoulli
+    # 0.05 frame (the kernels-line row) and at an all-ones frame (the burst
+    # ticks); about 2W + 1 integer operations per (query, source) pair
+    # (compares, ANDs, add).  The kernel compares against live sources
+    # only, so the bound counts the (query, live source) pairs these inputs
+    # need; the bound over every pair, the first port's, is printed beside
+    # it for reference.
     b, w = q_words.shape
-    report("cam_search",
-           lambda: cam_kernel.cam_match_counts_cuda(q_words, src_words,
-                                                    valid),
-           "cam_match_counts_kernel",
-           lambda: cam_ref.match_counts_ref(q_words, src_words, valid), None,
-           nbytes(q_words, src_words, valid, counts),
-           valid.shape[0] * b * src_words.shape[0] * (2 * w + 1),
-           INT32_OPS_PER_S, "int32 ops at 33.5 TOP/s", 2000)
+    for label, valid in (("Bernoulli 0.05 frame", sparse_stream[:1].reshape(
+            1, -1)), ("all-ones frame", burst_stream[:1].reshape(1, -1))):
+        counts = cam_kernel.cam_match_counts_cuda(q_words, src_words, valid)
+        live = int(valid.sum())
+        ms, live_ms = report(
+            "cam_search",
+            lambda: cam_kernel.cam_match_counts_cuda(q_words, src_words,
+                                                     valid),
+            "cam_match_counts_kernel",
+            lambda: cam_ref.match_counts_ref(q_words, src_words, valid), None,
+            nbytes(q_words, src_words, valid, counts),
+            valid.shape[0] * b * live * (2 * w + 1), INT32_OPS_PER_S,
+            f"int32 ops at 33.5 TOP/s over {b} x {live} (query, live source) "
+            f"pairs", 2000, label=label, row=label.startswith("Bernoulli"))
+        all_pairs_ms, all_by = bound(
+            nbytes(q_words, src_words, valid, counts),
+            valid.shape[0] * b * src_words.shape[0] * (2 * w + 1),
+            INT32_OPS_PER_S)
+        print(f"{tag} cam_search ({label}) bounds: {live_ms * 1e3:.4f} us "
+              f"over the {b} x {live} (query, live source) pairs these "
+              f"inputs need (the row's), {all_pairs_ms * 1e3:.4f} us by "
+              f"{all_by} over all {b} x {src_words.shape[0]} pairs; kernel "
+              f"at {live_ms / ms:.4f} of the first, {all_pairs_ms / ms:.4f} "
+              f"of the second")
 
     # B3 on the path: one tick's bitmaps (every core of one lane), with
     # the AER stream; its library call is torch.cumsum over the same
@@ -1165,15 +1234,27 @@ def main() -> int:
            "fp32 ops at 67 TFLOP/s", 2000)
 
     # B5 on the path: the first MoE layer's prefill stream (4 x 128 tokens x
-    # top-6 = 3072 events, E = 64); ids in, positions and loads out; about
-    # two integer operations an event (its count, its rank).  No one
-    # PyTorch call computes arrival-order positions.
-    moe_outs = moe_kernel.dispatch_positions_cuda(moe_ids, experts)
-    report("moe_dispatch",
-           lambda: moe_kernel.dispatch_positions_cuda(moe_ids, experts),
-           "moe_dispatch",
-           lambda: moe_ref.dispatch_positions_ref(moe_ids, experts), None, nbytes(moe_ids, *moe_outs), 2 * moe_ids.numel(),
-           INT32_OPS_PER_S, "int32 ops at 33.5 TOP/s", 2000)
+    # top-6 = 3072 events, E = 64; the kernels-line row), then a decode
+    # stream of the served shape (4 x 6 events padded with the id E to 256);
+    # ids in, positions and loads out; about two integer operations an
+    # event (its count, its rank).  No one PyTorch call computes
+    # arrival-order positions.
+    # Then the longer streams benchmarks/kernel_bench.py times (a cluster of
+    # blocks): uniform ids from the seed.
+    bench_ids = [(f"{m} x {e} stream", e, torch.randint(
+        0, e, (m,), generator=gen, device=dev, dtype=torch.int32))
+        for m, e in MOE_BENCH]
+    for label, experts_, ids in (("served prefill stream", experts, moe_ids),
+                                 ("served decode stream", experts,
+                                  decode_ids), *bench_ids):
+        moe_outs = moe_kernel.dispatch_positions_cuda(ids, experts_)
+        report("moe_dispatch",
+               lambda: moe_kernel.dispatch_positions_cuda(ids, experts_),
+               "moe_dispatch",
+               lambda: moe_ref.dispatch_positions_ref(ids, experts_), None,
+               nbytes(ids, *moe_outs), 2 * ids.numel(), INT32_OPS_PER_S,
+               "int32 ops at 33.5 TOP/s", 2000, label=label,
+               row=label.endswith("prefill stream"))
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -4,9 +4,11 @@ The kernels (``repro_torch/csrc/cam_search.cu``) replace the TPU kernel
 `repro.kernels.cam_search.kernel.cam_search_pallas` (kernel.py:40):
 `cam_search_cuda` writes the (B, E) match matrix as that kernel does, and
 `cam_match_counts_cuda` counts the matches of every query over the
-entries for L lanes of valid flags, without writing the matrix.  Both
-take any B, E and W: the kernels mask their ragged edges.  See the
-source for the design and bound.
+entries for L lanes of valid flags, without writing the matrix: each
+block compacts a lane's live entries (valid flag set) into shared memory
+and compares its query rows against those only.  Both take any B, E and
+W: the kernels mask their ragged edges.  See the source for the design
+and bound.
 
 Each wrapper checks its operands, allocates the output with
 ``torch.empty``, launches on the current CUDA stream and raises on a

@@ -140,6 +140,68 @@ def test_cam_match_counts_kernel_matches_plain_version(b, e, bits, lanes):
     assert torch.equal(got, want) and int(want.sum()) > 0
 
 
+def _cam_frame(rng, lanes, e, density, device):
+    """(lanes, e) valid flags: a density per lane, "one" for a single live
+    source."""
+    rows = []
+    for d in density:
+        if d == "one":
+            row = np.zeros(e, dtype=bool)
+            row[rng.integers(e)] = True
+        else:
+            row = rng.random(e) < d
+        rows.append(row)
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [(0.0,), ("one",), (0.05,), (0.5,),
+                                     (1.0,), (0.05, 0.5, 1.0),
+                                     (1.0, 0.0, "one")])
+@pytest.mark.parametrize("w", [1, 5])
+def test_cam_match_counts_at_every_density(density, w):
+    """The interface path's shapes (8192 CAM entries x 4096 sources) with
+    no live source, one, a spike frame's 0.05, half, all, and lanes of
+    mixed density; W = 5 takes the kernel's runtime-W path."""
+    device = _cuda()
+    rng = np.random.default_rng(len(density) * 10 + w)
+    b, e = 8192, 4096
+    t = torch.from_numpy(rng.integers(-4, 4, (e, w), dtype=np.int32)).to(
+        device)
+    t[:, 0] = torch.arange(e, dtype=torch.int32, device=device)
+    q = torch.from_numpy(rng.integers(-4, 4, (b, w), dtype=np.int32)).to(
+        device)
+    q[: b // 2] = t[torch.from_numpy(rng.integers(0, e, b // 2)).to(device)]
+    q[-8:] = 0                              # all-zero query rows
+    valid = _cam_frame(rng, len(density), e, density, device)
+    before = cam_kernel.launches
+    got = cam_kernel.cam_match_counts_cuda(q, t, valid)
+    torch.cuda.synchronize()
+    assert cam_kernel.launches == before + 1
+    want = cam_ref.match_counts_ref(q, t, valid)
+    assert torch.equal(got, want)
+    if all(d == 0.0 for d in density):
+        assert int(want.sum()) == 0
+    elif any(d not in (0.0, "one") for d in density):
+        assert int(want.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,e", [(8192, 4097), (8191, 1023), (65, 5),
+                                 (1, 1), (300, 9000)])
+def test_cam_match_counts_ragged_edges(b, e):
+    """B not a multiple of a block's 64 rows, E not a multiple of a warp's
+    32 sources or of a group of four live tags, E above one staged tile."""
+    device = _cuda()
+    rng = np.random.default_rng(b + e)
+    t = _tags(rng, e, 12, device)
+    q = torch.cat([t, _tags(rng, b, 12, device)])[:b].contiguous()
+    valid = _cam_frame(rng, 2, e, (0.3, 1.0), device)
+    got = cam_kernel.cam_match_counts_cuda(q, t, valid)
+    want = cam_ref.match_counts_ref(q, t, valid)
+    assert torch.equal(got, want) and int(want.sum()) > 0
+
+
 @pytest.mark.gpu
 def test_cam_ops_on_cuda_launch_and_keep_the_block_rule():
     device = _cuda()
@@ -263,7 +325,9 @@ def test_lif_ops_on_cuda_launch_and_keep_the_block_rule():
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,e", [(256, 16), (2048, 160), (512, 64),
                                  (4096, 128), (3072, 64), (256, 64),
-                                 (1000, 7), (70000, 64), (4096, 20000)])
+                                 (1000, 7), (70000, 64),
+                                 (4096, moe_kernel.MAX_EXPERTS),
+                                 (70000, moe_kernel.MAX_EXPERTS)])
 @pytest.mark.parametrize("stream", ["uniform", "one_expert", "padded"])
 def test_moe_dispatch_kernel_matches_plain_version(m, e, stream):
     device = _cuda()
@@ -299,4 +363,42 @@ def test_moe_dispatch_ops_on_cuda_launch_and_keep_the_row_rule():
         moe_ops.dispatch_positions(ids[:300], num_experts=64, impl="pallas")
     with pytest.raises(ValueError, match="must lie in"):
         moe_kernel.dispatch_positions_cuda(ids, 0)
+    with pytest.raises(ValueError, match="must lie in"):
+        moe_kernel.dispatch_positions_cuda(ids, 20000)
+    with pytest.raises(ValueError, match="must lie in"):
+        moe_kernel.dispatch_positions_cuda(ids, moe_kernel.MAX_EXPERTS + 1)
     assert moe_kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [256, 3072, 65536, 1_048_576])
+@pytest.mark.parametrize("e", [1, 64, 160])
+@pytest.mark.parametrize("stream", ["uniform", "only_pad", "one_expert",
+                                    "padded"])
+def test_moe_dispatch_one_launch_at_every_length(m, e, stream):
+    """The served streams' lengths (256, 3072: one block) and longer ones
+    (65,536 and 1,048,576: a cluster whose blocks take many rounds each),
+    with a stream of only pad ids and one where one expert takes every
+    event."""
+    device = _cuda()
+    rng = np.random.default_rng(m + 7 * e)
+    ids = rng.integers(0, e, m).astype(np.int32)
+    if stream == "only_pad":
+        ids[:] = e
+    elif stream == "one_expert":
+        ids[:] = rng.integers(e)
+    elif stream == "padded":
+        ids[m // 3:] = e
+        ids[::31] = -1
+    ids = torch.from_numpy(ids).to(device)
+    before = moe_kernel.launches
+    pos, load = moe_kernel.dispatch_positions_cuda(ids, e)
+    torch.cuda.synchronize()
+    assert moe_kernel.launches == before + 1
+    want_pos, want_load = moe_ref.dispatch_positions_ref(ids, e)
+    assert torch.equal(pos, want_pos) and torch.equal(load, want_load)
+    if stream == "only_pad":
+        assert int(pos.abs().sum()) == 0 and int(load.sum()) == 0
+    if stream == "one_expert":
+        assert torch.equal(pos, torch.arange(m, dtype=torch.int32,
+                                             device=device))

@@ -118,3 +118,31 @@ def test_cpu_takes_the_plain_version_and_the_wrapper_refuses_cpu():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         moe_kernel.dispatch_positions_cuda(ids, 16)
+
+
+@pytest.mark.parametrize("m", [1, 24, 255, 256, 1023, 1024, 1025, 3072, 4096,
+                               4097, 8192, 65536, 65537, 1_048_576,
+                               3_000_001])
+def test_launch_geometry_tiles_the_stream(m):
+    """The kernel's blocks take spans [r * span, (r + 1) * span) clipped to
+    m: they must cover [0, m) once, each block a whole number of rounds
+    and at least one event, one block while the stream fits its rounds."""
+    blocks, span = moe_kernel.launch_geometry(m)
+    assert 1 <= blocks <= moe_kernel.MAX_BLOCKS
+    assert span > 0 and span % moe_kernel.ROUND == 0
+    starts = [r * span for r in range(blocks)]
+    ends = [min(m, s + span) for s in starts]
+    assert starts[0] == 0 and ends[-1] == m
+    assert all(e0 == s1 for e0, s1 in zip(ends, starts[1:]))
+    assert all(s < e for s, e in zip(starts, ends))
+    solo = m <= moe_kernel.SOLO_ROUNDS * moe_kernel.ROUND
+    assert (blocks == 1) == solo
+
+
+def test_max_experts_fits_shared_memory_and_deepseek():
+    """(2 + 32) E int32 of shared memory a block: the limit fits 227 KB,
+    one more expert does not, and DeepSeek-V2's 160 experts fit."""
+    per = 4 * (2 + moe_kernel.ROUND // 32)
+    assert moe_kernel.MAX_EXPERTS * per <= 232448
+    assert (moe_kernel.MAX_EXPERTS + 1) * per > 232448
+    assert moe_kernel.MAX_EXPERTS >= 160
