@@ -7,12 +7,17 @@ Phases (any failure exits nonzero; no phase catches its own failure):
  1. the card: name and power limit (nvidia-smi) and torch's device name;
     no CUDA device exits 1 before anything else runs;
  2. the build: the port's five CUDA sources (sparse_tick, cam_search,
-    hat_encode, lif_step, moe_dispatch), one nvcc each, started together,
-    with build times and the ptxas register/shared-memory report;
+    hat_encode, lif_step, moe_dispatch) and the empty launch_floor kernel,
+    one nvcc each, started together, with build times and the ptxas
+    register/shared-memory report;
  3. each kernel against its plain torch version on the card, at the main
-    paths' shapes, exactly equal: the sparse tick at 16 cores x 256
-    neurons x 512 CAM entries for all five arbiter schemes (plus 64
-    cores); cam_search's match counts at 8192 queries x 4096 sources x 1
+    paths' shapes, exactly equal: the one-tick sparse tick at 16 cores x
+    256 neurons x 512 CAM entries for all five arbiter schemes (plus 64
+    cores); the whole-run sparse tick (sparse_run) for the five arbiter
+    schemes x three NoC schemes at 16 and 64 cores on two lanes of a
+    stream with overflowing ticks (currents bitwise, whole-number stats
+    exact, the rest within 1e-6 relative, the largest gap printed);
+    cam_search's match counts at 8192 queries x 4096 sources x 1
     and 5 words, one lane at valid densities 0, one live source, 0.05,
     0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
     source), and its match matrix, first match and speculative search at
@@ -30,11 +35,12 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     multicast_tree NoC), over two 256-tick streams - Bernoulli 0.05, and
     the same stream with every 16th frame a full burst - first with
     impl="pallas_sparse" (the sparse kernel, the dense fallback on the
-    burst ticks), then with impl="pallas" (cam_search and hat_encode on
-    every tick), each driven with every launch count set to 0 just before
-    and read just after; each held to the impl="xla" session (currents
-    bitwise, stats under the conformance contract) and to the CPU plain
-    path on a 16-tick prefix; then the paper's SNN workload,
+    burst ticks; one sparse_run launch a run), then with impl="pallas"
+    (cam_search and hat_encode on every tick), each driven with every
+    launch count set to 0 just before and read just after; each held to
+    the impl="xla" session (currents bitwise, stats under the
+    conformance contract) and to the CPU plain path on a 16-tick prefix;
+    then the paper's SNN workload,
     `snn_forward` at `paper_dynaps.scaled_config()` (16 x 256 neurons,
     512 CAM entries, 32 steps) on a batch of 128 rasters, impl="pallas"
     (lif_step once per step) against impl="xla" (spikes, rates and
@@ -53,10 +59,13 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     forward's ms per batch, host split and device profile, the served
     LM's prefill ms, decode ms per step, tokens/s, host split and device
     profile, and every kernel's, plain version's and library call's time
-    per call (cam_search at the Bernoulli 0.05 and all-ones frames, with
-    its bound over all pairs and over (query, live source) pairs;
-    moe_dispatch at the served prefill and decode streams and at
-    benchmarks/kernel_bench.py's 16384 x 160 and 65536 x 160);
+    per call (the whole-run sparse tick per launch and per tick at one
+    and at 2, 4 and 16 blocks a tick, and at 64 cores; cam_search at the
+    Bernoulli 0.05 and all-ones frames, with its bound over all pairs and
+    over (query, live source) pairs; lif_step with L2 flushed before
+    each launch; moe_dispatch at the served prefill and decode streams
+    and at benchmarks/kernel_bench.py's 16384 x 160 and 65536 x 160),
+    beside the launch floor: an empty kernel's time;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -64,6 +73,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -81,10 +91,16 @@ FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # (Hopper white paper), so half the data sheet's float32 rate
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 EXACT_FIELDS = ("events", "cam_searches", "noc_hops", "chip_hops")
+# StepStats fields whose values are whole numbers, held exactly between
+# the whole-run kernel and its plain version
+WHOLE_FIELDS = EXACT_FIELDS + ("encode_latency", "noc_energy",
+                               "chip_latency", "chip_energy")
 REL_TOL = 1e-6
 SCHEMES = ("binary_tree", "greedy_tree", "token_ring", "hier_ring",
            "hier_tree")
+NOC_SCHEMES = ("broadcast", "unicast", "multicast_tree")
 CORES, NEURONS, ENTRIES = 16, 256, 512
+RUN_LANES, RUN_TICKS, RUN_BURST = 2, 8, (2, 5)
 TICKS = 256
 PREFIX = 16
 SESSION_RUNS = 7
@@ -510,6 +526,7 @@ def main() -> int:
     from repro_torch.data.pipeline import snn_batch
     from repro_torch.interface import Interface, InterfaceConfig, pipeline
     from repro_torch.interface import session as session_mod
+    from repro_torch.interface.stats import StepStats
     from repro_torch.interface.types import random_connectivity
     from repro_torch.kernels import build
     from repro_torch.kernels.cam_search import kernel as cam_kernel
@@ -533,15 +550,18 @@ def main() -> int:
     kernel_modules = {"sparse_tick": sparse_kernel, "cam_search": cam_kernel,
                       "hat_encode": hat_kernel, "lif_step": lif_kernel,
                       "moe_dispatch": moe_kernel}
-    no_launch = dict.fromkeys(kernel_modules, 0)
+    # the one-tick sparse op keeps its own count: no path launches it
+    no_launch = dict.fromkeys((*kernel_modules, "sparse_tick_one_tick"), 0)
     lm_cfg = deepseek_v2_lite_16b.config()
 
     def reset_launches():
         for module in kernel_modules.values():
             module.launches = 0
+        sparse_kernel.tick_launches = 0
 
     def read_launches():
-        return {name: m.launches for name, m in kernel_modules.items()}
+        return {**{name: m.launches for name, m in kernel_modules.items()},
+                "sparse_tick_one_tick": sparse_kernel.tick_launches}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # bfloat16 products sum in float32 and round once, as the JAX package's
@@ -556,20 +576,21 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    nvcc_s = build.ensure_built(*kernel_modules)
+    nvcc_s = build.ensure_built(*kernel_modules, "launch_floor")
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(nvcc_s)} "
           f"sources in parallel (nvcc " + ", ".join(
               f"{k} {'already built' if v is None else f'{v:.3f} s'}"
               for k, v in nvcc_s.items()) + ")")
-    for name in kernel_modules:
+    for name in nvcc_s:
         for line in build.ptxas_report(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    def config(scheme, cores=CORES, impl="pallas_sparse"):
+    def config(scheme, cores=CORES, impl="pallas_sparse",
+               noc="multicast_tree"):
         return InterfaceConfig(cores=cores, neurons_per_core=NEURONS,
                                cam_entries_per_core=ENTRIES, scheme=scheme,
-                               noc=NocConfig("multicast_tree"), impl=impl)
+                               noc=NocConfig(noc), impl=impl)
 
     def operands(cfg, spikes, seed):
         params = random_connectivity(
@@ -596,6 +617,9 @@ def main() -> int:
     # ---- 3. kernels against their plain versions, on the card -------------
     gen = torch.Generator(dev).manual_seed(SEED + 1)
     max_err = dict.fromkeys(kernel_modules, 0.0)
+    # the one-tick op's largest gap, printed on its own: the kernels line's
+    # B1 row is the whole-run kernel (run_gap)
+    tick_err = 0.0
     cases = [(s, CORES) for s in SCHEMES] + [("hier_tree", 4 * CORES)]
     for scheme, cores in cases:
         frame = torch.rand((1, cores, NEURONS), generator=gen,
@@ -607,11 +631,88 @@ def main() -> int:
         for name, g, w in zip(("currents", "latency", "encode", "hits"),
                               got, want):
             check(torch.equal(g, w), f"{scheme}/{cores} cores: {name} differ")
-            max_err["sparse_tick"] = max(max_err["sparse_tick"],
-                                         float((g - w).abs().max()))
+            tick_err = max(tick_err, float((g - w).abs().max()))
         print(f"kernel == plain: sparse_tick {scheme} "
               f"{cores}x{NEURONS}x{ENTRIES} (currents bitwise, "
               f"latency/energy/hits exact)")
+    print(f"kernel vs plain: sparse_tick one-tick op (sparse_tick_kernel), "
+          f"largest absolute gap {tick_err}")
+
+    def run_both(plan, params, stream, overflow):
+        """The whole-run kernel and its plain version on the same frames,
+        the dense fallback's rows written alike first."""
+        lanes, ticks = stream.shape[:2]
+        cur = torch.full(tuple(stream.shape), math.nan, device=dev)
+        table = torch.full((ticks, len(StepStats._fields), lanes), math.nan,
+                           device=dev)
+        for t in range(ticks):
+            if overflow[t]:
+                c, st = pipeline.dense_tick(plan, params, stream[:, t])
+                cur[:, t], table[t] = c, torch.stack(tuple(st))
+        plain = (cur.clone(), table.clone())
+        sparse = [t for t in range(ticks) if not overflow[t]]
+        index = None if len(sparse) == ticks else torch.tensor(
+            sparse, dtype=torch.int32, device=dev)
+        acc = sparse_kernel.sparse_run_cuda(stream, index, plan.run.kernel,
+                                            cur, table)
+        want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain)
+        torch.cuda.synchronize()
+        return (cur, table, acc), (*plain, want)
+
+    def run_gap(label, got, want):
+        """Currents bitwise, whole-number stats exact, the rest within
+        REL_TOL; returns (largest relative gap, every stat bitwise).  The
+        largest absolute gap of currents and stats goes to the kernels
+        line's B1 row."""
+        check(torch.equal(got[0], want[0]), f"{label}: currents differ")
+        gap, bitwise = 0.0, True
+        for g, w in zip(got, want):
+            max_err["sparse_tick"] = max(max_err["sparse_tick"],
+                                         float((g - w).abs().max()))
+        for g, w in zip(got[1:], want[1:]):
+            g, w = g.movedim(-2, 0), w.movedim(-2, 0)    # fields first
+            check(bool(g.isfinite().all()), f"{label}: stats not finite")
+            for f, field in enumerate(StepStats._fields):
+                diff = (g[f] - w[f]).abs()
+                if field in WHOLE_FIELDS:
+                    check(torch.equal(g[f], w[f]), f"{label}: {field}")
+                else:
+                    rel = torch.where(w[f] == 0, diff, diff / w[f].abs())
+                    gap = max(gap, float(rel.max()))
+            bitwise = bitwise and torch.equal(g, w)
+        check(gap <= REL_TOL, f"{label}: stats beyond {REL_TOL}: {gap}")
+        return gap, bitwise
+
+    # the whole-run sparse tick: every arbiter x NoC pair at 16 and 64
+    # cores, two lanes of a stream whose RUN_BURST ticks overflow
+    for cores in (CORES, 4 * CORES):
+        params = random_connectivity(
+            torch.Generator(dev).manual_seed(SEED + cores), config(
+                "hier_tree", cores))
+        routing = pipeline.build_routing_index(params, config("hier_tree",
+                                                              cores))
+        frames = torch.rand((RUN_LANES, RUN_TICKS, cores, NEURONS),
+                            generator=gen, device=dev) < RATE
+        gap, bitwise, pairs = 0.0, True, 0
+        for noc in NOC_SCHEMES:
+            tables = pipeline.build_tables(params, config("hier_tree", cores,
+                                                          noc=noc))
+            for scheme in SCHEMES:
+                cfg = config(scheme, cores, noc=noc)
+                plan = pipeline.make_plan(params, cfg, tables=tables,
+                                          routing=routing)
+                stream = frames & (frames.to(torch.int32).cumsum(-1)
+                                   <= plan.run.capacity)
+                stream[:, list(RUN_BURST)] = True
+                overflow = [t in RUN_BURST for t in range(RUN_TICKS)]
+                g, b = run_gap(f"sparse_run {scheme}/{noc}/{cores}",
+                               *run_both(plan, params, stream, overflow))
+                gap, bitwise, pairs = max(gap, g), bitwise and b, pairs + 1
+        print(f"kernel vs plain: sparse_run, {pairs} arbiter x NoC pairs at "
+              f"{cores}x{NEURONS}x{ENTRIES}, {RUN_LANES} lanes x {RUN_TICKS} "
+              f"ticks (ticks {RUN_BURST} overflow): currents bitwise, "
+              f"whole-number stats exact, largest relative gap of the rest "
+              f"{gap:.3e} (limit {REL_TOL}); every stat bitwise: {bitwise}")
 
     # cam_search counts at the path's shapes: the fabric's own packed tags
     # against every source address, valid = the lanes' spike frames, at
@@ -795,7 +896,7 @@ def main() -> int:
     sessions = (("pallas", pallas_session), ("pallas_sparse", sparse_session),
                 ("xla", xla_session))
     check(all(s.device == dev for _, s in sessions), "sessions not on the card")
-    capacity = sparse_session.plan.sparse[2]
+    capacity = sparse_session.plan.run.capacity
     gen = torch.Generator(dev).manual_seed(SEED + 2)
     sparse_stream = torch.rand((TICKS, CORES, NEURONS), generator=gen,
                                device=dev) < RATE
@@ -818,10 +919,9 @@ def main() -> int:
               f"{launches[label]} (non-overflowing ticks: {fits}; "
               f"capacity {capacity})")
     check(launches["pallas_sparse"] == {
-        **no_launch, "sparse_tick": sum(fits.values())},
-        f"pallas_sparse launches {launches['pallas_sparse']}: want "
-        f"sparse_tick once per non-overflowing tick, no cam_search or "
-        f"hat_encode")
+        **no_launch, "sparse_tick": len(streams)},
+        f"pallas_sparse launches {launches['pallas_sparse']}: want one "
+        f"sparse_run launch per run, no cam_search or hat_encode")
     check(launches["pallas"] == {**no_launch, "cam_search": ticks_all,
                                  "hat_encode": ticks_all},
           f"pallas launches {launches['pallas']}: want cam_search and "
@@ -1036,13 +1136,10 @@ def main() -> int:
     print_breakdown("pallas_sparse", sparse_session, (
         ("overflow precheck (once per run)", session_mod.InterfaceSession,
          "_overflow"),
-        ("compact_events", sparse_ops, "compact_events"),
-        ("sparse_tick (kernel wrapper)", sparse_ops, "sparse_tick"),
-        ("event_indices", sparse_ops, "event_indices"),
-        ("event-indexed accounting", pipeline, "sparse_accounting_stats"),
-        ("  of it NoC costs", noc_router, "noc_step_costs_events"),
-        ("dense fallback tick", pipeline, "dense_tick")),
-        "rest of the loop (stats stack and accumulate, currents)")
+        ("dense fallback ticks", pipeline, "dense_tick"),
+        ("sparse_run op (once per run)", sparse_ops, "sparse_run"),
+        ("  of it the kernel wrapper", sparse_kernel, "sparse_run_cuda")),
+        "rest (input checks, allocations, the fallback rows' copies)")
     print_breakdown("pallas", pallas_session, (
         ("_entry_drive", pipeline, "_entry_drive"),
         ("  of it the cam_match_counts op", cam_ops, "cam_match_counts"),
@@ -1126,30 +1223,60 @@ def main() -> int:
 
     rows = []
 
+    # the launch floor: an empty sm_90a kernel, one block of 32 threads
+    empty = build.load("launch_floor").launch_floor_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty_launch():
+        check(empty(cuda_stream) == 0, "empty kernel launch failed")
+    floor_ms = device_ms_per_call(empty_launch, 200, "empty_kernel")
+    floor_call_ms = cuda_ms(empty_launch, 2000)
+    floor_note = f"launch floor {floor_ms * 1e3:.3f} us (empty kernel)"
+    print(f"{tag} launch floor: an empty sm_90a kernel (one block of 32 "
+          f"threads, src/repro_torch/csrc/launch_floor.cu) takes "
+          f"{floor_ms * 1e3:.3f} us on the device (profiler, 200 launches) "
+          f"and {floor_call_ms * 1e3:.3f} us per launch back to back as a "
+          f"caller waits (CUDA events, 2000 launches through ctypes)")
+    l2_flush = torch.zeros((32 << 20,), dtype=torch.float32, device=dev)
+
     def report(name, kernel_fn, kernel_name, plain_fn, library_fn, nbytes_,
-               ops, ops_per_s, ops_note, reps, label=None, row=True):
+               ops, ops_per_s, ops_note, reps, label=None, row=True,
+               plain_reps=None, cold=False):
         """Time one kernel beside its plain version and library call on
         the same inputs; print its line and, with ``row``, add its
-        kernels-line row.  Returns (device ms per call, bound ms)."""
+        kernels-line row.  ``cold`` times the kernel with L2 flushed
+        before each launch: a 128 MB read, which leaves L2 holding clean
+        lines of another buffer (a write would leave dirty lines whose
+        write-back the kernel would pay).  Returns (device ms per call,
+        bound ms)."""
+        plain_reps = reps // 10 if plain_reps is None else plain_reps
         call_ms = cuda_ms(kernel_fn, reps)
-        plain_call_ms = cuda_ms(plain_fn, reps // 10)
-        ms = device_ms_per_call(kernel_fn, reps // 10, kernel_name)
-        plain_ms = device_ms_per_call(plain_fn, reps // 40)
+        plain_call_ms = cuda_ms(plain_fn, plain_reps)
+        warm_ms = device_ms_per_call(kernel_fn, reps // 10, kernel_name)
+        ms = warm_ms if not cold else device_ms_per_call(
+            lambda: (l2_flush.sum(), kernel_fn()), reps // 10, kernel_name)
+        plain_ms = device_ms_per_call(plain_fn, max(1, plain_reps // 4))
         library_ms = (device_ms_per_call(library_fn, reps // 10)
                       if library_fn is not None else None)
         bound_ms, bound_by = bound(nbytes_, ops, ops_per_s)
         lib = ("none" if library_ms is None
                else f"{library_ms * 1e3:.3f} us/call")
         what = name if label is None else f"{name} ({label})"
-        print(f"{tag} {what} kernel: {ms * 1e3:.3f} us/launch; plain torch "
-              f"version: {plain_ms * 1e3:.3f} us/call; library call: {lib} "
-              f"(profiler device time); bound {bound_ms * 1e3:.4f} us by "
-              f"{bound_by} ({nbytes_} bytes at 3.35 TB/s; {ops} {ops_note}); "
-              f"launches on its path {path_launches[name]}")
+        temp = (f"{ms * 1e3:.3f} us/launch with L2 flushed before each "
+                f"launch ({warm_ms * 1e3:.3f} back to back)" if cold else
+                f"{ms * 1e3:.3f} us/launch")
+        floor = (f"; {floor_note}" if name in ("sparse_tick", "hat_encode",
+                                              "moe_dispatch") else "")
+        print(f"{tag} {what} kernel: {temp}; plain torch version: "
+              f"{plain_ms * 1e3:.3f} us/call; library call: {lib} (profiler "
+              f"device time); bound {bound_ms * 1e3:.4f} us by {bound_by} "
+              f"({nbytes_} bytes at 3.35 TB/s; {ops} {ops_note}); launches "
+              f"on its path {path_launches[name]}{floor}")
         print(f"{tag} {what} per call as a caller waits (CUDA events, "
               f"back-to-back, host overhead included): wrapper "
               f"{call_ms * 1e3:.3f} us ({reps} calls), plain torch "
-              f"{plain_call_ms * 1e3:.3f} us ({reps // 10} calls)")
+              f"{plain_call_ms * 1e3:.3f} us ({plain_reps} calls)")
         if row:
             rows.append({
                 "name": name, "route": "cuda",
@@ -1160,17 +1287,78 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": library_ms})
         return ms, bound_ms
 
-    # B1: the bound counts what it reads and writes (its inputs, the CAM
-    # entries' int32 targets among them, and its four outputs), each once;
-    # the port's CSR is a layout of the targets, not extra work.
-    args, policy, sparse_params = operands(config("hier_tree"),
-                                           sparse_stream[:1], SEED)
-    outs = kernel_call(args, policy)
-    report("sparse_tick", lambda: kernel_call(args, policy),
-           "sparse_tick_kernel", lambda: plain_call(args, policy), None,
-           nbytes(*args[:6], sparse_params.targets, *outs),
-           int(args[4].sum()) + args[3].numel(), FP32_OPS_PER_S,
-           "fp32 ops at 67 TFLOP/s", 2000)
+    # B1 on the path: one sparse_run launch over the Bernoulli stream's 256
+    # ticks (one lane), with the session's own plan.  The bound counts the
+    # routing operands once (CSR offsets, sources and weights of the live
+    # entries), the frames, the currents, the NoC table rows of every
+    # source that spikes in the run (hops, depth, subscribed cores, swept
+    # entries: 4 B each; the link row: 4 B a link), and the stats table and
+    # its sum; the operations are the scatter adds of the driven entries,
+    # each event's link-load adds, each flag's scan, each event's integer
+    # sums, and the stats (22 a tick).
+    kops = sparse_session.plan.run.kernel
+    run_frames = sparse_stream[None].contiguous()
+    run_out = (torch.empty((1, TICKS, CORES, NEURONS), device=dev),
+               torch.empty((TICKS, len(StepStats._fields), 1), device=dev))
+    plain_out = tuple(t.clone() for t in run_out)
+    run_acc = sparse_kernel.sparse_run_cuda(run_frames, None, kops, *run_out)
+    flat = run_frames.reshape(TICKS, -1)
+    src_idx = sparse_session.routing.src_idx.reshape(-1).long()
+    hits = int((flat[:, src_idx] &
+                sparse_session.routing.active.reshape(-1)).sum())
+    events = int(flat.sum())
+    sources = int(flat.any(0).sum())
+    links = kops.links.shape[-1]
+    fops = hits + events * links + 22 * TICKS
+    iops = flat.numel() + 4 * events
+    b1_ms, _ = report(
+        "sparse_tick",
+        lambda: sparse_kernel.sparse_run_cuda(run_frames, None, kops,
+                                              *run_out),
+        "sparse_run_kernel",
+        lambda: sparse_ops.sparse_run_ref(run_frames, None,
+                                          sparse_session.plan.run,
+                                          *plain_out), None,
+        nbytes(kops.ptr, kops.src, kops.weight, run_frames, *run_out,
+               run_acc) + sources * (16 + 4 * links),
+        fops + 2 * iops, FP32_OPS_PER_S,
+        f"fp32 ops at 67 TFLOP/s, int32 ops counted twice: {hits} scatter "
+        f"adds, {events} events x {links} link-load adds, {flat.numel()} "
+        f"flags scanned, 4 integer ops an event", 400, plain_reps=2,
+        label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
+    rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b1_ms * 1e3 / TICKS,
+                    launches_per_512_ticks=path_launches["sparse_tick"])
+    print(f"{tag} sparse_tick whole run: {b1_ms * 1e3 / TICKS:.4f} us per "
+          f"tick; {path_launches['sparse_tick']} launches in the 512 "
+          f"pallas_sparse ticks of phase 4 ({sources} sources spiked)")
+
+    # the same run at 64 cores: one block a tick holds the fabric there too
+    wide = config("hier_tree", 4 * CORES)
+    wide_params = random_connectivity(torch.Generator(dev).manual_seed(SEED),
+                                      wide)
+    wide_plan = pipeline.make_plan(wide_params, wide)
+    wide_frames = torch.rand((1, TICKS, 4 * CORES, NEURONS), generator=gen,
+                             device=dev) < RATE
+    wide_frames &= (wide_frames.to(torch.int32).cumsum(-1)
+                    <= wide_plan.run.capacity)
+    wide_out = (torch.empty(tuple(wide_frames.shape), device=dev),
+                torch.empty((TICKS, len(StepStats._fields), 1), device=dev))
+    ms = device_ms_per_call(
+        lambda: sparse_kernel.sparse_run_cuda(
+            wide_frames, None, wide_plan.run.kernel, *wide_out), 40,
+        "sparse_run_kernel")
+    print(f"{tag} sparse_run at 64 cores, {TICKS} ticks: {ms * 1e3:.3f} us "
+          f"per launch, {ms * 1e3 / TICKS:.4f} us per tick (profiler, 40 "
+          f"launches; {wide_plan.run.kernel.smem} B of shared memory a "
+          f"block)")
+
+    # the one-tick op (not on the path any more): its time, for reference
+    args, policy, _ = operands(config("hier_tree"), sparse_stream[:1], SEED)
+    tick_ms = device_ms_per_call(lambda: kernel_call(args, policy), 200,
+                                 "sparse_tick_kernel")
+    print(f"{tag} sparse_tick one-tick op (sparse_tick_kernel, the op "
+          f"kernels.sparse_tick.ops.sparse_tick): {tick_ms * 1e3:.3f} us "
+          f"per launch at one Bernoulli {RATE} tick (profiler, 200 launches)")
 
     # B2 on the path: one tick's match counts, one lane, at the Bernoulli
     # 0.05 frame (the kernels-line row) and at an all-ones frame (the burst
@@ -1221,7 +1409,10 @@ def main() -> int:
 
     # B4 on the path: one step's (128, 4096) float32 state; v and I in,
     # v' and s out; three float32 operations an element (the FMA as two,
-    # the compare).  No one PyTorch call computes the LIF update.
+    # the compare).  Back to back its 8 MB of inputs stay in the 50 MB L2
+    # and it reads faster than the HBM bound, so the row times it with L2
+    # flushed before each launch.  No one PyTorch call computes the LIF
+    # update.
     v = torch.randn((SNN_BATCH, n_total), generator=gen, device=dev) * 3
     i = torch.randn((SNN_BATCH, n_total), generator=gen, device=dev) * 3
     lif_outs = lif_kernel.lif_step_cuda(v, i, snn_cfg.decay,
@@ -1231,7 +1422,7 @@ def main() -> int:
                                             snn_cfg.threshold, 0.0),
            "lif_step", lambda: lif_ref.lif_step_ref(v, i, **lif_args), None,
            nbytes(v, i, *lif_outs), 3 * v.numel(), FP32_OPS_PER_S,
-           "fp32 ops at 67 TFLOP/s", 2000)
+           "fp32 ops at 67 TFLOP/s", 2000, cold=True)
 
     # B5 on the path: the first MoE layer's prefill stream (4 x 128 tokens x
     # top-6 = 3072 events, E = 64; the kernels-line row), then a decode

@@ -97,12 +97,8 @@ def spec_close_probability(cfg: CamConfig) -> float:
     return ppa.spec_sense_close_probability(cfg.bits, cfg.sense_bits)
 
 
-def energy(cfg: CamConfig, n_match, n_mismatch):
-    """Per-search model energy for float32 match/mismatch tensors.
-
-    The torch form of `repro.core.cam._energy_jnp`: the same Python-float
-    coefficients applied to the per-search match composition.
-    """
+def energy_coefficients(cfg: CamConfig) -> tuple[float, float, float]:
+    """(energy per match, per mismatch, fixed per search) as Python floats."""
     v = cfg.variant_entry()
     e_match = M_CHARGE * v.match_charge_factor
     if v.speculative:
@@ -110,7 +106,16 @@ def energy(cfg: CamConfig, n_match, n_mismatch):
         e_mm = (1.0 - p) + p * E_SENSE_NODE
     else:
         e_mm = 1.0
-    fixed = F_CONV + (E_CSCD_NET if v.cscd else 0.0)
+    return e_match, e_mm, F_CONV + (E_CSCD_NET if v.cscd else 0.0)
+
+
+def energy(cfg: CamConfig, n_match, n_mismatch):
+    """Per-search model energy for float32 match/mismatch tensors.
+
+    The torch form of `repro.core.cam._energy_jnp`: the same Python-float
+    coefficients applied to the per-search match composition.
+    """
+    e_match, e_mm, fixed = energy_coefficients(cfg)
     return n_match * e_match + n_mismatch * e_mm + fixed
 
 

@@ -7,38 +7,81 @@
 // drive[e] = spikes[src_idx[e]] & active[e], the weighted scatter-add of the
 // drive into the core's synaptic currents, and the core's CAM hit count.
 //
-// Design.  The Pallas kernel is one program with the core axis vectorised in
-// VMEM; here each (core, batch lane) is one thread block, in three phases:
-//   1. warp 0 reads the core's buffer row and computes latency and encode
-//      energy.  The scheme is a template parameter because the JAX policies
-//      are traced callables and the card needs them fixed at compile time.
-//      hier_ring keeps its sqrt(n) section maxima in shared memory.  Every
-//      quantity is a small integer in float32, exact as in JAX; the HAT
-//      energy divides with IEEE round-to-nearest (__fdiv_rn).
-//   2. all threads compute the core's gathered contributions into shared
-//      memory and reduce the integer hit count.
-//   3. one thread per target neuron walks its CSR segment (live entries in
-//      ascending entry order) and adds from 0.0, which is the JAX scatter's
-//      order, so the currents are the same bits on every run and device.
+// Two entry points share the scheme's policies:
 //
-// Bound.  At 16 cores x 256 neurons x 512 entries, capacity 32, the kernel
-// must read about 129 KB (13 B per CAM entry x 8,192 entries, the buffer, the
-// spike frame and the CSR) and write 16 KB of currents: about 39 ns at
-// 3.35 TB/s.  It runs 16 small blocks, so in practice the launch itself
-// bounds it; fusing compaction and accounting in, and CUDA graphs over the
-// tick loop, are what would move that.
+// sparse_tick_launch - one tick from a caller's event buffer (the op
+//   `kernels.sparse_tick.ops.sparse_tick`).  Each (core, batch lane) is one
+//   thread block: warp 0 computes latency and encode energy from the buffer
+//   row, all threads gather the core's contributions into shared memory and
+//   reduce its hit count, and one thread per target walks its CSR segment.
 //
-// Interface: a plain C entry point (loaded with ctypes by
-// repro_torch/kernels/sparse_tick/kernel.py); it launches on the given stream,
-// does not synchronise, allocates nothing and returns the cudaError_t.
+// sparse_run_launch - every sparse tick of a session run in one launch (the
+//   op `kernels.sparse_tick.ops.sparse_run`).  The Pallas kernel works on one
+//   compacted tick; the session around it compacted, gathered the NoC tables
+//   and reduced the stats with some sixty small torch ops a tick, each its own
+//   host dispatch, so the card sat idle 0.94 of the time.  The ticks of a run
+//   are independent (only the stats accumulator carries), so here each
+//   (tick, lane) is one block, and it does the whole tick from the bool frame:
+//     1. the frame (cores * n bytes) and the CSR segment offsets are staged
+//        into shared memory with cp.async while the CSR-ordered CAM operands
+//        (source index and weight of each live entry, permuted at plan
+//        time) are loaded, so the block pays about
+//        two global round trips, not five dependent ones; each entry's
+//        contribution spikes[src] ? w : 0 goes to shared memory in CSR
+//        order;
+//     2. a warp per core compacts its ascending event addresses into K + 1
+//        shared slots padded with n (a ballot/popc scan, as hat_encode.cu)
+//        and computes the scheme's latency and encode energy from them;
+//     3. the event-indexed accounting compacts the tick's events into a
+//        list and gathers each event's NoC table entries (hops, depth,
+//        subscribed cores, swept entries, link row); every sum is of exact
+//        small integers, so its order is free: link l's load is summed by
+//        groups of threads, each over every G-th event, and the groups'
+//        partials added after (shared float atomics on the few link
+//        addresses contended and took a third of a block's time);
+//     4. each target's CSR segment is summed in ascending entry order from
+//        0.0 (the JAX scatter's order), a thread walking eight targets'
+//        segments side by side, and the currents are written;
+//     5. the stats tail (`pipeline._stats`, `cam.energy`, `router._latency`)
+//        runs one float32 operation at a time, each rounded as torch rounds
+//        it (__fmul_rn, __fadd_rn, __fdiv_rn: no contraction), and writes the
+//        tick's 12 StepStats fields as one row of a (T, 12, B) table.
+//   The last block to finish (a global counter, which that block's
+//   atomicInc wraps back to 0 for the next launch) sums the table in tick
+//   order per (field, lane) from 0.0, as the JAX lax.scan carry does; the
+//   session writes its dense fallback ticks' rows before the launch.
+//
+//   One block holds a whole (tick, lane): at 64 cores x 256 neurons x 512
+//   entries, nine in ten of them live, that is 221 KB of shared memory,
+//   near the 227 KB a block may take, so a fabric that needs more is
+//   refused (ValueError in the wrapper).  A thread block cluster splitting
+//   the cores was tried and timed: it helps only when a run has fewer
+//   (tick, lane) items than the card has SMs, and the session's runs have
+//   hundreds.
+//
+// Bound.  At 16 cores x 256 neurons x 512 entries, capacity 32, a 256-tick
+// Bernoulli 0.05 run must read the 1 MB of frames, the routing operands and
+// the NoC table rows once and write 4 MB of currents: about 1.7 us at
+// 3.35 TB/s, so the run is bound by bytes.  In practice a block's latency
+// bounds it, spread over the phases above (the currents and the link loads
+// the largest), with the last block's tick-order sum after it.
+//
+// Interface: plain C entry points (loaded with ctypes by
+// repro_torch/kernels/sparse_tick/kernel.py); each launches on the given
+// stream, does not synchronise, allocates nothing and returns the
+// cudaError_t.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRunThreads = 512;
+constexpr int kRunWarps = kRunThreads / 32;
+constexpr int kFields = 12;   // StepStats fields
 constexpr unsigned kFull = 0xffffffffu;
 
 // Branch ids; the same numbers as ArbiterScheme.kernel_policy in
@@ -51,7 +94,17 @@ enum Policy : int {
   kHierTree = 4,
 };
 
+// The scheme's static quantities.
+struct PolicyArgs {
+  int n, slots;              // neurons per core, buffer slots (K + 1)
+  int levels;                // HAT levels
+  int sqrt_n, ring_shift;    // hier_ring sections and log2(sqrt_n)
+  float per_grant;           // 2 * (log2 n - 1)
+  float log2n;
+};
+
 struct Args {
+  PolicyArgs p;
   const int32_t* buf;        // (B, C, slots) ascending addresses, pad n
   const int32_t* counts;     // (B, C) live events per core
   const uint8_t* spikes;     // (B, C * n) bool
@@ -64,11 +117,40 @@ struct Args {
   float* lat;                // (B, C)
   float* enc;                // (B, C)
   float* hits;               // (B, C)
-  int cores, n, entries, slots;
-  int levels;                // HAT levels
-  int sqrt_n, ring_shift;    // hier_ring sections and log2(sqrt_n)
-  float per_grant;           // 2 * (log2 n - 1)
-  float log2n;
+  int cores, entries;
+};
+
+struct RunArgs {
+  PolicyArgs p;
+  const uint8_t* stream;     // (B, T, C, n) bool frames
+  const int32_t* ticks;      // (sparse ticks,) tick ids, or null: 0 .. T-1
+  const int32_t* ptr;        // (C * n + 1,) CSR segment offsets
+  const int32_t* src;        // (nnz,) flat source of a live entry, CSR order
+  const float* weight;       // (nnz,) its weight, CSR order
+  const int32_t* hops;       // (S,) mesh links per event
+  const int32_t* depth;      // (S,) deepest path per event
+  const int32_t* dest;       // (S,) subscribed cores per event
+  const int32_t* swept;      // (S,) CAM entries swept per event
+  const float* links;        // (S, L) events per link per event
+  float* currents;           // (B, T, C, n)
+  float* table;              // (T, 12, B) per-tick stats
+  float* acc;                // (12, B) the table summed in tick order
+  unsigned* done;            // finished (tick, lane) items; 0 at launch,
+                             // 0 again after it
+  int lanes, ticks_total, items, cores, links_n;
+  int flood;                 // 1: every event searched in every core
+  int vec;                   // frames 16-byte aligned: stage with cp.async
+  int contrib_cap;           // live CAM entries (contribution slots)
+  int stage_floats;          // dynamic shared memory, in floats
+  float flood_eps;           // flood entries per search (mean valid count)
+  float cam_cycle_ns, e_match, e_mm, e_fixed;
+  float hop_ns, link_ns, hop_energy;
+};
+
+// A (tick, lane)'s integer and float reductions.
+struct Partial {
+  int events, hits, hops, dest, swept, depth;
+  float lat, enc;
 };
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -81,15 +163,43 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_fmax(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_fsum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// Phase 1, run by the 32 lanes of warp 0.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The scheme's latency and encode energy of one core's buffer row, run by
+// the 32 lanes of one warp; every lane returns the same (latency, energy).
+// ``lo_max`` is the warp's hier_ring scratch, -1 on entry.
 template <int POLICY>
-__device__ void policies(const Args& a, const int32_t* row, int k, int* lo_max,
-                         float* lat_out, float* enc_out) {
+__device__ float2 policies(const PolicyArgs& a, const int32_t* row, int k,
+                           int* lo_max) {
   const int ln = threadIdx.x & 31;
   const int n = a.n;
   int top = -1, q = 0, toggles = 0;
@@ -138,11 +248,12 @@ __device__ void policies(const Args& a, const int32_t* row, int k, int* lo_max,
     lat = k > 0 ? static_cast<float>(2 * a.levels + (k - 1) + (q - 1)) : 0.0f;
     enc = __fdiv_rn(static_cast<float>(toggles), static_cast<float>(n));
   }
-  if (ln == 0) {
-    *lat_out = lat;
-    *enc_out = enc;
-  }
+  return make_float2(lat, enc);
 }
+
+// ---------------------------------------------------------------------------
+// One tick from a caller's event buffer.
+// ---------------------------------------------------------------------------
 
 template <int POLICY>
 __global__ void __launch_bounds__(kThreads) sparse_tick_kernel(Args a) {
@@ -151,6 +262,7 @@ __global__ void __launch_bounds__(kThreads) sparse_tick_kernel(Args a) {
   int* lo_max = reinterpret_cast<int*>(smem + a.entries);   // [sqrt_n]
   __shared__ int warp_hits[kWarps];
 
+  const int n = a.p.n;
   const int c = blockIdx.x;
   const int b = blockIdx.y;
   const int row_id = b * a.cores + c;
@@ -159,18 +271,23 @@ __global__ void __launch_bounds__(kThreads) sparse_tick_kernel(Args a) {
   const int ln = tid & 31;
 
   if (POLICY == kHierRing) {
-    for (int s = tid; s < a.sqrt_n; s += blockDim.x) lo_max[s] = -1;
+    for (int s = tid; s < a.p.sqrt_n; s += blockDim.x) lo_max[s] = -1;
     __syncthreads();
   }
 
   // 1. arbiter latency + AER encode energy from the event buffer
   if (warp == 0) {
-    policies<POLICY>(a, a.buf + static_cast<size_t>(row_id) * a.slots,
-                     a.counts[row_id], lo_max, a.lat + row_id, a.enc + row_id);
+    const float2 le = policies<POLICY>(
+        a.p, a.buf + static_cast<size_t>(row_id) * a.p.slots,
+        a.counts[row_id], lo_max);
+    if (ln == 0) {
+      a.lat[row_id] = le.x;
+      a.enc[row_id] = le.y;
+    }
   }
 
   // 2. CAM gather: contributions of the core's entries, and its hit count
-  const uint8_t* spikes = a.spikes + static_cast<size_t>(b) * a.cores * a.n;
+  const uint8_t* spikes = a.spikes + static_cast<size_t>(b) * a.cores * n;
   const size_t base = static_cast<size_t>(c) * a.entries;
   int hit = 0;
   for (int e = tid; e < a.entries; e += blockDim.x) {
@@ -189,9 +306,9 @@ __global__ void __launch_bounds__(kThreads) sparse_tick_kernel(Args a) {
 
   // 3. scatter: one thread per target, ascending entry order from 0.0
   const int entry0 = c * a.entries;
-  float* out = a.currents + static_cast<size_t>(row_id) * a.n;
-  for (int t = tid; t < a.n; t += blockDim.x) {
-    const int g = c * a.n + t;
+  float* out = a.currents + static_cast<size_t>(row_id) * n;
+  for (int t = tid; t < n; t += blockDim.x) {
+    const int g = c * n + t;
     float acc = 0.0f;
     for (int p = a.csr_ptr[g]; p < a.csr_ptr[g + 1]; ++p)
       acc = __fadd_rn(acc, contrib[a.csr_entry[p] - entry0]);
@@ -202,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) sparse_tick_kernel(Args a) {
 template <int POLICY>
 cudaError_t launch(const Args& a, int lanes, cudaStream_t stream) {
   size_t smem = static_cast<size_t>(a.entries) * sizeof(float);
-  if (POLICY == kHierRing) smem += static_cast<size_t>(a.sqrt_n) * sizeof(int);
+  if (POLICY == kHierRing) smem += static_cast<size_t>(a.p.sqrt_n) * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         sparse_tick_kernel<POLICY>,
@@ -212,6 +329,356 @@ cudaError_t launch(const Args& a, int lanes, cudaStream_t stream) {
   sparse_tick_kernel<POLICY>
       <<<dim3(a.cores, lanes), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Every sparse tick of a run.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// The stats tail of one (tick, lane), from its reductions; the order and
+// rounding of pipeline._stats, cam.energy and router._latency.
+__device__ void stats_row(const RunArgs& a, const Partial& s, float busiest,
+                          float* row) {
+  const float events = static_cast<float>(s.events);
+  float searches, eps;
+  if (a.flood) {
+    searches = __fmul_rn(events, static_cast<float>(a.cores));
+    eps = a.flood_eps;
+  } else {
+    searches = static_cast<float>(s.dest);
+    eps = __fdiv_rn(static_cast<float>(s.swept), fmaxf(searches, 1.0f));
+  }
+  const float match = __fdiv_rn(static_cast<float>(s.hits),
+                                fmaxf(searches, 1.0f));
+  const float mismatch = __fsub_rn(eps, match);
+  const float energy = __fadd_rn(
+      __fadd_rn(__fmul_rn(match, a.e_match), __fmul_rn(mismatch, a.e_mm)),
+      a.e_fixed);
+  const float hops = static_cast<float>(s.hops);
+  row[0] = events;                                      // events
+  row[1] = s.lat;                                       // encode_latency
+  row[2] = s.enc;                                       // encode_energy
+  row[3] = searches;                                    // cam_searches
+  row[4] = __fmul_rn(searches, energy);                 // cam_energy
+  row[5] = __fmul_rn(searches, a.cam_cycle_ns);         // cam_time_ns
+  row[6] = hops;                                        // noc_hops
+  row[7] = __fadd_rn(__fmul_rn(static_cast<float>(s.depth), a.hop_ns),
+                     __fmul_rn(busiest, a.link_ns));    // noc_latency
+  row[8] = __fmul_rn(hops, a.hop_energy);               // noc_energy
+  row[9] = 0.0f;                                        // chip_hops
+  row[10] = 0.0f;                                       // chip_latency
+  row[11] = 0.0f;                                       // chip_energy
+}
+
+template <int POLICY>
+__global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
+  extern __shared__ __align__(16) unsigned char run_smem[];
+  __shared__ Partial part;
+  __shared__ int is_last, n_events;
+
+  const int n = a.p.n, slots = a.p.slots, cap = slots - 1;
+  const int cores = a.cores;
+  const int fabric = cores * n;
+  const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
+  const int item = blockIdx.x;
+
+  uint8_t* frame = run_smem;                                 // [fabric]
+  float* contrib = reinterpret_cast<float*>(run_smem + align16(fabric));
+  int* seg = reinterpret_cast<int*>(contrib + a.contrib_cap);  // [fabric + 1]
+  int* buf = seg + fabric + 1;                               // [C][slots]
+  int* ev = buf + cores * slots;                             // [C * cap]
+  int* cnt = ev + cores * cap;                               // [C]
+  int* off = cnt + cores;                                    // [C]
+  float* lat = reinterpret_cast<float*>(off + cores);        // [C]
+  float* encc = lat + cores;                                 // [C]
+  int* lo_max = reinterpret_cast<int*>(encc + cores);        // [warps][sqrt_n]
+  float* loads = reinterpret_cast<float*>(lo_max + kRunWarps * a.p.sqrt_n);
+  float* gpart = loads + a.links_n;                          // [max(512, L)]
+
+  if (tid == 0) is_last = 0;
+  if (item < a.items) {
+    const int b = item % a.lanes;
+    const int k = item / a.lanes;
+    const int t = a.ticks ? a.ticks[k] : k;
+    const size_t fi = static_cast<size_t>(b) * a.ticks_total + t;
+    const uint8_t* g = a.stream + fi * fabric;
+    const int L = a.links_n;
+
+    // 1. stage the frame; meanwhile load the CSR operands
+    if (a.vec) {
+      for (int q = tid; q < fabric / 16; q += kRunThreads)
+        cp_async16(frame + 16 * q, g + 16 * q);
+    } else {
+      for (int q = tid; q < fabric; q += kRunThreads) frame[q] = g[q];
+    }
+    for (int q = tid; q <= fabric; q += kRunThreads)
+      cp_async4(seg + q, a.ptr + q);
+    if (tid == 0) part = Partial{0, 0, 0, 0, 0, 0, 0.0f, 0.0f};
+    const int e1 = a.contrib_cap;
+    constexpr int R = 8;
+    int hit = 0;
+    bool staged = false;
+    for (int base = 0; base < e1 || !staged; base += kRunThreads * R) {
+      int s[R];
+      float w[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = base + r * kRunThreads + tid;
+        s[r] = p < e1 ? a.src[p] : 0;
+        w[r] = p < e1 ? a.weight[p] : 0.0f;
+      }
+      if (!staged) {                 // uniform: every thread takes it once
+        cp_async_wait_all();
+        __syncthreads();
+        staged = true;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = base + r * kRunThreads + tid;
+        if (p < e1) {
+          const bool d = frame[s[r]];
+          contrib[p] = d ? w[r] : 0.0f;
+          hit += d;
+        }
+      }
+    }
+
+    // 2. compaction and the scheme's policies, a warp per core
+    int* lm = lo_max + warp * a.p.sqrt_n;
+    for (int lc = warp; lc < cores; lc += kRunWarps) {
+      const uint8_t* fr = frame + lc * n;
+      int* row = buf + lc * slots;
+      int count = 0;
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const int j = j0 + ln;
+        const bool on = j < n && fr[j];
+        const unsigned m = __ballot_sync(kFull, on);
+        if (on) {
+          const int pos = count + __popc(m & ((1u << ln) - 1u));
+          if (pos < slots) row[pos] = j;
+        }
+        count += __popc(m);
+      }
+      for (int j = min(count, slots) + ln; j < slots; j += 32) row[j] = n;
+      if (POLICY == kHierRing)
+        for (int q = ln; q < a.p.sqrt_n; q += 32) lm[q] = -1;
+      __syncwarp();
+      const float2 le = policies<POLICY>(a.p, row, count, lm);
+      if (ln == 0) {
+        cnt[lc] = count;
+        lat[lc] = le.x;
+        encc[lc] = __fmul_rn(le.y, static_cast<float>(count));
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+
+    // 3. event-indexed accounting over the first K slots of each core:
+    // the tick's events as flat sources in core order (warp 0 scans the
+    // per-core counts), then their table entries and link rows
+    if (warp == 0) {
+      int total = 0;
+      for (int b0 = 0; b0 < cores; b0 += 32) {
+        const int lc = b0 + ln;
+        const int v = lc < cores ? min(cnt[lc], cap) : 0;
+        int incl = v;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(kFull, incl, o);
+          if (ln >= o) incl += u;
+        }
+        if (lc < cores) off[lc] = total + incl - v;
+        total += __shfl_sync(kFull, incl, 31);
+      }
+      if (ln == 0) n_events = total;
+    }
+    __syncthreads();
+    for (int i = tid; i < cores * cap; i += kRunThreads) {
+      const int lc = i / cap, j = i - lc * cap;
+      if (j < min(cnt[lc], cap))
+        ev[off[lc] + j] = lc * n + buf[lc * slots + j];
+    }
+    __syncthreads();
+    const int nev = n_events;
+    int hops = 0, dest = 0, swept = 0, depth = 0;
+    for (int e = tid; e < nev; e += kRunThreads) {
+      const int src = ev[e];
+      hops += a.hops[src];
+      depth = max(depth, a.depth[src]);
+      if (!a.flood) {
+        dest += a.dest[src];
+        swept += a.swept[src];
+      }
+    }
+    // link loads: G groups of L threads, thread (g, l) sums link l of the
+    // events g, g + G, ...; then each link adds its G partials (exact
+    // integers: the order is free, and no shared atomics contend)
+    const int groups = max(1, kRunThreads / max(L, 1));
+    for (int q = tid; q < groups * L; q += kRunThreads) {
+      const int g = q / L, l = q - g * L;
+      float v = 0.0f;
+      int e = g;
+      for (; e + 3 * groups < nev; e += 4 * groups) {
+        float x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          x[u] = a.links[static_cast<size_t>(ev[e + u * groups]) * L + l];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v += x[u];
+      }
+      for (; e < nev; e += groups)
+        v += a.links[static_cast<size_t>(ev[e]) * L + l];
+      gpart[q] = v;
+    }
+    __syncthreads();
+    for (int l = tid; l < L; l += kRunThreads) {
+      float v = 0.0f;
+      for (int g = 0; g < groups; ++g) v += gpart[g * L + l];
+      loads[l] = v;
+    }
+
+    // 4. currents: each target's live entries in ascending order from 0.0;
+    // a thread walks U targets' segments side by side (U independent chains)
+    constexpr int U = 8;
+    float* out = a.currents + fi * fabric;
+    for (int g0 = tid; g0 < fabric; g0 += kRunThreads * U) {
+      int p[U], end[U], longest = 0;
+      float acc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int gl = g0 + u * kRunThreads;
+        p[u] = gl < fabric ? seg[gl] : 0;
+        end[u] = gl < fabric ? seg[gl + 1] : 0;
+        acc[u] = 0.0f;
+        longest = max(longest, end[u] - p[u]);
+      }
+      for (int j = 0; j < longest; ++j) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (p[u] + j < end[u]) acc[u] = __fadd_rn(acc[u], contrib[p[u] + j]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (g0 + u * kRunThreads < fabric)
+          out[g0 + u * kRunThreads] = acc[u];
+    }
+
+    // 5. the block's sums, then the row
+    hit = warp_sum(hit);
+    hops = warp_sum(hops);
+    dest = warp_sum(dest);
+    swept = warp_sum(swept);
+    depth = warp_max(depth);
+    if (ln == 0) {
+      atomicAdd(&part.hits, hit);
+      atomicAdd(&part.hops, hops);
+      atomicAdd(&part.dest, dest);
+      atomicAdd(&part.swept, swept);
+      atomicMax(&part.depth, depth);
+    }
+    __syncthreads();
+    if (warp == 0) {           // latencies are >= 0; energies exact dyadics
+      int events = 0;
+      float lmax = 0.0f, esum = 0.0f;
+      for (int lc = ln; lc < cores; lc += 32) {
+        events += cnt[lc];
+        lmax = fmaxf(lmax, lat[lc]);
+        esum += encc[lc];
+      }
+      events = warp_sum(events);
+      lmax = warp_fmax(lmax);
+      esum = warp_fsum(esum);
+      if (ln == 0) {
+        part.events = events;
+        part.lat = lmax;
+        part.enc = esum;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float busiest = 0.0f;
+      for (int l = ln; l < L; l += 32) busiest = fmaxf(busiest, loads[l]);
+      busiest = warp_fmax(busiest);
+      if (ln == 0) {
+        float row[kFields];
+        stats_row(a, part, busiest, row);
+        float* dst = a.table + static_cast<size_t>(t) * kFields * a.lanes + b;
+        for (int f = 0; f < kFields; ++f) dst[f * a.lanes] = row[f];
+        __threadfence();
+        // wraps to 0 at the last item: the counter is ready for the next
+        // launch on the stream
+        is_last = atomicInc(a.done, static_cast<unsigned>(a.items) - 1) ==
+                  static_cast<unsigned>(a.items) - 1;
+      }
+    }
+  } else if (tid == 0) {
+    is_last = 1;                     // no sparse tick: one block sums
+  }
+  __syncthreads();
+
+  // 6. the last block: the table summed in tick order from 0.0, one thread
+  // per (field, lane), the rows staged into shared memory by cp.async in
+  // chunks (a row's fields are a multiple of 4 floats, 16-byte aligned)
+  if (is_last) {
+    __threadfence();
+    float* stage = reinterpret_cast<float*>(run_smem);
+    const int pairs = kFields * a.lanes, T = a.ticks_total;
+    for (int p0 = 0; p0 < pairs; p0 += kRunThreads) {
+      const int P = min(kRunThreads, pairs - p0);
+      const int rows = a.stage_floats / P;
+      float acc = 0.0f;
+      for (int t0 = 0; t0 < T; t0 += rows) {
+        const int nrows = min(rows, T - t0);
+        __syncthreads();             // the previous chunk is summed
+        for (int q = 4 * tid; q < nrows * P; q += 4 * kRunThreads) {
+          const int r = q / P;
+          cp_async16(stage + q, a.table + static_cast<size_t>(t0 + r) * pairs +
+                                    p0 + (q - r * P));
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        if (tid < P) {               // eight loads ahead of their adds
+          int r = 0;
+          for (; r + 8 <= nrows; r += 8) {
+            float x[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) x[u] = stage[(r + u) * P + tid];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, x[u]);
+          }
+          for (; r < nrows; ++r) acc = __fadd_rn(acc, stage[r * P + tid]);
+        }
+      }
+      if (tid < P) a.acc[p0 + tid] = acc;
+    }
+  }
+}
+
+template <int POLICY>
+cudaError_t launch_run(const RunArgs& a, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_run_kernel<POLICY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(max(a.items, 1));
+  sparse_run_kernel<POLICY><<<blocks, kRunThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+PolicyArgs policy_args(int n, int slots, int levels, int sqrt_n,
+                       int ring_shift, float per_grant, float log2n) {
+  PolicyArgs p;
+  p.n = n;
+  p.slots = slots;
+  p.levels = levels;
+  p.sqrt_n = sqrt_n;
+  p.ring_shift = ring_shift;
+  p.per_grant = per_grant;
+  p.log2n = log2n;
+  return p;
 }
 
 }  // namespace
@@ -224,6 +691,7 @@ extern "C" int sparse_tick_launch(
     int slots, int levels, int sqrt_n, int ring_shift, float per_grant,
     float log2n, void* stream) {
   Args a;
+  a.p = policy_args(n, slots, levels, sqrt_n, ring_shift, per_grant, log2n);
   a.buf = static_cast<const int32_t*>(buf);
   a.counts = static_cast<const int32_t*>(counts);
   a.spikes = static_cast<const uint8_t*>(spikes);
@@ -237,14 +705,7 @@ extern "C" int sparse_tick_launch(
   a.enc = static_cast<float*>(enc);
   a.hits = static_cast<float*>(hits);
   a.cores = cores;
-  a.n = n;
   a.entries = entries;
-  a.slots = slots;
-  a.levels = levels;
-  a.sqrt_n = sqrt_n;
-  a.ring_shift = ring_shift;
-  a.per_grant = per_grant;
-  a.log2n = log2n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (policy) {
     case kBinaryTree: return launch<kBinaryTree>(a, lanes, s);
@@ -252,6 +713,65 @@ extern "C" int sparse_tick_launch(
     case kTokenRing: return launch<kTokenRing>(a, lanes, s);
     case kHierRing: return launch<kHierRing>(a, lanes, s);
     case kHierTree: return launch<kHierTree>(a, lanes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ``ints``: lanes, ticks_total, items, cores, links_n, flood, vec,
+// contrib_cap, n, slots, levels, sqrt_n, ring_shift, stage_floats (14
+// values).
+// ``floats``: per_grant, log2n, flood_eps, cam_cycle_ns, e_match, e_mm,
+// e_fixed, hop_ns, link_ns, hop_energy (10 values).
+extern "C" int sparse_run_launch(
+    int policy, const void* stream_frames, const void* ticks, const void* ptr,
+    const void* src, const void* weight, const void* hops, const void* depth,
+    const void* dest, const void* swept, const void* links, void* currents,
+    void* table, void* acc, void* done, const int* ints, const float* floats,
+    unsigned long long smem, void* stream) {
+  RunArgs a;
+  a.p = policy_args(ints[8], ints[9], ints[10], ints[11], ints[12],
+                    floats[0], floats[1]);
+  a.stream = static_cast<const uint8_t*>(stream_frames);
+  a.ticks = static_cast<const int32_t*>(ticks);
+  a.ptr = static_cast<const int32_t*>(ptr);
+  a.src = static_cast<const int32_t*>(src);
+  a.weight = static_cast<const float*>(weight);
+  a.hops = static_cast<const int32_t*>(hops);
+  a.depth = static_cast<const int32_t*>(depth);
+  a.dest = static_cast<const int32_t*>(dest);
+  a.swept = static_cast<const int32_t*>(swept);
+  a.links = static_cast<const float*>(links);
+  a.currents = static_cast<float*>(currents);
+  a.table = static_cast<float*>(table);
+  a.acc = static_cast<float*>(acc);
+  a.done = static_cast<unsigned*>(done);
+  a.lanes = ints[0];
+  a.ticks_total = ints[1];
+  a.items = ints[2];
+  a.cores = ints[3];
+  a.links_n = ints[4];
+  a.flood = ints[5];
+  a.vec = ints[6];
+  a.contrib_cap = ints[7];
+  a.stage_floats = ints[13];
+  a.flood_eps = floats[2];
+  a.cam_cycle_ns = floats[3];
+  a.e_match = floats[4];
+  a.e_mm = floats[5];
+  a.e_fixed = floats[6];
+  a.hop_ns = floats[7];
+  a.link_ns = floats[8];
+  a.hop_energy = floats[9];
+  if (a.cores < 1 || a.lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = static_cast<size_t>(smem);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (policy) {
+    case kBinaryTree: return launch_run<kBinaryTree>(a, bytes, s);
+    case kGreedyTree: return launch_run<kGreedyTree>(a, bytes, s);
+    case kTokenRing: return launch_run<kTokenRing>(a, bytes, s);
+    case kHierRing: return launch_run<kHierRing>(a, bytes, s);
+    case kHierTree: return launch_run<kHierTree>(a, bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

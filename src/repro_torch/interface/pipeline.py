@@ -15,11 +15,14 @@ deterministic per-target sum (`kernels.sparse_tick.ref.scatter_currents`).
                        entry's tag against every source address) and the
                        AER address streams through the CUDA `hat_encode`
                        kernel (their plain versions on CPU tensors);
-  ``"pallas_sparse"``  per-core event compaction feeding the fused CUDA
-                       `sparse_tick` kernel (its plain version on CPU
-                       tensors), with the dense tick as the fallback on a
-                       tick where some core overflows its event buffer.
-                       Both branches give the same bits.
+  ``"pallas_sparse"``  the ticks where no core overflows its event
+                       buffer go through `kernels.sparse_tick.ops.
+                       sparse_run`: compaction, the sparse tick and the
+                       event-indexed accounting, one CUDA launch for all
+                       of a run's ticks (`run_stream`; its plain version
+                       on CPU tensors); a tick where some core overflows
+                       takes the dense tick.  Both branches give the same
+                       bits.
 
 Not ported yet, and refused with `NotImplementedError`: ``oracle=True``
 (ROADMAP queue A item 8), ``telemetry`` (item 7) and multi-chip tables
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.core import arbiter as arb
 from repro_torch.core import cam as cam_mod
+from repro_torch.core import ppa
 from repro_torch.interface import registry as interface_registry
 from repro_torch.interface.stats import StepStats
 from repro_torch.interface.types import int_to_bits
@@ -249,7 +253,47 @@ class TickPlan(NamedTuple):
     cam_cycle_ns: float
     noc_scheme: noc_router.NocScheme
     tick_latency: Callable          # dense (B, cores, n) -> (B, cores)
-    sparse: tuple | None            # resolve_sparse_plan(...) or None
+    run: sparse_ops.SparseRun | None  # pallas_sparse's operands, or None
+
+
+# The CUDA sparse run's form of each NoC scheme's event-indexed CAM
+# accounting: True searches every event in every core, False sweeps the
+# subscribed cores' entries.  A scheme with another form runs only on the
+# plain path.
+_KERNEL_FLOOD = {noc_router.flood_sparse_cam_accounting: True,
+                 noc_router.subscribed_sparse_cam_accounting: False}
+
+
+def bind_sparse_run(params, cfg, tables, routing, cam_cycle_ns,
+                    sparse) -> sparse_ops.SparseRun:
+    """The ``pallas_sparse`` run's operands, built once: on the card the
+    per-source NoC tables, the swept-entry totals (``valid_cnt @ subs``),
+    the flood's entries per search and the stats coefficients as the
+    kernel takes them."""
+    policy, sparse_cam, capacity = sparse
+
+    def account(counts, ev_idx, ev_w, latencies, enc_per_core, hits_total):
+        return sparse_accounting_stats(
+            cfg, tables, counts, ev_idx, ev_w, latencies, enc_per_core,
+            hits_total, params.valid, cam_cycle_ns, sparse_cam)
+
+    kernel_tables = None
+    if params.weights.is_cuda:
+        valid_cnt = params.valid.sum(1).to(torch.float32)
+        floats = (float(valid_cnt.mean()), cam_cycle_ns,
+                  *cam_mod.energy_coefficients(cfg.cam),
+                  ppa.NOC_HOP_LATENCY_NS, ppa.NOC_LINK_SERIALIZATION_NS,
+                  ppa.NOC_HOP_ENERGY)
+        swept = noc_router.swept_per_source(tables, valid_cnt)
+        flood = _KERNEL_FLOOD.get(interface_registry.get_noc_scheme(
+            cfg.noc.scheme).sparse_cam_accounting)
+        kernel_tables = (tables.hops, tables.depth, tables.dest_counts,
+                         swept.to(torch.int32),
+                         tables.link_table.contiguous(), flood, floats)
+    return sparse_ops.bind_run(
+        routing.src_idx, routing.active, params.weights, routing.csr,
+        n=cfg.neurons_per_core, capacity=capacity, policy=policy,
+        account=account, kernel_tables=kernel_tables)
 
 
 def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
@@ -283,12 +327,13 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
         routing = build_routing_index(params, cfg)
     if cam_cycle_ns is None:
         cam_cycle_ns = cam_mod.cycle_time_ns(cfg.cam)
+    run = (None if sparse is None else
+           bind_sparse_run(params, cfg, tables, routing, cam_cycle_ns, sparse))
     return TickPlan(cfg=cfg, tables=tables, routing=routing,
                     cam_cycle_ns=cam_cycle_ns,
                     noc_scheme=interface_registry.get_noc_scheme(
                         cfg.noc.scheme),
-                    tick_latency=arb.tick_latency_fn(arb_cfg),
-                    sparse=sparse)
+                    tick_latency=arb.tick_latency_fn(arb_cfg), run=run)
 
 
 def dense_tick(plan: TickPlan, params, spikes):
@@ -311,38 +356,53 @@ def dense_tick(plan: TickPlan, params, spikes):
     return currents, stats
 
 
-def sparse_tick(plan: TickPlan, params, spikes, buf, counts):
-    """The sparse branch on (B, cores, n) frames already compacted into
-    ``buf``/``counts`` with no core over capacity."""
-    cfg, n = plan.cfg, plan.cfg.neurons_per_core
-    policy, sparse_cam, _ = plan.sparse
-    spikes_flat = spikes.reshape(spikes.shape[0], -1)
-    currents, latencies, enc_per_core, hits_total = sparse_ops.sparse_tick(
-        spikes_flat, buf, counts, plan.routing.src_idx, plan.routing.active,
-        params.weights, plan.routing.csr, n=n, policy=policy)
-    ev_idx, ev_w = sparse_ops.event_indices(buf, n)
-    stats = sparse_accounting_stats(
-        cfg, plan.tables, counts, ev_idx, ev_w, latencies, enc_per_core,
-        hits_total, params.valid, plan.cam_cycle_ns, sparse_cam)
-    return currents, stats
+def run_stream(plan: TickPlan, params, stream, overflow):
+    """Every tick of a (B, T, cores, n) stream under ``pallas_sparse``.
+
+    ``overflow`` (T,) host bools pick each tick's branch: the dense tick
+    writes its currents and its stats row first, then one `sparse_run`
+    computes every other tick and sums the (T, 12, B) stats table in tick
+    order.  Returns (currents (B, T, cores, n), (12, B) summed stats).
+    """
+    lanes, ticks = stream.shape[:2]
+    cfg, dev = plan.cfg, stream.device
+    currents = torch.empty((lanes, ticks, cfg.cores, cfg.neurons_per_core),
+                           dtype=torch.float32, device=dev)
+    table = torch.empty((ticks, len(StepStats._fields), lanes),
+                        dtype=torch.float32, device=dev)
+    for t in range(ticks):
+        if overflow[t]:
+            cur, st = dense_tick(plan, params, stream[:, t])
+            currents[:, t] = cur
+            table[t] = torch.stack(tuple(st))
+    sparse = [t for t in range(ticks) if not overflow[t]]
+    acc = sparse_ops.sparse_run(stream, None if len(sparse) == ticks
+                                else sparse, plan.run, currents, table)
+    return currents, acc
 
 
 def tick(plan: TickPlan, params, spikes, overflow: bool | None = None):
     """One tick of (B, cores, n) bool frames under ``plan.cfg.impl``.
 
     ``overflow`` is the ``pallas_sparse`` branch choice: True takes the
-    dense fallback, False the sparse kernel (the caller has proven that
-    no core exceeds the capacity), None decides here from the event
-    counts, at the cost of one device-to-host copy.
+    dense fallback, False the sparse run (the caller has proven that no
+    core exceeds the capacity), None decides here from the event counts,
+    at the cost of one device-to-host copy.
     """
-    if plan.sparse is None:
+    if plan.run is None:
         return dense_tick(plan, params, spikes)
     if overflow is None:
-        overflow = bool((spikes.sum(-1) > plan.sparse[2]).any())
+        overflow = bool((spikes.sum(-1) > plan.run.capacity).any())
     if overflow:
         return dense_tick(plan, params, spikes)
-    buf, counts = sparse_ops.compact_events(spikes, plan.sparse[2])
-    return sparse_tick(plan, params, spikes, buf, counts)
+    lanes, cores, n = spikes.shape
+    currents = torch.empty((lanes, 1, cores, n), dtype=torch.float32,
+                           device=spikes.device)
+    table = torch.empty((1, len(StepStats._fields), lanes),
+                        dtype=torch.float32, device=spikes.device)
+    sparse_ops.sparse_run(spikes[:, None].contiguous(), None, plan.run,
+                          currents, table)
+    return currents[:, 0], StepStats(*table[0].unbind(0))
 
 
 def interface_tick(params, spikes: torch.Tensor, cfg,

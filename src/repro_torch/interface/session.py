@@ -14,9 +14,9 @@ is none; tests pass ``device="cpu"``.
 ``impl="pallas_sparse"`` picks a branch per tick without a per-tick
 host sync: `run` computes the stream's (T,) overflow vector (does any
 core of any lane exceed the event capacity?) in one reduction and copies
-it to the host once; each tick then runs the sparse kernel or the dense
-fallback, which give the same bits.  A stream with no overflowing frame
-takes the sparse branch on every tick.
+it to the host once; the overflowing ticks take the dense fallback, and
+every other tick of every lane goes through one `sparse_run` (one kernel
+launch on the card, `pipeline.run_stream`).  Both give the same bits.
 
 Not ported yet (`NotImplementedError`, naming the ROADMAP queue A item):
 ``chips > 1``, ``shard=``, ``mask=``/``stats0=``, ``telemetry=`` and
@@ -33,21 +33,9 @@ from repro_torch.core import cam as cam_mod
 from repro_torch.interface import pipeline
 from repro_torch.interface.config import as_interface_config
 from repro_torch.interface.stats import StepStats
-from repro_torch.interface.types import InterfaceParams
+from repro_torch.interface.types import InterfaceParams, resolve_device
 
 _SHARD_MODES = (None, "chips")
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the CUDA device; asking for CUDA without one raises
-    rather than carrying on on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; repro_torch sessions run on the "
-            "GPU by default - pass device='cpu' to run the plain torch "
-            "versions on the CPU")
-    return device
 
 
 class Interface:
@@ -116,7 +104,7 @@ class InterfaceSession:
         """
         self._refuse(shard, telemetry, mask, stats0, fault_tick0)
         spikes = self._check(spikes, 3)
-        currents, stats = self._loop(spikes[:, None])
+        currents, stats = self._loop(spikes[None])
         return currents[0], StepStats(*(f[0] for f in stats))
 
     def run_batched(self, spikes, shard: str | None = None,
@@ -131,19 +119,22 @@ class InterfaceSession:
         """
         self._refuse(shard, telemetry, mask, stats0, fault_tick0)
         spikes = self._check(spikes, 4)
-        return self._loop(spikes.transpose(0, 1))
+        return self._loop(spikes)
 
     def _loop(self, stream: torch.Tensor):
-        """(T, B, C, n) frames -> ((B, T, C, n) currents, (B,) stats)."""
-        ticks, lanes = stream.shape[:2]
-        stream = stream.contiguous()
-        overflow = self._overflow(stream)
+        """(B, T, C, n) frames -> ((B, T, C, n) currents, (B,) stats)."""
+        if self.plan.run is not None:
+            stream = stream.contiguous()
+            currents, acc = pipeline.run_stream(
+                self.plan, self.params, stream, self._overflow(stream))
+            return currents, StepStats(*acc.unbind(0))
+        lanes, ticks = stream.shape[:2]
+        stream = stream.transpose(0, 1).contiguous()
         acc = torch.zeros((len(StepStats._fields), lanes),
                           dtype=torch.float32, device=self.device)
         currents = []
         for t in range(ticks):
-            cur, st = pipeline.tick(self.plan, self.params, stream[t],
-                                    overflow=overflow[t])
+            cur, st = pipeline.tick(self.plan, self.params, stream[t])
             acc = acc + torch.stack(tuple(st))
             currents.append(cur)
         cfg = self.config
@@ -155,16 +146,12 @@ class InterfaceSession:
         return out, StepStats(*acc.unbind(0))
 
     def _overflow(self, stream: torch.Tensor) -> list:
-        """Per tick: does any core of any lane exceed the event capacity?
-
-        One reduction over the stream and one host copy per call; always
-        False off ``impl="pallas_sparse"``, where it is not read.
-        """
-        if self.plan.sparse is None or stream.shape[0] == 0:
-            return [False] * stream.shape[0]
-        capacity = self.plan.sparse[2]
-        per_core = stream.sum(-1)                        # (T, B, C)
-        return (per_core.amax((1, 2)) > capacity).tolist()
+        """Per tick of a (B, T, C, n) stream: does any core of any lane
+        exceed the event capacity?  One reduction and one host copy."""
+        if stream.shape[0] * stream.shape[1] == 0:
+            return [False] * stream.shape[1]
+        per_core = stream.sum(-1)                        # (B, T, C)
+        return (per_core.amax((0, 2)) > self.plan.run.capacity).tolist()
 
     def _refuse(self, shard, telemetry, mask, stats0, fault_tick0):
         """Refuse, by name, the run modes this package does not carry."""

@@ -54,13 +54,28 @@ def random_connectivity(generator: torch.Generator, cfg, fan_in: float = 0.9,
     return params if device is None else params.to(device)
 
 
+def resolve_device(device) -> torch.device:
+    """``None`` means the CUDA device; asking for CUDA without one raises
+    rather than carrying on on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; repro_torch runs on the GPU by "
+            "default - pass device='cpu' to run the plain torch versions "
+            "on the CPU")
+    return device
+
+
 def params_from_numpy(tags, valid, weights, targets,
-                      device="cpu") -> InterfaceParams:
+                      device=None) -> InterfaceParams:
     """`InterfaceParams` from numpy arrays (e.g. the JAX package's params).
 
     Lets both packages compute on the same routing state: pass
     ``np.asarray`` of each field of a `repro.interface.InterfaceParams`.
+    ``device=None`` means the CUDA device (raising without one); pass
+    ``device="cpu"`` for the CPU.
     """
+    device = resolve_device(device)
     return InterfaceParams(
         tags=torch.tensor(np.asarray(tags, np.int32), device=device),
         valid=torch.tensor(np.asarray(valid, bool), device=device),

@@ -1,16 +1,28 @@
-"""Wrapper of the hand-written CUDA sparse tick kernel.
+"""Wrappers of the hand-written CUDA sparse tick kernels.
 
-The kernel (``repro_torch/csrc/sparse_tick.cu``) replaces the TPU kernel
-`repro.kernels.sparse_tick.kernel.sparse_tick_pallas` (kernel.py:65): one
-thread block per (core, batch lane) computes the scheme's sparse arbiter
-latency and encode energy, the CAM gather, the deterministic CSR scatter
-into currents, and the core's hit count.  See the source for its design
-and bound.
+The source (``repro_torch/csrc/sparse_tick.cu``) replaces the TPU kernel
+`repro.kernels.sparse_tick.kernel.sparse_tick_pallas` (kernel.py:65)
+with two entry points; see it for their design and bound.
 
-`sparse_tick_cuda` checks every operand, allocates the outputs with
-``torch.empty``, launches on the current CUDA stream and raises on a
-non-zero ``cudaError_t``.  ``launches`` counts its launches (one per
-call); nothing else adds to it.
+`sparse_tick_cuda` runs one tick from a caller's compacted event buffer:
+one thread block per (core, batch lane) computes the scheme's sparse
+arbiter latency and encode energy, the CAM gather, the deterministic CSR
+scatter into currents, and the core's hit count.  It checks every
+operand on each call.
+
+`sparse_run_cuda` runs every sparse tick of a session run in one launch,
+from the bool frames: compaction, the tick above, the event-indexed
+accounting and the stats tail, one (T, 12, B) table row per (tick,
+lane), and the table summed in tick order.  Its plan-time operands
+(`RunOperands`, built by `run_operands`) are checked once when they are
+bound; each call checks only the frames and the outputs.  One block
+holds a (tick, lane) in shared memory; a fabric that needs more than
+`MAX_SHARED_BYTES` raises `ValueError` when its operands are bound.
+
+Both launch on the current CUDA stream and raise on a non-zero
+``cudaError_t``.  ``launches`` counts `sparse_run_cuda`'s launches and
+``tick_launches`` `sparse_tick_cuda`'s (one per call that launches);
+nothing else adds to them.
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +40,19 @@ SOURCE = "sparse_tick"
 REPLACES = "src/repro/kernels/sparse_tick/kernel.py:65"
 
 launches = 0
+tick_launches = 0
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 +
              [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_RUN_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 16 +
+                 [ctypes.c_ulonglong, ctypes.c_void_p])
+
+FIELDS = 12                      # StepStats fields: a table row
+RUN_THREADS = 512                # threads of a whole-run block
+# a block's shared memory: 227 KB on Hopper, less a margin for the
+# kernel's static shared variables
+MAX_SHARED_BYTES = 232448 - 1024
+MIN_SHARED_BYTES = 8192
 
 
 @functools.cache
@@ -38,6 +61,15 @@ def _lib():
     lib = build.load(SOURCE)
     fn = lib.sparse_tick_launch
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _run_lib():
+    """The whole-run entry point, built on first use, typed once."""
+    fn = build.load(SOURCE).sparse_run_launch
+    fn.argtypes = _RUN_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -67,7 +99,7 @@ def sparse_tick_cuda(spikes_flat, buf, counts, src_idx, active, weights, csr,
         layout, or an unknown policy.
       RuntimeError: when the launch returns a CUDA error.
     """
-    global launches
+    global tick_launches
     dev = spikes_flat.device
     if dev.type != "cuda":
         raise ValueError(f"sparse_tick_cuda needs CUDA tensors, got {dev}")
@@ -102,5 +134,153 @@ def sparse_tick_cuda(spikes_flat, buf, counts, src_idx, active, weights, csr,
     if err != 0:
         raise RuntimeError(f"sparse_tick kernel launch failed: cudaError_t "
                            f"{err}")
-    launches += 1
+    tick_launches += 1
     return currents, lat, enc, hits
+
+
+class RunOperands(NamedTuple):
+    """`sparse_run_cuda`'s plan-time operands, checked once by
+    `run_operands`.  Tensors lie on one CUDA device."""
+    ptr: torch.Tensor        # (C * n + 1,) int32 CSR segment offsets
+    src: torch.Tensor        # (nnz,) int32 flat source of each live entry
+    weight: torch.Tensor     # (nnz,) float32 its weight, in CSR order
+    hops: torch.Tensor       # (S,) int32 mesh links per event
+    depth: torch.Tensor      # (S,) int32 deepest path per event
+    dest: torch.Tensor       # (S,) int32 subscribed cores per event
+    swept: torch.Tensor      # (S,) int32 CAM entries swept per event
+    links: torch.Tensor      # (S, L) float32 events per link per event
+    done: torch.Tensor       # (1,) int32 finished items; 0 between launches
+    cores: int
+    n: int
+    capacity: int
+    policy: int              # ArbiterScheme.kernel_policy
+    levels: int
+    flood: bool              # every event searched in every core
+    floats: tuple            # flood_eps, cam_cycle_ns, e_match, e_mm,
+                             # e_fixed, hop_ns, link_ns, hop_energy
+    smem: int                # dynamic shared memory of a block, bytes
+
+
+def run_shared_bytes(cores: int, n: int, nnz: int, capacity: int,
+                     links: int) -> int:
+    """Dynamic shared memory of the block that holds a (tick, lane): the
+    frame, the contributions of the ``nnz`` live entries and the CSR
+    offsets, the cores' event buffers, event list and per-core results,
+    the hier_ring scratch, the link loads and their groups' partials; at
+    least `MIN_SHARED_BYTES`, where the last block stages the stats table
+    to sum it.
+
+    Raises:
+      ValueError: when that is over `MAX_SHARED_BYTES`.
+    """
+    sqrt_n = int(round(math.sqrt(n)))
+    frame = -(-cores * n // 16) * 16
+    need = max(MIN_SHARED_BYTES,
+               frame + 4 * nnz + 4 * (cores * n + 1) +
+               4 * cores * (2 * capacity + 1) + 16 * cores +
+               4 * (RUN_THREADS // 32) * sqrt_n + 4 * links +
+               4 * max(RUN_THREADS, links))
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"sparse_run_cuda: a fabric of {cores} cores x {n} neurons with "
+            f"{nnz} live CAM entries needs {need} bytes of shared memory a "
+            f"block, over the limit of {MAX_SHARED_BYTES} (MAX_SHARED_BYTES)")
+    return need
+
+
+def run_operands(ptr, src, weight, hops, depth, dest, swept, links, *,
+                 cores: int, n: int, capacity: int, policy: int,
+                 levels: int, flood: bool, floats) -> RunOperands:
+    """Check and bind the whole-run kernel's plan-time operands, once.
+
+    Raises:
+      ValueError: on an operand of the wrong device, dtype, shape or
+        layout, an unknown policy, a capacity outside [1, n - 1], or a
+        fabric over the shared memory limit (`run_shared_bytes`).
+    """
+    dev = ptr.device
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_run_cuda needs CUDA tensors, got {dev}")
+    if policy not in range(5):
+        raise ValueError(f"unknown sparse tick kernel policy {policy!r}")
+    if not 1 <= capacity < n:
+        raise ValueError(f"capacity {capacity} must lie in [1, {n - 1}]")
+    nnz, total = src.shape[0], cores * n
+    _check("ptr", ptr, torch.int32, (total + 1,), dev)
+    _check("src", src, torch.int32, (nnz,), dev)
+    _check("weight", weight, torch.float32, (nnz,), dev)
+    for name, t in (("hops", hops), ("depth", depth), ("dest", dest),
+                    ("swept", swept)):
+        _check(name, t, torch.int32, (total,), dev)
+    _check("links", links, torch.float32, (total, links.shape[-1]), dev)
+    if int(ptr[-1]) != nnz:
+        raise ValueError(f"ptr ends at {int(ptr[-1])}, expected {nnz}")
+    if len(floats) != 8:
+        raise ValueError(f"expected 8 float coefficients, got {len(floats)}")
+    smem = run_shared_bytes(cores, n, nnz, capacity, links.shape[-1])
+    return RunOperands(ptr, src, weight, hops, depth, dest, swept, links,
+                       torch.zeros(1, dtype=torch.int32, device=dev), cores,
+                       n, capacity, policy, levels, bool(flood),
+                       tuple(float(f) for f in floats), smem)
+
+
+def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table):
+    """Launch the whole-run kernel.
+
+    Launches that share ``ops`` share its finished-items counter, so they
+    must follow one another on one stream.
+
+    Args:
+      stream: (B, T, C, n) bool frames on the card, contiguous.
+      ticks: (S,) int32 CUDA tensor of the ticks to compute, or None for
+        every tick.  No listed frame may exceed the capacity.
+      ops: the plan's `RunOperands`.
+      currents: (B, T, C, n) float32 output; the listed ticks are written.
+      table: (T, 12, B) float32 per-tick stats; the listed ticks' rows are
+        written, every other row must hold its tick's stats already.
+
+    Returns:
+      (12, B) float32: the table summed over ticks in tick order from 0.0.
+
+    Raises:
+      ValueError: on a tensor of the wrong device, dtype, shape or layout.
+      RuntimeError: when the launch returns a CUDA error.
+    """
+    global launches
+    dev = ops.ptr.device
+    lanes, total = stream.shape[0], stream.shape[1]
+    frame = (ops.cores, ops.n)
+    _check("stream", stream, torch.bool, (lanes, total) + frame, dev)
+    _check("currents", currents, torch.float32, (lanes, total) + frame, dev)
+    _check("table", table, torch.float32, (total, FIELDS, lanes), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table must start on a 16-byte boundary")
+    count = total
+    if ticks is not None:
+        _check("ticks", ticks, torch.int32, (ticks.shape[0],), dev)
+        count = ticks.shape[0]
+    acc = torch.empty((FIELDS, lanes), dtype=torch.float32, device=dev)
+    if lanes == 0 or total == 0:
+        return acc.zero_()
+    sqrt_n = int(round(math.sqrt(ops.n)))
+    lg = math.log2(ops.n)
+    vec = int(ops.cores * ops.n % 16 == 0 and stream.data_ptr() % 16 == 0)
+    ints = (ctypes.c_int * 14)(
+        lanes, total, count * lanes, ops.cores, ops.links.shape[-1],
+        int(ops.flood), vec, ops.src.shape[0], ops.n, ops.capacity + 1,
+        ops.levels, sqrt_n, int(math.log2(sqrt_n)), ops.smem // 4)
+    floats = (ctypes.c_float * 10)(2.0 * (lg - 1.0), lg, *ops.floats)
+    err = _run_lib()(
+        ops.policy, stream.data_ptr(),
+        None if ticks is None else ticks.data_ptr(), ops.ptr.data_ptr(),
+        ops.src.data_ptr(), ops.weight.data_ptr(), ops.hops.data_ptr(),
+        ops.depth.data_ptr(), ops.dest.data_ptr(), ops.swept.data_ptr(),
+        ops.links.data_ptr(), currents.data_ptr(), table.data_ptr(),
+        acc.data_ptr(), ops.done.data_ptr(), ctypes.addressof(ints),
+        ctypes.addressof(floats), ops.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sparse_run kernel launch failed: cudaError_t "
+                           f"{err}")
+    launches += 1
+    return acc

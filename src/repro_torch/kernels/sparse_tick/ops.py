@@ -6,6 +6,13 @@ torch version (`ref.sparse_tick_ref`), CUDA tensors launch the CUDA
 kernel (`kernel.sparse_tick_cuda`) or raise.  There is no fallback from
 the kernel to the plain version.
 
+`sparse_run` is the port's own: every sparse tick of a session run, from
+the bool frames to each tick's `StepStats` row and their sum in tick
+order, in one launch of `kernel.sparse_run_cuda` on the card.  Its plain
+version (`sparse_run_ref`, CPU tensors) is the per-tick composition it
+replaces: `compact_events` -> `sparse_tick_ref` -> `event_indices` ->
+the interface's event-indexed accounting, then `ref.sum_in_tick_order`.
+
 Capacity policy: the per-core event buffer holds ``capacity`` live
 addresses (+1 pad slot).  `resolve_capacity` turns the user-facing
 ``sparse_capacity`` knob (``None`` = ``max(8, n // 8)``) into the
@@ -16,6 +23,8 @@ overflows into the dense fallback.
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
+
+import torch
 
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
 from repro_torch.kernels.sparse_tick import ref
@@ -99,3 +108,117 @@ def sparse_tick(spikes_flat, buf, counts, src_idx, active, weights, csr, *,
             latency_fn=policy.latency_fn, encode_fn=policy.encode_fn)
     currents, latencies, enc_per_core, hits = out
     return currents, latencies, enc_per_core, hits.sum(-1)
+
+
+class SparseRun(NamedTuple):
+    """What `sparse_run` needs that depends only on (params, cfg), bound
+    once by `bind_run`."""
+    n: int
+    capacity: int
+    policy: SparsePolicy
+    src_idx: torch.Tensor          # (cores, entries) routing operands
+    active: torch.Tensor
+    weights: torch.Tensor
+    csr: ref.TargetCSR
+    account: Callable              # the plain version's accounting tail
+    kernel: Optional[sparse_kernel.RunOperands]   # None off the card
+
+
+def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
+             policy: SparsePolicy, account: Callable, kernel_tables=None
+             ) -> SparseRun:
+    """Bind the whole-run op's operands once.
+
+    Args:
+      src_idx, active, weights, csr: the routing operands of `sparse_tick`.
+      n, capacity: neurons per core and the event buffer's capacity.
+      policy: the scheme's `SparsePolicy`.
+      account: ``account(counts, ev_idx, ev_w, latencies, enc_per_core,
+        hits_total)`` -> the tick's 12 (B,) `StepStats` fields, the
+        plain version's event-indexed accounting.
+      kernel_tables: on the card, ``(hops, depth, dest, swept, links,
+        flood, floats)``: the per-source NoC tables as int32 (links
+        float32), whether the NoC floods every core (None: the scheme has
+        no kernel form), and the stats coefficients (see
+        `kernel.RunOperands`).  Ignored for CPU operands.
+
+    Raises:
+      ValueError: for CUDA operands whose arbiter or NoC scheme has no
+        kernel form, or that the kernel does not take.
+    """
+    kernel = None
+    if src_idx.is_cuda:
+        hops, depth, dest, swept, links, flood, floats = kernel_tables
+        if policy.kernel_policy is None or flood is None:
+            raise ValueError(
+                "this arbiter or NoC scheme registers no kernel form, so "
+                "the CUDA sparse run cannot take it")
+        entry = csr.entry.long()
+        kernel = sparse_kernel.run_operands(
+            csr.ptr, src_idx.reshape(-1)[entry].contiguous(),
+            weights.reshape(-1)[entry].contiguous(), hops, depth, dest,
+            swept, links, cores=src_idx.shape[0], n=n, capacity=capacity,
+            policy=policy.kernel_policy, levels=policy.levels, flood=flood,
+            floats=floats)
+    return SparseRun(n, capacity, policy, src_idx, active, weights, csr,
+                     account, kernel)
+
+
+def sparse_run(stream, ticks, run: SparseRun, currents, table):
+    """Every listed tick of a stream through the sparse tick.
+
+    Args:
+      stream: (B, T, cores, n) bool frames.
+      ticks: the ticks to compute, ascending (a list of ints), or None
+        for all; no listed frame may have a core over the capacity.
+      run: the plan's `SparseRun`.
+      currents: (B, T, cores, n) float32; the listed ticks are written.
+      table: (T, 12, B) float32 per-tick `StepStats` rows; the listed
+        ticks' rows are written, every other row must hold its tick's
+        stats already (the dense fallback's).
+
+    Returns:
+      (12, B) float32: the table summed in tick order from 0.0.
+
+    Raises:
+      ValueError: on mismatched shapes, a tick outside the stream, or (on
+        the card) a run bound without kernel operands.
+    """
+    lanes, total = stream.shape[:2]
+    want = (lanes, total, run.src_idx.shape[0], run.n)
+    if tuple(stream.shape) != want or tuple(currents.shape) != want:
+        raise ValueError(f"stream {tuple(stream.shape)} and currents "
+                         f"{tuple(currents.shape)} must both be {want}")
+    if tuple(table.shape) != (total, sparse_kernel.FIELDS, lanes):
+        raise ValueError(f"table shape {tuple(table.shape)} != "
+                         f"({total}, {sparse_kernel.FIELDS}, {lanes})")
+    if ticks is not None and any(not 0 <= t < total for t in ticks):
+        raise ValueError(f"ticks must lie in [0, {total})")
+    if not stream.is_cuda:
+        return sparse_run_ref(stream, ticks, run, currents, table)
+    if run.kernel is None:
+        raise ValueError("the sparse run was bound to CPU operands; "
+                         "rebuild the plan on the card")
+    index = None if ticks is None else torch.tensor(
+        ticks, dtype=torch.int32, device=stream.device)
+    return sparse_kernel.sparse_run_cuda(stream, index, run.kernel,
+                                         currents, table)
+
+
+def sparse_run_ref(stream, ticks, run: SparseRun, currents, table):
+    """`sparse_run` in plain torch: the per-tick composition, tick by tick."""
+    lanes = stream.shape[0]
+    for t in range(stream.shape[1]) if ticks is None else ticks:
+        frames = stream[:, t]
+        buf, counts = ref.compact_events(frames, run.capacity)
+        cur, latencies, enc_per_core, hits = ref.sparse_tick_ref(
+            frames.reshape(lanes, -1), buf, counts, run.src_idx, run.active,
+            run.weights, run.csr, n=run.n,
+            latency_fn=run.policy.latency_fn,
+            encode_fn=run.policy.encode_fn)
+        ev_idx, ev_w = ref.event_indices(buf, run.n)
+        stats = run.account(counts, ev_idx, ev_w, latencies, enc_per_core,
+                            hits.sum(-1))
+        currents[:, t] = cur
+        table[t] = torch.stack(tuple(stats))
+    return ref.sum_in_tick_order(table)

@@ -146,3 +146,12 @@ def sparse_tick_ref(spikes_flat, buf, counts, src_idx, active, weights, csr,
     drive = entry_drive(spikes_flat, src_idx, active).to(torch.float32)
     currents = scatter_currents(drive * weights, csr, n)
     return currents, latencies, enc_per_core, drive.sum(-1)
+
+
+def sum_in_tick_order(table: torch.Tensor) -> torch.Tensor:
+    """(T, fields, B) per-tick stats -> (fields, B), added row by row in
+    tick order from 0.0 (the JAX ``lax.scan`` carry's order)."""
+    acc = table.new_zeros(table.shape[1:])
+    for row in table:
+        acc = acc + row
+    return acc

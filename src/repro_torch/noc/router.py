@@ -218,8 +218,8 @@ def _flood_cam_accounting(tables, spikes_flat, valid_cnt, total_events, cores):
     return searches, entries_per_search
 
 
-def _flood_sparse_cam_accounting(tables, ev_idx, ev_w, valid_cnt,
-                                 total_events, cores):
+def flood_sparse_cam_accounting(tables, ev_idx, ev_w, valid_cnt,
+                                total_events, cores):
     """Flood accounting never reads the spike vector; same closed form."""
     return _flood_cam_accounting(tables, None, valid_cnt, total_events, cores)
 
@@ -234,14 +234,18 @@ def _subscribed_cam_accounting(tables, spikes_flat, valid_cnt, total_events,
     return searches, entries_per_search
 
 
-def _subscribed_sparse_cam_accounting(tables, ev_idx, ev_w, valid_cnt,
-                                      total_events, cores):
-    """Event-indexed `_subscribed_cam_accounting` (bit-identical).
+def swept_per_source(tables: NocTables, valid_cnt: torch.Tensor
+                     ) -> torch.Tensor:
+    """(S,) CAM entries an event of each source sweeps where cores
+    subscribe: ``valid_cnt @ subs``, from routing state alone (exact
+    integers, so its order is free)."""
+    return (valid_cnt[:, None] * tables.subs).sum(0)
 
-    ``valid_cnt @ subs`` is the per-source swept-entry total; it depends
-    only on routing state (exact integers, so its order is free).
-    """
-    per_source = (valid_cnt[:, None] * tables.subs).sum(0)      # (S,)
+
+def subscribed_sparse_cam_accounting(tables, ev_idx, ev_w, valid_cnt,
+                                     total_events, cores):
+    """Event-indexed `_subscribed_cam_accounting` (bit-identical)."""
+    per_source = swept_per_source(tables, valid_cnt)
     searches = (ev_w * tables.dest_counts[ev_idx]).sum(-1)
     swept = (ev_w * per_source[ev_idx]).sum(-1)
     entries_per_search = swept / searches.clamp_min(1.0)
@@ -255,21 +259,21 @@ for _entry in (
                   src, cores),
               link_loads=_broadcast_link_loads,
               cam_accounting=_flood_cam_accounting,
-              sparse_cam_accounting=_flood_sparse_cam_accounting),
+              sparse_cam_accounting=flood_sparse_cam_accounting),
     NocScheme("unicast",
               expand_dests=lambda m, cores: m,
               hops=lambda m, src, cores: multicast.unicast_hops(
                   m, src, cores),
               link_loads=_unicast_link_loads,
               cam_accounting=_subscribed_cam_accounting,
-              sparse_cam_accounting=_subscribed_sparse_cam_accounting),
+              sparse_cam_accounting=subscribed_sparse_cam_accounting),
     NocScheme("multicast_tree",
               expand_dests=lambda m, cores: m,
               hops=lambda m, src, cores: multicast.multicast_tree_hops(
                   m, src, cores),
               link_loads=_multicast_link_loads,
               cam_accounting=_subscribed_cam_accounting,
-              sparse_cam_accounting=_subscribed_sparse_cam_accounting),
+              sparse_cam_accounting=subscribed_sparse_cam_accounting),
 ):
     if _entry.name not in interface_registry.NOC_SCHEMES:
         interface_registry.register_noc_scheme(_entry.name, _entry)

@@ -62,7 +62,8 @@ def _setup(arb_scheme, noc_scheme, impl, seed=3, **shape):
     jcfg = dataclasses.replace(paths.small_config(arb_scheme, noc_scheme,
                                                   **shape), impl=impl)
     jparams = fabric.random_connectivity(jax.random.PRNGKey(seed), jcfg)
-    tparams = params_from_numpy(*(np.asarray(x) for x in jparams))
+    tparams = params_from_numpy(*(np.asarray(x) for x in jparams),
+                                device="cpu")
     return jcfg, jparams, tconfig.as_interface_config(jcfg), tparams
 
 
@@ -91,8 +92,8 @@ def test_run_matches_jax(arb_scheme, noc_scheme, impl):
     sparse = _stream(8)
     sparse[2], sparse[4] = sparse[1], sparse[3]     # every frame fits
     if impl == "pallas_sparse":     # the fast path, then the guarded one
-        assert not any(tsession._overflow(torch.from_numpy(sparse)[:, None]))
-        assert any(tsession._overflow(torch.from_numpy(burst)[:, None]))
+        assert not any(tsession._overflow(torch.from_numpy(sparse)[None]))
+        assert any(tsession._overflow(torch.from_numpy(burst)[None]))
     for name, stream in (("burst", burst), ("sparse", sparse)):
         _assert_conformant(tsession.run(torch.from_numpy(stream)),
                            jsession.run(jnp.asarray(stream)),

@@ -7,12 +7,14 @@ with the card (no JAX needed there, so the JAX conftest is left out):
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import arbiter as arb
-from repro_torch.interface import InterfaceConfig, pipeline
+from repro_torch.interface import Interface, InterfaceConfig, pipeline
 from repro_torch.interface.types import random_connectivity
 from repro_torch.kernels.cam_search import kernel as cam_kernel
 from repro_torch.kernels.cam_search import ops as cam_ops
@@ -29,9 +31,12 @@ from repro_torch.kernels.moe_dispatch import ref as moe_ref
 from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
+from repro_torch.noc.topology import NocConfig
 
 SCHEMES = ("binary_tree", "greedy_tree", "token_ring", "hier_ring",
            "hier_tree")
+NOC_SCHEMES = ("broadcast", "unicast", "multicast_tree")
+INT_FIELDS = (0, 1, 3, 6, 8, 9, 10, 11)   # StepStats fields of whole numbers
 
 
 def _cuda():
@@ -67,11 +72,11 @@ def test_kernel_matches_plain_version(scheme, cores, lanes):
     device = _cuda()
     args, policy, n = _operands(scheme, cores, 256, 512, lanes, 0.05, 7,
                                 device)
-    before = sparse_kernel.launches
+    before = sparse_kernel.tick_launches
     got = sparse_kernel.sparse_tick_cuda(
         *args, n=n, policy=policy.kernel_policy, levels=policy.levels)
     torch.cuda.synchronize()
-    assert sparse_kernel.launches == before + 1
+    assert sparse_kernel.tick_launches == before + 1
     want = sparse_ref.sparse_tick_ref(*args, n=n,
                                       latency_fn=policy.latency_fn,
                                       encode_fn=policy.encode_fn)
@@ -85,12 +90,176 @@ def test_cuda_dispatch_launches_kernel_and_never_falls_back():
     device = _cuda()
     args, policy, n = _operands("hier_tree", 16, 256, 512, 1, 0.05, 3,
                                 device)
-    before = sparse_kernel.launches
+    before = sparse_kernel.tick_launches, sparse_kernel.launches
     sparse_ops.sparse_tick(*args, n=n, policy=policy)
-    assert sparse_kernel.launches == before + 1
+    assert (sparse_kernel.tick_launches,
+            sparse_kernel.launches) == (before[0] + 1, before[1])
     with pytest.raises(ValueError):
         sparse_ops.sparse_tick(*args, n=n,
                                policy=policy._replace(kernel_policy=None))
+
+
+# ---- the whole-run sparse tick (B1, sparse_run) ------------------------------
+
+
+def _run_case(scheme, noc, cores, n, entries, lanes, ticks, seed, device,
+              burst=(1,), fan_in=0.9):
+    """A pallas_sparse plan on the card and a (B, T, C, n) stream whose
+    ticks in ``burst`` overflow (full frames); the other frames are cut
+    to the capacity."""
+    cfg = InterfaceConfig(cores=cores, neurons_per_core=n,
+                          cam_entries_per_core=entries, scheme=scheme,
+                          noc=NocConfig(noc), impl="pallas_sparse")
+    params = random_connectivity(torch.Generator().manual_seed(seed), cfg,
+                                 fan_in=fan_in).to(device)
+    plan = pipeline.make_plan(params, cfg)
+    rng = np.random.default_rng(seed)
+    frames = rng.random((lanes, ticks, cores, n)) < 0.05
+    frames &= np.cumsum(frames, -1) <= plan.run.capacity
+    frames[:, [t for t in burst if t < ticks]] = True
+    stream = torch.from_numpy(frames).to(device)
+    overflow = [t in burst for t in range(ticks)]
+    return plan, params, stream, overflow
+
+
+def _kernel_and_plain(plan, params, stream, overflow):
+    """The fused kernel and its plain version on the same card inputs, the
+    dense fallback's rows written alike first."""
+    lanes, ticks = stream.shape[:2]
+    cur = torch.full((lanes, ticks) + tuple(stream.shape[2:]), np.nan,
+                     device=stream.device)
+    table = torch.full((ticks, 12, lanes), np.nan, device=stream.device)
+    for t in range(ticks):
+        if overflow[t]:
+            c, st = pipeline.dense_tick(plan, params, stream[:, t])
+            cur[:, t], table[t] = c, torch.stack(tuple(st))
+    plain = (cur.clone(), table.clone())
+    sparse = [t for t in range(ticks) if not overflow[t]]
+    index = torch.tensor(sparse, dtype=torch.int32, device=stream.device)
+    before = sparse_kernel.launches
+    acc = sparse_kernel.sparse_run_cuda(
+        stream, None if len(sparse) == ticks else index, plan.run.kernel,
+        cur, table)
+    torch.cuda.synchronize()
+    assert sparse_kernel.launches == before + 1
+    assert int(plan.run.kernel.done) == 0       # ready for the next launch
+    want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain)
+    return (cur, table, acc), (*plain, want)
+
+
+def _assert_run_equal(got, want):
+    """Currents bitwise; stats rows and sums: whole-number fields exact,
+    the rest within 1e-6 relative."""
+    assert torch.equal(got[0], want[0]), "currents"
+    for g, w in zip(got[1:], want[1:]):
+        g, w = g.movedim(-2, 0), w.movedim(-2, 0)       # fields first
+        assert bool(g.isfinite().all())
+        for f in range(12):
+            if f in INT_FIELDS:
+                assert torch.equal(g[f], w[f]), f
+            else:
+                torch.testing.assert_close(g[f], w[f], rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("noc", NOC_SCHEMES)
+def test_sparse_run_matches_plain_version(scheme, noc):
+    device = _cuda()
+    case = _run_case(scheme, noc, 4, 16, 32, 3, 7, 11, device, burst=(2, 5))
+    _assert_run_equal(*_kernel_and_plain(*case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noc", NOC_SCHEMES)
+@pytest.mark.parametrize("cores", [16, 64])
+def test_sparse_run_at_full_width(noc, cores):
+    device = _cuda()
+    case = _run_case("hier_tree", noc, cores, 256, 512, 2, 9, cores, device,
+                     burst=(0, 4))
+    _assert_run_equal(*_kernel_and_plain(*case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_sparse_run_every_scheme_at_16_cores(scheme):
+    device = _cuda()
+    case = _run_case(scheme, "multicast_tree", 16, 256, 512, 1, 16, 5,
+                     device, burst=())
+    _assert_run_equal(*_kernel_and_plain(*case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,ticks", [(48, 3), (3, 200)])
+def test_sparse_run_sums_tables_larger_than_a_chunk(lanes, ticks):
+    """More than 42 lanes (over 512 (field, lane) sums) and more rows than
+    the last block stages at once: the tick-order sum in chunks."""
+    device = _cuda()
+    case = _run_case("hier_tree", "unicast", 4, 16, 32, lanes, ticks, 6,
+                     device, burst=(1,))
+    _assert_run_equal(*_kernel_and_plain(*case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["binary_tree", "hier_tree"])
+def test_sparse_run_frames_off_16_byte_boundaries(scheme):
+    """3 cores x 8 neurons: 24-byte frames, staged without cp.async."""
+    device = _cuda()
+    case = _run_case(scheme, "multicast_tree", 3, 8, 16, 2, 5, 9, device,
+                     burst=(3,))
+    _assert_run_equal(*_kernel_and_plain(*case))
+
+
+@pytest.mark.gpu
+def test_sparse_run_without_sparse_ticks_still_sums():
+    device = _cuda()
+    plan, params, stream, _ = _run_case("hier_tree", "unicast", 4, 16, 32, 2,
+                                        3, 2, device, burst=(0, 1, 2))
+    _assert_run_equal(*_kernel_and_plain(plan, params, stream, [True] * 3))
+
+
+@pytest.mark.gpu
+def test_sparse_run_refuses_what_it_cannot_hold():
+    device = _cuda()
+    plan, _, stream, _ = _run_case("hier_tree", "multicast_tree", 16, 256,
+                                   512, 1, 2, 3, device, burst=())
+    ops = plan.run.kernel
+    with pytest.raises(ValueError, match="MAX_SHARED_BYTES"):
+        _run_case("hier_tree", "multicast_tree", 64, 256, 512, 1, 2, 3,
+                  device, fan_in=1.0)     # every CAM entry of 64 cores live
+    table = torch.empty((2, 12, 1), device=device)
+    cur = torch.empty((1, 2, 16, 256), device=device)
+    before = sparse_kernel.launches
+    with pytest.raises(ValueError):
+        sparse_kernel.sparse_run_cuda(stream.to(torch.uint8), None, ops, cur,
+                                      table)
+    with pytest.raises(ValueError):
+        sparse_kernel.sparse_run_cuda(stream, None, ops, cur[:, :1], table)
+    assert sparse_kernel.launches == before
+
+
+@pytest.mark.gpu
+def test_session_makes_one_launch_per_run():
+    device = _cuda()
+    plan, params, stream, overflow = _run_case(
+        "hier_tree", "multicast_tree", 16, 256, 512, 2, 12, 4, device,
+        burst=(3, 8))
+    session = Interface(plan.cfg).compile(params)
+    xla = Interface(dataclasses.replace(plan.cfg, impl="xla")).compile(params)
+    before = sparse_kernel.launches
+    cur, st = session.run_batched(stream)
+    torch.cuda.synchronize()
+    assert sparse_kernel.launches == before + 1
+    want_cur, want_st = xla.run_batched(stream)
+    assert torch.equal(cur, want_cur)
+    for f, (a, b) in enumerate(zip(st, want_st)):
+        if f in INT_FIELDS:
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    step_cur, _ = session.step(stream[0, 0])
+    assert sparse_kernel.launches == before + 2
+    assert torch.equal(step_cur, cur[0, 0])
 
 
 # ---- cam_search (B2) ----------------------------------------------------------

@@ -95,7 +95,7 @@ def test_sparse_tick_ref_matches_the_pallas_kernel(scheme, cores, n, entries):
     cfg = InterfaceConfig(cores=cores, neurons_per_core=n,
                           cam_entries_per_core=entries, scheme=scheme,
                           impl="pallas_sparse")
-    tparams = params_from_numpy(tags, valid, weights, targets)
+    tparams = params_from_numpy(tags, valid, weights, targets, device="cpu")
     routing = tpipeline.build_routing_index(tparams, cfg)
     policy, _, capacity = tpipeline.resolve_sparse_plan(cfg)
     frames = _frames(rng, 3, cores, n, 0.2, capacity)
@@ -165,7 +165,7 @@ def _small_operands(scheme="hier_tree"):
     cfg = InterfaceConfig(cores=4, neurons_per_core=16,
                           cam_entries_per_core=32, scheme=scheme,
                           impl="pallas_sparse")
-    params = params_from_numpy(*_params(rng, 4, 16, 32))
+    params = params_from_numpy(*_params(rng, 4, 16, 32), device="cpu")
     routing = tpipeline.build_routing_index(params, cfg)
     policy, _, capacity = tpipeline.resolve_sparse_plan(cfg)
     spikes = torch.from_numpy(_frames(rng, 2, 4, 16, 0.2, capacity))

@@ -176,7 +176,8 @@ def test_multicast_hops_are_equal():
 
 def _both_params(cfg, seed):
     jparams = fabric.random_connectivity(jax.random.PRNGKey(seed), cfg)
-    return jparams, params_from_numpy(*(np.asarray(x) for x in jparams))
+    return jparams, params_from_numpy(*(np.asarray(x) for x in jparams),
+                                      device="cpu")
 
 
 @pytest.mark.parametrize("noc", paths.NOC_SCHEMES)
