@@ -21,11 +21,17 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     and 5 words, one lane at valid densities 0, one live source, 0.05,
     0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
     source), and its match matrix, first match and speculative search at
-    odd shapes with 1-3 words; hat_encode at N in {256, 512, 65536} and
-    spike rates 0, 0.05, 0.5 and 1; lif_step bitwise at (128, 4096),
-    (8, 512) and (32, 128), with values exactly at the threshold and one
-    ulp below it; moe_dispatch exactly at the JAX sweep's (M, E) = (256,
-    16), (2048, 160), (512, 64), (4096, 128), at the served streams
+    odd shapes with 1-3 words; hat_encode's one-tick op at N in {256,
+    512, 65536} and spike rates 0, 0.05, 0.5 and 1 (its largest gap
+    printed on its own), and its whole-run form (hat_run:
+    the arbiter's tick latency, encode energy and event count of every
+    bitmap of a run) bitwise for the five arbiter schemes at 16 x 256 on
+    two lanes of a 256-tick burst stream with the AER stream's edges
+    (an event at address 0, one at n - 1, an empty and a full core);
+    lif_step bitwise at (128, 4096), (8, 512) and (32, 128), with values
+    exactly at the threshold and one ulp below it; moe_dispatch exactly
+    at the JAX sweep's (M, E) = (256, 16), (2048, 160), (512, 64),
+    (4096, 128), at the served streams
     (decode: 4 x 6 events padded to 256, prefill: M = 3072, E = 64) and
     at M = 65536 and 1048576 with E = 64 and 160 (a cluster of blocks),
     each uniform, all on one expert, with pad and stray ids, and only
@@ -36,11 +42,12 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     the same stream with every 16th frame a full burst - first with
     impl="pallas_sparse" (the sparse kernel, the dense fallback on the
     burst ticks; one sparse_run launch a run), then with impl="pallas"
-    (cam_search and hat_encode on every tick), each driven with every
-    launch count set to 0 just before and read just after; each held to
-    the impl="xla" session (currents bitwise, stats under the
-    conformance contract) and to the CPU plain path on a 16-tick prefix;
-    then the paper's SNN workload,
+    (cam_search on every tick, hat_encode's hat_run once a run, neither
+    one-tick op ever), each
+    driven with every launch count set to 0 just before and read just
+    after; each held to the impl="xla" session (currents bitwise, stats
+    under the conformance contract) and to the CPU plain path on a
+    16-tick prefix; then the paper's SNN workload,
     `snn_forward` at `paper_dynaps.scaled_config()` (16 x 256 neurons,
     512 CAM entries, 32 steps) on a batch of 128 rasters, impl="pallas"
     (lif_step once per step) against impl="xla" (spikes, rates and
@@ -59,9 +66,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     forward's ms per batch, host split and device profile, the served
     LM's prefill ms, decode ms per step, tokens/s, host split and device
     profile, and every kernel's, plain version's and library call's time
-    per call (the whole-run sparse tick per launch and per tick at one
-    and at 2, 4 and 16 blocks a tick, and at 64 cores; cam_search at the
-    Bernoulli 0.05 and all-ones frames, with its bound over all pairs and
+    per call (the whole-run sparse tick per launch and per tick, and at
+    64 cores; the whole-run hat_encode per launch and per tick, with the
+    one-tick kernel and torch.cumsum on lines of their own; cam_search at
+    the Bernoulli 0.05 and all-ones frames, with its bound over all pairs and
     over (query, live source) pairs; lif_step with L2 flushed before
     each launch; moe_dispatch at the served prefill and decode streams
     and at benchmarks/kernel_bench.py's 16384 x 160 and 65536 x 160),
@@ -550,18 +558,22 @@ def main() -> int:
     kernel_modules = {"sparse_tick": sparse_kernel, "cam_search": cam_kernel,
                       "hat_encode": hat_kernel, "lif_step": lif_kernel,
                       "moe_dispatch": moe_kernel}
-    # the one-tick sparse op keeps its own count: no path launches it
-    no_launch = dict.fromkeys((*kernel_modules, "sparse_tick_one_tick"), 0)
+    # the one-tick sparse and hat_encode ops keep their own counts: no path
+    # launches them
+    no_launch = dict.fromkeys((*kernel_modules, "sparse_tick_one_tick",
+                               "hat_encode_one_tick"), 0)
     lm_cfg = deepseek_v2_lite_16b.config()
 
     def reset_launches():
         for module in kernel_modules.values():
             module.launches = 0
         sparse_kernel.tick_launches = 0
+        hat_kernel.tick_launches = 0
 
     def read_launches():
         return {**{name: m.launches for name, m in kernel_modules.items()},
-                "sparse_tick_one_tick": sparse_kernel.tick_launches}
+                "sparse_tick_one_tick": sparse_kernel.tick_launches,
+                "hat_encode_one_tick": hat_kernel.tick_launches}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # bfloat16 products sum in float32 and round once, as the JAX package's
@@ -797,22 +809,61 @@ def main() -> int:
               f"cam_first_match and cam_search_speculative through the ops "
               f"where the block rule admits them (exact)")
 
-    # hat_encode, with the AER stream it writes in the same pass
+    # hat_encode's one-tick op, with the AER stream it writes in the same
+    # pass; its largest gap is printed on its own: the kernels line's B3
+    # row is the whole-run kernel
+    tick_err = 0.0
     for n, rows in ((256, CORES), (512, 8), (65536, 2)):
         for rate in (0.0, RATE, 0.5, 1.0):
             spikes = torch.rand((rows, n), generator=gen, device=dev) < rate
             ranks, count, clusters, stream = hat_kernel.hat_encode_cuda(
                 spikes, row=256, stream=True)
             want = hat_ref.hat_encode_ref(spikes, row=256)
+            want = (*want, hat_ref.compact_stream(*want[:2]))
             torch.cuda.synchronize()
-            for name, g, w in zip(("ranks", "count", "cluster counts"),
-                                  (ranks, count, clusters), want):
+            for name, g, w in zip(("ranks", "count", "cluster counts",
+                                   "stream"),
+                                  (ranks, count, clusters, stream), want):
                 check(torch.equal(g, w), f"hat_encode {name} differ at "
                       f"N={n} rate={rate}")
-            check(torch.equal(stream, hat_ref.compact_stream(*want[:2])),
-                  f"hat_encode stream differs at N={n} rate={rate}")
+                tick_err = max(tick_err, float((g - w).abs().max()))
         print(f"kernel == plain: hat_encode {rows} bitmaps of N={n} at rates "
               f"0, {RATE}, 0.5, 1 (ranks, counts, clusters, stream exact)")
+    print(f"kernel vs plain: hat_encode one-tick op (hat_encode_kernel), "
+          f"largest absolute gap {tick_err}")
+
+    # hat_encode's whole-run form, through each scheme's plan as the pallas
+    # session binds it: two lanes of a burst stream, the AER stream's edges
+    # in tick 1 (an event at address 0, one at n - 1, an empty and a full
+    # core)
+    hat_frames = torch.rand((RUN_LANES, TICKS, CORES, NEURONS),
+                            generator=gen, device=dev) < RATE
+    hat_frames[:, ::BURST_EVERY] = True
+    hat_frames[:, 1, :4] = False
+    hat_frames[:, 1, 0, 0] = hat_frames[:, 1, 1, NEURONS - 1] = True
+    hat_frames[:, 1, 3] = True
+    tables = pipeline.build_tables(params, cfg)
+    for scheme in SCHEMES:
+        policy = pipeline.make_plan(params, config(scheme, impl="pallas"),
+                                    tables=tables, routing=routing).hat
+        check(policy.args is not None, f"{scheme} pallas plan bound no "
+              f"hat_run kernel arguments on the card")
+        got = hat_kernel.hat_run_cuda(hat_frames, policy.args)
+        want = hat_ref.hat_run_ref(hat_frames, policy.latency_fn,
+                                   policy.encode_fn)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("latency", "energy", "count"), got, want):
+            check(g.dtype == w.dtype and torch.equal(
+                g.view(torch.int32), w.view(torch.int32)),
+                f"hat_run {scheme} {name} differs")
+            max_err["hat_encode"] = max(max_err["hat_encode"], float(
+                (g.double() - w.double()).abs().max()))
+        check(int(want[2][1, 0, 3]) == NEURONS and int(want[2][1, 0, 2]) == 0,
+              "hat_run check frames lost their full and empty cores")
+    print(f"kernel == plain: hat_run (hat_encode whole run) {RUN_LANES} lanes "
+          f"x {TICKS} ticks x {CORES}x{NEURONS}, every {BURST_EVERY}th tick a "
+          f"burst, the stream's edges in tick 1, for {len(SCHEMES)} arbiter "
+          f"schemes (latency, energy, count bitwise)")
 
     # lif_step, bitwise: a sixty-fourth of the elements land exactly on the
     # threshold (v = 0, I = threshold), as many one float32 ulp below it
@@ -923,9 +974,9 @@ def main() -> int:
         f"pallas_sparse launches {launches['pallas_sparse']}: want one "
         f"sparse_run launch per run, no cam_search or hat_encode")
     check(launches["pallas"] == {**no_launch, "cam_search": ticks_all,
-                                 "hat_encode": ticks_all},
-          f"pallas launches {launches['pallas']}: want cam_search and "
-          f"hat_encode once per tick")
+                                 "hat_encode": len(streams)},
+          f"pallas launches {launches['pallas']}: want cam_search once per "
+          f"tick and hat_encode (hat_run) once per run")
     path_launches = {"sparse_tick": launches["pallas_sparse"]["sparse_tick"],
                      "cam_search": launches["pallas"]["cam_search"],
                      "hat_encode": launches["pallas"]["hat_encode"]}
@@ -1143,12 +1194,11 @@ def main() -> int:
     print_breakdown("pallas", pallas_session, (
         ("_entry_drive", pipeline, "_entry_drive"),
         ("  of it the cam_match_counts op", cam_ops, "cam_match_counts"),
-        ("_addr_streams", pipeline, "_addr_streams"),
-        ("  of it the encode_stream op", hat_ops, "encode_stream"),
+        ("hat_run op (once per run)", hat_ops, "hat_run"),
+        ("  of it the kernel wrapper", hat_kernel, "hat_run_cuda"),
         ("accounting_stats", pipeline, "accounting_stats"),
         ("  of it NoC costs", noc_router, "noc_step_costs")),
-        "rest (arbiter latency, CSR scatter, encode energy, stats "
-        "accumulate, currents)")
+        "rest (CSR scatter, stats accumulate, currents)")
 
     for label, session in sessions[:2]:
         ticks = 32
@@ -1393,19 +1443,52 @@ def main() -> int:
               f"at {live_ms / ms:.4f} of the first, {all_pairs_ms / ms:.4f} "
               f"of the second")
 
-    # B3 on the path: one tick's bitmaps (every core of one lane), with
-    # the AER stream; its library call is torch.cumsum over the same
-    # bitmaps as int32, which gives the ranks up to the where.
+    # B3 on the path: one hat_run launch over the Bernoulli stream's 256
+    # ticks (one lane), with the pallas session's own policy.  The bound
+    # counts each frame byte read once and the three 4-byte results of each
+    # bitmap written once, and one int32 operation a neuron.  No one
+    # PyTorch call computes the latency or the energy.
+    policy = pallas_session.plan.hat
+    run_frames = sparse_stream[None].contiguous()
+    hat_args = policy.args
+    hat_outs = hat_kernel.hat_run_cuda(run_frames, hat_args)
+    b3_ms, _ = report(
+        "hat_encode", lambda: hat_kernel.hat_run_cuda(run_frames, hat_args),
+        "hat_run_kernel",
+        lambda: hat_ref.hat_run_ref(run_frames, policy.latency_fn,
+                                    policy.encode_fn), None,
+        nbytes(run_frames, *hat_outs), run_frames.numel(), INT32_OPS_PER_S,
+        "int32 ops at 33.5 TOP/s, one a neuron", 2000, plain_reps=40,
+        label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
+    rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b3_ms * 1e3 / TICKS,
+                    launches_per_512_ticks=path_launches["hat_encode"])
+    print(f"{tag} hat_encode whole run: {b3_ms * 1e3 / TICKS:.4f} us per "
+          f"tick; {path_launches['hat_encode']} launches in the 512 pallas "
+          f"ticks of phase 4")
+
+    # the one-tick kernel (the ops hat_encode and encode_stream; not on the
+    # path any more) at one tick's bitmaps, with the AER stream, and
+    # torch.cumsum over the same bitmaps as int32, which gives its ranks up
+    # to the where, then over the whole run's
     bitmaps = sparse_stream[0]
-    hat_outs = hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True)
-    as_int = bitmaps.to(torch.int32)
-    report("hat_encode",
-           lambda: hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True),
-           "hat_encode_kernel",
-           lambda: hat_ops.encode_stream(bitmaps, row=256, impl="xla"),
-           lambda: torch.cumsum(as_int, -1),
-           nbytes(bitmaps, *hat_outs), bitmaps.numel(), INT32_OPS_PER_S,
-           "int32 adds at 33.5 TOP/s", 2000)
+    as_int, run_int = bitmaps.to(torch.int32), run_frames.to(torch.int32)
+    one_ms = device_ms_per_call(
+        lambda: hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True),
+        200, "hat_encode_kernel")
+    one_call_ms = cuda_ms(
+        lambda: hat_kernel.hat_encode_cuda(bitmaps, row=256, stream=True),
+        2000)
+    print(f"{tag} hat_encode one-tick op (hat_encode_kernel, the ops "
+          f"hat_encode and encode_stream): {one_ms * 1e3:.3f} us per launch "
+          f"at one Bernoulli {RATE} tick ({CORES} bitmaps; profiler, 200 "
+          f"launches), {one_call_ms * 1e3:.3f} us a call as a caller waits "
+          f"(CUDA events)")
+    for label, x in ((f"one tick's ({CORES}, {NEURONS})", as_int),
+                     (f"the whole run's (1, {TICKS}, {CORES}, {NEURONS})",
+                      run_int)):
+        ms = device_ms_per_call(lambda: torch.cumsum(x, -1), 200)
+        print(f"{tag} torch.cumsum over {label} int32 bitmaps: "
+              f"{ms * 1e3:.3f} us per call (profiler, 200 calls)")
 
     # B4 on the path: one step's (128, 4096) float32 state; v and I in,
     # v' and s out; three float32 operations an element (the FMA as two,

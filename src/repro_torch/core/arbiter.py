@@ -21,10 +21,13 @@ ported yet (ROADMAP queue A item 8).  Where the JAX package falls back to
 it - a factory returning ``None``: ``greedy_tree`` at n <= 2,
 ``hier_ring`` at a non-square n - the port raises instead.
 
-``kernel_policy`` names the compile-time branch of the CUDA sparse tick
-kernel (`repro_torch/csrc/sparse_tick.cu`) that computes the scheme's
-sparse policies; a scheme registered without one runs only on the plain
-torch path.
+``kernel_policy`` names the compile-time branch of the CUDA kernels that
+compute the scheme's policies: the sparse tick's
+(`repro_torch/csrc/sparse_tick.cu`) and the whole-run arbiter terms'
+(`repro_torch/csrc/hat_encode.cu`, `hat_run`).  A scheme registered
+without one runs on the plain torch path only: on the card,
+``impl="pallas_sparse"``, and ``impl="pallas"`` at an n that `hat_run`
+takes, raise `ValueError` when the plan is bound.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ class ArbiterScheme:
     sparse_tick_latency(ctx) -> Optional[(buf, counts) -> (...) float32]
     sparse_encode_energy(ctx) -> Optional[(buf, counts) -> (...) float32]
     kernel_policy: index of the scheme's branch in the CUDA sparse tick
-        kernel (`repro_torch.kernels.sparse_tick.kernel.POLICY_IDS`).
+        and hat_run kernels (`repro_torch.kernels.sparse_tick.kernel.
+        POLICY_IDS`).
     """
 
     name: str

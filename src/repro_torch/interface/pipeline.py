@@ -12,9 +12,12 @@ deterministic per-target sum (`kernels.sparse_tick.ref.scatter_currents`).
   ``"xla"``            the dense event tick in plain torch (`dense_tick`);
   ``"pallas"``         the same dense tick with the CAM match through the
                        CUDA `cam_search` kernel (match counts of every CAM
-                       entry's tag against every source address) and the
-                       AER address streams through the CUDA `hat_encode`
-                       kernel (their plain versions on CPU tensors);
+                       entry's tag against every source address, once per
+                       tick) and the arbiter's tick latency and AER encode
+                       energy through the CUDA `hat_encode` kernel's
+                       `hat_run`, once per run for all of its ticks
+                       (`arbiter_terms`; on CPU tensors their plain
+                       versions, tick by tick);
   ``"pallas_sparse"``  the ticks where no core overflows its event
                        buffer go through `kernels.sparse_tick.ops.
                        sparse_run`: compaction, the sparse tick and the
@@ -31,7 +34,8 @@ Not ported yet, and refused with `NotImplementedError`: ``oracle=True``
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -126,19 +130,23 @@ def _entry_drive(params, spikes_flat, routing: RoutingIndex, impl: str):
                                   routing.active).to(torch.float32)
 
 
-def _addr_streams(spikes, impl: str):
-    """(..., cores, n) int32 AER address streams (service order, pad n).
+def _hat_impl(cfg) -> str:
+    """``"pallas"`` where the `hat_encode` kernel takes this fabric (n a
+    multiple of its 256-neuron chunk and within its size limit), as the
+    JAX package's ``_addr_streams`` decides; otherwise ``"xla"``."""
+    return ("pallas" if cfg.impl == "pallas"
+            and hat_ops.takes(cfg.neurons_per_core) else "xla")
 
-    ``impl="pallas"`` takes the `hat_encode` kernel path when n is a
-    multiple of its 256-neuron cluster and within its size limit (one
-    launch for every lane and core), as the JAX package does; otherwise
-    the plain version.
-    """
-    row, n = 256, spikes.shape[-1]
-    hat_impl = ("pallas" if impl == "pallas" and n % row == 0
-                and n <= hat_ops.MAX_PALLAS_N else "xla")
-    stream, _ = hat_ops.encode_stream(spikes, row=row, impl=hat_impl)
-    return stream
+
+def arbiter_terms(plan, stream):
+    """(latencies, enc_per_core), each (T, B, cores), of every tick of a
+    (B, T, cores, n) stream from one `hat_run` launch, where the kernel
+    takes the run (``impl="pallas"`` on CUDA frames at an n it takes).
+    None elsewhere: `dense_tick` then computes them tick by tick."""
+    if not (stream.is_cuda and _hat_impl(plan.cfg) == "pallas"):
+        return None
+    lat, enc, _ = hat_ops.hat_run(stream, plan.hat, impl="pallas")
+    return lat, enc
 
 
 def resolve_sparse_plan(cfg, arb_cfg: arb.ArbiterConfig | None = None):
@@ -252,7 +260,7 @@ class TickPlan(NamedTuple):
     routing: RoutingIndex
     cam_cycle_ns: float
     noc_scheme: noc_router.NocScheme
-    tick_latency: Callable          # dense (B, cores, n) -> (B, cores)
+    hat: hat_ops.HatPolicy          # the dense arbiter latency and energy
     run: sparse_ops.SparseRun | None  # pallas_sparse's operands, or None
 
 
@@ -321,6 +329,13 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
             f"cfg)")
     if arb_cfg is None:
         arb_cfg = arb.ArbiterConfig(cfg.scheme, cfg.neurons_per_core)
+    n = cfg.neurons_per_core
+    hat = hat_ops.bind_run(
+        arb.tick_latency_fn(arb_cfg),
+        functools.partial(arb.encode_energy_units, cfg.scheme, n),
+        interface_registry.get_arbiter(cfg.scheme).kernel_policy,
+        arb_cfg.levels, n,
+        params.weights.device if cfg.impl == "pallas" else "cpu")
     sparse = (resolve_sparse_plan(cfg, arb_cfg)
               if cfg.impl == "pallas_sparse" else None)
     if routing is None:
@@ -333,23 +348,28 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
                     cam_cycle_ns=cam_cycle_ns,
                     noc_scheme=interface_registry.get_noc_scheme(
                         cfg.noc.scheme),
-                    tick_latency=arb.tick_latency_fn(arb_cfg), run=run)
+                    hat=hat, run=run)
 
 
-def dense_tick(plan: TickPlan, params, spikes):
+def dense_tick(plan: TickPlan, params, spikes, terms=None):
     """The dense event tick on (B, cores, n) bool frames.
 
-    Returns (currents (B, cores, n), `StepStats` with (B,) fields).
+    ``terms`` is this tick's precomputed ``(latencies, enc_per_core)``,
+    each (B, cores) (`arbiter_terms`); None computes them here, through
+    `hat_run` on this one tick.  Returns (currents (B, cores, n),
+    `StepStats` with (B,) fields).
     """
     cfg, n = plan.cfg, plan.cfg.neurons_per_core
-    latencies = plan.tick_latency(spikes)
+    if terms is None:
+        lat, enc, _ = hat_ops.hat_run(spikes[:, None], plan.hat,
+                                      impl=_hat_impl(cfg))
+        terms = lat[0], enc[0]
+    latencies, enc_per_core = terms
     spikes_flat = spikes.reshape(spikes.shape[0], -1)
     drive = _entry_drive(params, spikes_flat, plan.routing, cfg.impl)
     currents = sparse_ref.scatter_currents(drive * params.weights,
                                            plan.routing.csr, n)
     hits_total = drive.sum((-2, -1))
-    addr_seq = _addr_streams(spikes, cfg.impl)
-    enc_per_core = arb.encode_energy_units(cfg.scheme, n, addr_seq)
     stats = accounting_stats(cfg, plan.tables, spikes, latencies,
                              enc_per_core, hits_total, params.valid,
                              plan.cam_cycle_ns, plan.noc_scheme)

@@ -18,6 +18,11 @@ it to the host once; the overflowing ticks take the dense fallback, and
 every other tick of every lane goes through one `sparse_run` (one kernel
 launch on the card, `pipeline.run_stream`).  Both give the same bits.
 
+``impl="pallas"`` computes the arbiter's tick latency and encode energy
+of every tick of a run first, in one `hat_run` (one kernel launch on the
+card, `pipeline.arbiter_terms`), then runs the dense tick on each frame
+with its slice.
+
 Not ported yet (`NotImplementedError`, naming the ROADMAP queue A item):
 ``chips > 1``, ``shard=``, ``mask=``/``stats0=``, ``telemetry=`` and
 ``fault_tick0=`` (item 7), ``fault=`` (item 9).
@@ -129,12 +134,15 @@ class InterfaceSession:
                 self.plan, self.params, stream, self._overflow(stream))
             return currents, StepStats(*acc.unbind(0))
         lanes, ticks = stream.shape[:2]
+        terms = pipeline.arbiter_terms(self.plan, stream)
         stream = stream.transpose(0, 1).contiguous()
         acc = torch.zeros((len(StepStats._fields), lanes),
                           dtype=torch.float32, device=self.device)
         currents = []
         for t in range(ticks):
-            cur, st = pipeline.tick(self.plan, self.params, stream[t])
+            cur, st = pipeline.dense_tick(
+                self.plan, self.params, stream[t],
+                None if terms is None else (terms[0][t], terms[1][t]))
             acc = acc + torch.stack(tuple(st))
             currents.append(cur)
         cfg = self.config

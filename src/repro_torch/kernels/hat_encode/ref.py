@@ -1,6 +1,9 @@
 """Plain torch oracle for hierarchical event encoding.
 
-Port of `repro.kernels.hat_encode.ref`, over any leading batch axes.
+Port of `repro.kernels.hat_encode.ref`, over any leading batch axes, and
+`hat_run_ref`, the plain version of the whole-run kernel: the
+interface tick's composition of the scheme's dense latency with the
+encode energy of the AER stream.
 """
 
 from __future__ import annotations
@@ -38,3 +41,17 @@ def compact_stream(ranks: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
                      device=ranks.device)
     out.scatter_(-1, target, idx.expand_as(ranks).contiguous())
     return out[..., :n]
+
+
+def hat_run_ref(stream: torch.Tensor, latency_fn, encode_fn):
+    """The arbiter's tick terms of every bitmap of a run.
+
+    stream: (B, T, C, n) bool frames.  ``latency_fn`` maps (..., n) frames
+    to (...) float32 latencies, ``encode_fn`` (..., n) int32 AER streams to
+    (...) float32 encode energies.  Returns (latency, encode energy,
+    events int32), each (T, B, C).
+    """
+    frames = stream.transpose(0, 1)
+    ranks, count, _ = hat_encode_ref(frames, row=1)
+    return (latency_fn(frames), encode_fn(compact_stream(ranks, count)),
+            count)

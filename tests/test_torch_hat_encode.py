@@ -103,8 +103,8 @@ def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
         raise AssertionError(f"built {name}")
     monkeypatch.setattr(build, "load", no_build)
     spikes = torch.zeros((4, 256), dtype=torch.bool)
-    before = hat_kernel.launches
+    before = hat_kernel.tick_launches
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         hat_kernel.hat_encode_cuda(spikes, row=256, stream=True)
     that_ops.encode_stream(spikes, impl="pallas")
-    assert hat_kernel.launches == before
+    assert hat_kernel.tick_launches == before

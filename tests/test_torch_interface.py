@@ -6,7 +6,7 @@ same numpy spike streams.  `run` and `run_batched`, under impl="xla",
 "pallas" and "pallas_sparse", over a sample of the 5 x 3 arbiter x NoC
 grid on `tests/conformance/paths.small_config` (4 x 16 x 32), with
 sparse, overflowing and full-burst frames; impl="pallas" also at
-4 x 256 x 64, where the address streams take the hat_encode kernel
+4 x 256 x 64, where the arbiter terms take the hat_encode kernel
 branch; and the six `repro.traffic` scenarios through all three impls.  The tolerance is the conformance
 contract: currents bitwise, `EXACT_FIELDS` exact, every other stat within
 `REL_TOL` (energies multiply float32 counts by Python-float constants,
@@ -121,18 +121,19 @@ def test_run_batched_matches_jax(arb_scheme, noc_scheme, impl):
                           ("binary_tree", "broadcast")])
 def test_pallas_at_256_neurons_takes_the_hat_encode_branch(
         arb_scheme, noc_scheme, monkeypatch):
-    """At n = 256 the address streams go through hat_encode's kernel
-    path (its plain version on the CPU); run and run_batched still match
-    the JAX package's pallas path (`paths.run_pallas`)."""
+    """At n = 256 the arbiter terms go through hat_encode's kernel path,
+    `hat_run` (its plain version on the CPU, tick by tick); run and
+    run_batched still match the JAX package's pallas path
+    (`paths.run_pallas`)."""
     jcfg, jparams, tcfg, tparams = _setup(arb_scheme, noc_scheme, "pallas",
                                           n=256, entries=64)
     calls = []
-    encode = tpipeline.hat_ops.encode_stream
+    hat_run = tpipeline.hat_ops.hat_run
 
-    def spy(spikes, **kw):
+    def spy(stream, policy, **kw):
         calls.append(kw["impl"])
-        return encode(spikes, **kw)
-    monkeypatch.setattr(tpipeline.hat_ops, "encode_stream", spy)
+        return hat_run(stream, policy, **kw)
+    monkeypatch.setattr(tpipeline.hat_ops, "hat_run", spy)
     rng = np.random.default_rng(11)
     lanes = rng.random((2, 3, 4, 256)) < np.array([0.05, 0.3])[:, None,
                                                                 None, None]

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import arbiter as arb
 from repro_torch.interface import Interface, InterfaceConfig, pipeline
+from repro_torch.interface import registry as interface_registry
 from repro_torch.interface.types import random_connectivity
 from repro_torch.kernels.cam_search import kernel as cam_kernel
 from repro_torch.kernels.cam_search import ops as cam_ops
@@ -402,11 +403,11 @@ def test_hat_encode_kernel_matches_plain_version(rows, n, row, rate):
     device = _cuda()
     rng = np.random.default_rng(rows + n)
     spikes = torch.from_numpy(rng.random((rows, n)) < rate).to(device)
-    before = hat_kernel.launches
+    before = hat_kernel.tick_launches
     ranks, count, clusters, stream = hat_kernel.hat_encode_cuda(
         spikes, row=row, stream=True)
     torch.cuda.synchronize()
-    assert hat_kernel.launches == before + 1
+    assert hat_kernel.tick_launches == before + 1
     want = hat_ref.hat_encode_ref(spikes, row=row)
     for g, w in zip((ranks, count, clusters), want):
         assert torch.equal(g, w)
@@ -417,15 +418,125 @@ def test_hat_encode_kernel_matches_plain_version(rows, n, row, rate):
 def test_hat_ops_on_cuda_launch_once_per_call():
     device = _cuda()
     spikes = torch.rand((2, 16, 256), device=device) < 0.05
-    before = hat_kernel.launches
+    before = hat_kernel.tick_launches
     stream, count = hat_ops.encode_stream(spikes, impl="pallas")
     ranks, _, _ = hat_ops.hat_encode(spikes, impl="pallas")
-    assert hat_kernel.launches == before + 2
+    assert hat_kernel.tick_launches == before + 2
     want = hat_ref.hat_encode_ref(spikes)
     assert torch.equal(ranks, want[0]) and torch.equal(count, want[1])
     assert torch.equal(stream, hat_ref.compact_stream(*want[:2]))
     with pytest.raises(ValueError, match="N % 256 == 0"):
         hat_ops.hat_encode(spikes[..., :100], impl="pallas")
+
+
+def _hat_policy(scheme, n, kernel_policy=-1):
+    """The scheme's `HatPolicy` bound for the card (``kernel_policy``
+    overrides the registered branch)."""
+    cfg = arb.ArbiterConfig(scheme, n)
+    if kernel_policy == -1:
+        kernel_policy = interface_registry.get_arbiter(scheme).kernel_policy
+    return hat_ops.bind_run(
+        arb.tick_latency_fn(cfg),
+        lambda aer: arb.encode_energy_units(scheme, n, aer), kernel_policy,
+        cfg.levels, n, "cuda")
+
+
+def _hat_stream(lanes, ticks, cores, n, rate, seed, device):
+    """Bernoulli frames with the AER stream's edges in the last (lane,
+    tick): one event at address 0, one at n - 1, an empty core and a full
+    core, as many as there are cores."""
+    s = np.random.default_rng(seed).random((lanes, ticks, cores, n)) < rate
+    last = s[-1, -1]
+    last[:4] = False
+    last[0, 0] = True
+    last[1:2, n - 1] = True
+    last[3:4] = True
+    return torch.from_numpy(s).to(device)
+
+
+def _assert_hat_run_equal(stream, policy):
+    before = hat_kernel.launches
+    got = hat_kernel.hat_run_cuda(stream, policy.args)
+    torch.cuda.synchronize()
+    assert hat_kernel.launches == before + 1
+    want = hat_ref.hat_run_ref(stream, policy.latency_fn, policy.encode_fn)
+    for name, g, w in zip(("latency", "energy", "count"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ticks,lanes", [(1, 1), (256, 1), (7, 3)])
+@pytest.mark.parametrize("rate", [0.0, 0.05, 0.5, 1.0])
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_hat_run_kernel_matches_plain_version(scheme, n, rate, ticks, lanes):
+    device = _cuda()
+    stream = _hat_stream(lanes, ticks, 16, n, rate, n + ticks, device)
+    _assert_hat_run_equal(stream, _hat_policy(scheme, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_hat_run_kernel_at_65536_neurons(scheme):
+    device = _cuda()
+    for rate in (0.0, 0.05, 0.5, 1.0):
+        stream = _hat_stream(1, 1, 6, 65536, rate, 5, device)
+        _assert_hat_run_equal(stream, _hat_policy(scheme, 65536))
+
+
+@pytest.mark.gpu
+def test_hat_run_op_on_cuda_launches_and_never_falls_back():
+    device = _cuda()
+    stream = _hat_stream(2, 5, 16, 256, 0.05, 1, device)
+    policy = _hat_policy("hier_tree", 256)
+    before = hat_kernel.launches
+    got = hat_ops.hat_run(stream[:, 1:], policy, impl="pallas")
+    assert hat_kernel.launches == before + 1
+    want = hat_ref.hat_run_ref(stream[:, 1:], policy.latency_fn,
+                               policy.encode_fn)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="registers no kernel_policy"):
+        _hat_policy("hier_tree", 256, kernel_policy=None)
+    with pytest.raises(ValueError, match="bound for the CPU"):
+        hat_ops.hat_run(stream, policy._replace(args=None), impl="pallas")
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        hat_kernel.hat_run_cuda(stream[..., :128].contiguous(),
+                                hat_kernel.run_args(4, 128, 4))
+    assert hat_kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_pallas_session_makes_one_hat_launch_per_run():
+    device = _cuda()
+    cfg = InterfaceConfig(cores=16, neurons_per_core=256,
+                          cam_entries_per_core=512, scheme="hier_tree",
+                          noc=NocConfig("multicast_tree"), impl="pallas")
+    params = random_connectivity(torch.Generator().manual_seed(3),
+                                 cfg).to(device)
+    session = Interface(cfg).compile(params)
+    xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(params)
+    stream = _hat_stream(2, 9, 16, 256, 0.05, 2, device)
+    stream[:, 4] = True
+    before = (hat_kernel.launches, cam_kernel.launches,
+              hat_kernel.tick_launches)
+    cur, st = session.run_batched(stream)
+    torch.cuda.synchronize()
+    assert (hat_kernel.launches, cam_kernel.launches,
+            hat_kernel.tick_launches) == (before[0] + 1, before[1] + 9,
+                                          before[2])
+    want_cur, want_st = xla.run_batched(stream)
+    assert torch.equal(cur, want_cur)
+    for f, (a, b) in enumerate(zip(st, want_st)):
+        if f in INT_FIELDS:
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    session.run(stream[0])
+    assert hat_kernel.launches == before[0] + 2
+    step_cur, _ = session.step(stream[1, 4])
+    assert hat_kernel.launches == before[0] + 3
+    assert torch.equal(step_cur, cur[1, 4])
 
 
 # ---- lif_step (B4) ------------------------------------------------------------
