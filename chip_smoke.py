@@ -15,8 +15,11 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     256 neurons x 512 CAM entries for all five arbiter schemes (plus 64
     cores); the whole-run sparse tick (sparse_run) for the five arbiter
     schemes x three NoC schemes at 16 and 64 cores on two lanes of a
-    stream with overflowing ticks (currents bitwise, whole-number stats
-    exact, the rest within 1e-6 relative, the largest gap printed);
+    stream with overflowing ticks, each unseeded and seeded by a
+    non-zero acc0 (currents bitwise, whole-number stats exact, the rest
+    within 1e-6 relative, the largest gap printed; seeded sums bitwise),
+    and seeded at the serve path's shape (4 lanes x 16 ticks of the
+    pallas_sparse group's scenario streams, ragged, one lane at rest);
     cam_search's match counts at 8192 queries x 4096 sources x 1
     and 5 words, one lane at valid densities 0, one live source, 0.05,
     0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
@@ -60,14 +63,21 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     prefill on the card against `hat_route` on the CPU; and the model at
     full width cut to its dense layer and one MoE layer, in float32,
     teacher-forced on the card and on the CPU from the same parameters;
+    then the fabric serving tier (served_fabric): 8 tenants in a
+    pallas_sparse and a pallas group of the scaled fabric, flush_ticks
+    16, ragged rounds; each group's probe tenant bitwise against its solo
+    session.run under the drain, the background pump and a chaos run,
+    the accounting identity, and B1 once, B3 once and B2 16 times a
+    flush, with its events/s, tick ms, host split (also with a plain
+    copy in place of the side stream) and a flush's device profile;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
     forward's ms per batch, host split and device profile, the served
     LM's prefill ms, decode ms per step, tokens/s, host split and device
     profile, and every kernel's, plain version's and library call's time
-    per call (the whole-run sparse tick per launch and per tick, and at
-    64 cores; the whole-run hat_encode per launch and per tick, with the
+    per call (the whole-run sparse tick per launch and per tick, seeded
+    by acc0 beside unseeded, and at 64 cores; the whole-run hat_encode per launch and per tick, with the
     one-tick kernel and torch.cumsum on lines of their own; cam_search at
     the Bernoulli 0.05 and all-ones frames, with its bound over all pairs and
     over (query, live source) pairs; lif_step with L2 flushed before
@@ -91,6 +101,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
@@ -126,6 +137,11 @@ MOE_BENCH = ((16384, 160), (65536, 160))   # benchmarks/kernel_bench.py times
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 128, 32
 LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 32
 LM_RUNS = 3
+SERVE_TENANTS = 8               # benchmarks/noc_bench.py --serve's default
+SERVE_FLUSH = 16
+SERVE_TICKS = 64                # tenant i submits 64 - 8 (i % 4) a round
+SERVE_ROUNDS = 3                # measured, after one warm-up round
+SIDE_PAIRS = 10                 # side stream against a plain copy
 # card against CPU on the same inputs, float32 softmax and sums in
 # another order: route weights, aux and z losses (an H100 read 1.9e-6),
 # and the logits of the 2-layer full-width float32 cut (an H100 read
@@ -512,6 +528,297 @@ def served_lm(dev, tag, reset_launches, read_launches, no_launch):
     return launches["moe_dispatch"], stream
 
 
+def served_fabric(dev, tag, reset_launches, read_launches, no_launch):
+    """The fabric serving tier on the card: `repro_torch.serve.ServeEngine`
+    with SERVE_TENANTS tenants in two groups of the scaled fabric, one
+    ``pallas_sparse`` (B1) and one ``pallas`` (B2, B3).  Checks each
+    group's probe tenant bitwise against its solo ``session.run`` under
+    the synchronous drain, the background pump and a chaos run with
+    transfer and execute faults, the accounting identity, and the
+    launches per flush; prints the serving metrics.  Returns the
+    launches per flush of B1, B2 and B3."""
+    from repro_torch import traffic
+    from repro_torch.configs import paper_dynaps
+    from repro_torch.ft import ChaosInjector, FaultEvent, FaultPlan
+    from repro_torch.ft import RetriesExhaustedError
+    from repro_torch.interface import Interface
+    from repro_torch.kernels.cam_search import kernel as cam_kernel
+    from repro_torch.kernels.hat_encode import kernel as hat_kernel
+    from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
+    from repro_torch.serve import RetryPolicy, ServeEngine, TenantSpec
+    from repro_torch.serve import default_connectivity
+    from repro_torch.serve import engine as engine_mod
+
+    fabric = paper_dynaps.scaled_config().fabric
+    cfgs = {impl: dataclasses.replace(fabric, impl=impl)
+            for impl in ("pallas_sparse", "pallas")}
+    names = traffic.scenario_names()
+    per_group = SERVE_TENANTS // 2
+    specs = [TenantSpec(f"tenant{i}", cfgs["pallas_sparse" if i < per_group
+                                           else "pallas"],
+                        scenario=names[i % len(names)], seed=i)
+             for i in range(SERVE_TENANTS)]
+    ticks = {s.name: SERVE_TICKS - 8 * (i % 4) for i, s in enumerate(specs)}
+    probes = {"pallas_sparse": specs[0], "pallas": specs[per_group]}
+    print(f"serve: {SERVE_TENANTS} tenants on {fabric.cores} x "
+          f"{fabric.neurons_per_core} x {fabric.cam.entries} "
+          f"({fabric.scheme}, {fabric.noc.scheme}), scenarios "
+          f"{[s.scenario for s in specs]}, groups pallas_sparse "
+          f"{[s.name for s in specs[:per_group]]} and pallas "
+          f"{[s.name for s in specs[per_group:]]}; flush_ticks {SERVE_FLUSH}; "
+          f"ticks a round {list(ticks.values())}")
+
+    def make_engine(**kw):
+        engine = ServeEngine(flush_ticks=SERVE_FLUSH, flush_deadline_s=0.0,
+                             keep_currents=True, device=dev, **kw)
+        for spec in specs:
+            engine.register(spec)
+        check(len(engine.groups) == 2, "serve: want two tenant groups")
+        return engine
+
+    def submit_round(engine):
+        for spec in specs:
+            engine.submit_scenario(spec.name, ticks[spec.name])
+
+    # each probe's solo run on the card, over the stream of the rounds it
+    # is served, rebuilt from its CPU generator
+    solo = {}
+    for impl, spec in probes.items():
+        stream = torch.cat([spec.stream(ticks[spec.name], round=r)
+                            for r in range(1 + SERVE_ROUNDS)]).to(dev)
+        session = Interface(cfgs[impl]).compile(default_connectivity(
+            cfgs[impl], spec.connectivity_seed), device=dev)
+        cur, st = session.run(stream)
+        solo[impl] = (cur.cpu().numpy(), [float(f) for f in st])
+
+    def check_probes(engine, label, warmed=False):
+        """Each probe's currents (kept since the warm-up round's reset,
+        when ``warmed``) and stats bitwise equal to its solo run."""
+        for impl, spec in probes.items():
+            cur, st = solo[impl]
+            served_from = ticks[spec.name] if warmed else 0
+            got = engine.currents(spec.name)
+            check(got.shape == cur[served_from:].shape
+                  and bool(np.isfinite(got).all())
+                  and np.array_equal(got, cur[served_from:]),
+                  f"serve {label}: {spec.name} ({impl}) currents differ "
+                  f"from its solo run")
+            mine = [float(f) for f in engine.tenant_stats(spec.name)]
+            check(mine == st, f"serve {label}: {spec.name} ({impl}) stats "
+                  f"{mine} differ from its solo run's {st}")
+        check(engine.accounting()["closes"],
+              f"serve {label}: accounting does not close: "
+              f"{engine.accounting()}")
+
+    # ---- the synchronous drain: one warm-up round, then the measured ones
+    engine = make_engine()
+    submit_round(engine)
+    engine.drain()
+    engine.reset_metrics()
+    flushes = {impl: 0 for impl in cfgs}
+    step = engine_mod.ServeEngine._step
+
+    def counted_step(self, group, staged):
+        out = step(self, group, staged)
+        flushes[group.config.impl] += 1
+        return out
+
+    engine_mod.ServeEngine._step = counted_step
+    try:
+        reset_launches()
+        for _ in range(SERVE_ROUNDS):
+            submit_round(engine)
+            engine.drain()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        engine_mod.ServeEngine._step = step
+    check_probes(engine, "sync drain", warmed=True)
+    per_flush = {"sparse_tick": launches["sparse_tick"]
+                 / flushes["pallas_sparse"],
+                 "hat_encode": launches["hat_encode"] / flushes["pallas"],
+                 "cam_search": launches["cam_search"] / flushes["pallas"]}
+    print(f"serve sync drain: {SERVE_ROUNDS} rounds, flushes {flushes}, "
+          f"launches {launches}; per flush {per_flush}")
+    check(launches == {**no_launch,
+                       "sparse_tick": flushes["pallas_sparse"],
+                       "hat_encode": flushes["pallas"],
+                       "cam_search": SERVE_FLUSH * flushes["pallas"]},
+          f"serve launches {launches} for flushes {flushes}: want B1 once "
+          f"a pallas_sparse flush, B3 once and B2 {SERVE_FLUSH} times a "
+          f"pallas flush, nothing else")
+    check(min(flushes.values()) > 0, "serve: a group never flushed")
+    report = engine.serve_report()
+    fleet = report[-1]
+    served = engine.ticks_served()
+    n_flush = int(engine.registry.counter("serve.flushes").value)
+    check(served == SERVE_ROUNDS * sum(ticks.values())
+          and math.isfinite(fleet["events_per_sec"])
+          and fleet["events_per_sec"] > 0, f"serve fleet record {fleet}")
+    print(f"serve probes {[s.name for s in probes.values()]} == their solo "
+          f"session.run on the card ({1 + SERVE_ROUNDS} rounds: currents "
+          f"and stats bitwise); accounting closes; {served} ticks served")
+    print(f"{tag} serve sync drain: {fleet['events_per_sec']:.1f} events/s "
+          f"sustained ({fleet['events']:.0f} events in {fleet['busy_s']:.6f} "
+          f"s of step wall clock); tick ms p50 {fleet['tick_ms_p50']:.6f}, "
+          f"p95 {fleet['tick_ms_p95']:.6f}, p99 {fleet['tick_ms_p99']:.6f} "
+          f"(engine histograms, a flush's wall clock over its "
+          f"{SERVE_FLUSH} ticks); {fleet['busy_s'] * 1e3 / n_flush:.4f} ms "
+          f"per flush over {n_flush} flushes")
+    by_tenant = {r["tenant"]: r for r in report[:-1]}
+    for impl, spec in probes.items():
+        rec = by_tenant[spec.name]
+        print(f"{tag} serve {impl} group (its tenants' tick ms, probe "
+              f"{spec.name}): p50 {rec['tick_ms_p50']:.6f}, p99 "
+              f"{rec['tick_ms_p99']:.6f}, so {SERVE_FLUSH * rec['tick_ms_p50']:.4f}"
+              f" ms a flush at the median")
+
+    # the host split of one more round, per flush, and each group's device
+    # profile of one flush (16 ticks a tenant of that group only)
+    stages = (("transfer", engine_mod.ServeEngine, "_transfer"),
+              ("step", engine_mod.ServeEngine, "_step"),
+              ("wait", engine_mod.ServeEngine, "_wait"),
+              ("record", engine_mod.ServeEngine, "_record"))
+    before = engine.registry.counter("serve.flushes").value
+
+    def one_round():
+        submit_round(engine)
+        engine.drain()
+    total, spent = host_breakdown(one_round, stages)
+    n = engine.registry.counter("serve.flushes").value - before
+    parts = "; ".join(f"{k} {v * 1e3 / n:.4f}" for k, v in spent.items())
+    print(f"{tag} serve host ms per flush ({int(n)} flushes of one round): "
+          f"total {total * 1e3 / n:.4f} = {parts}; the rest (queue, "
+          f"staging, chunk packing, submit) "
+          f"{(total - sum(spent.values())) * 1e3 / n:.4f}")
+
+    # what the side stream buys: the host split of a round with the
+    # engine's own `_transfer` (pinned copies on its side stream, an event
+    # the step waits on) and with a plain copy on the compute stream,
+    # SIDE_PAIRS pairs of rounds, each pair's order alternating
+    side_transfer = engine_mod.ServeEngine._transfer
+
+    def plain_transfer(self, chunk):
+        if self.chaos is not None:
+            self.chaos.on_transfer(self._round)
+        return engine_mod._OnDevice(
+            torch.from_numpy(chunk.spikes).to(self.device),
+            torch.from_numpy(chunk.mask).to(self.device), None, ())
+    split = {"side stream": [], "plain copy": []}
+    try:
+        for pair in range(SIDE_PAIRS):
+            for label in (("side stream", "plain copy") if pair % 2 == 0
+                          else ("plain copy", "side stream")):
+                engine_mod.ServeEngine._transfer = (
+                    side_transfer if label == "side stream"
+                    else plain_transfer)
+                before = engine.registry.counter("serve.flushes").value
+                total, spent = host_breakdown(one_round, stages)
+                n = engine.registry.counter("serve.flushes").value - before
+                split[label].append((total * 1e3 / n,
+                                     spent["transfer"] * 1e3 / n,
+                                     spent["step"] * 1e3 / n))
+    finally:
+        engine_mod.ServeEngine._transfer = side_transfer
+
+    def spread(values):
+        q1, median, q3 = statistics.quantiles(values, n=4)
+        return f"{median:.4f} ({q1:.4f}-{q3:.4f})"
+    side_wins = sum(a[0] < b[0] for a, b in zip(split["side stream"],
+                                                split["plain copy"]))
+    print(f"{tag} serve host ms per flush, side stream against a plain copy "
+          f"on the compute stream ({SIDE_PAIRS} pairs of rounds, order "
+          f"alternating; median (quartiles)): " + "; ".join(
+              f"{label}: total {spread([r[0] for r in runs])}, transfer "
+              f"{spread([r[1] for r in runs])}, step "
+              f"{spread([r[2] for r in runs])}"
+              for label, runs in split.items())
+          + f"; the side stream's total lower in {side_wins} of "
+          f"{SIDE_PAIRS} pairs")
+    for impl in cfgs:
+        group = [s for s in specs if s.config.impl == impl]
+        frames = {s.name: s.stream(SERVE_FLUSH, round=100).numpy()
+                  for s in group}
+
+        def one_flush():
+            for name, f in frames.items():
+                engine.submit(name, f)
+            engine.pump(force=True)
+        wall_us, events = device_events(one_flush)
+        check(bool(events), f"serve: the profiler recorded no device op in "
+              f"a {impl} flush")
+        busy_us = sum(e.device_time_total for e in events)
+        by_name = {}
+        for e in events:
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, count + 1)
+        print(f"{tag} serve profile, one {impl} flush ({len(group)} lanes x "
+              f"{SERVE_FLUSH} ticks): wall {wall_us:.1f} us (host clock, "
+              f"profiler on), device busy {busy_us:.1f} us in {len(events)} "
+              f"device ops, idle share {1 - busy_us / wall_us:.4f}")
+        for key, (us, count) in sorted(by_name.items(),
+                                       key=lambda r: -r[1][0])[:8]:
+            print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+    check(engine.accounting()["closes"], "serve: accounting after profiles")
+
+    # ---- the same fleet drained by the background pump
+    pumped = make_engine()
+    submit_round(pumped)
+    pumped.drain()
+    pumped.reset_metrics()
+    for _ in range(SERVE_ROUNDS):
+        submit_round(pumped)
+    pumped.start(poll_interval_s=1e-4)
+    deadline = time.monotonic() + 300.0
+    while (pumped.queue_depth()
+           or any(g.backlog_ticks() for g in pumped.groups.values())):
+        check(time.monotonic() < deadline and pumped.running,
+              "serve: the background pump did not drain the fleet")
+        time.sleep(0.002)
+    pumped.stop(drain=True)
+    check(not pumped.running and pumped.pump_errors() == [],
+          f"serve pump errors {pumped.pump_errors()}")
+    check_probes(pumped, "background pump", warmed=True)
+    async_fleet = pumped.serve_report()[-1]
+    print(f"{tag} serve background pump: {async_fleet['events_per_sec']:.1f} "
+          f"events/s, tick ms p50 {async_fleet['tick_ms_p50']:.6f}, p99 "
+          f"{async_fleet['tick_ms_p99']:.6f}; async/sync events/s "
+          f"{async_fleet['events_per_sec'] / fleet['events_per_sec']:.4f}; "
+          f"probes bitwise, accounting closes")
+
+    # ---- chaos: transfer and execute faults, retried
+    plan = FaultPlan(events=(
+        FaultEvent(round=1, kind="transfer_fail", times=2),
+        FaultEvent(round=2, kind="execute_fail", times=2),
+        FaultEvent(round=3, kind="transfer_fail", times=1),
+        FaultEvent(round=3, kind="execute_fail", times=3)))
+    injector = ChaosInjector(plan, sleep=lambda s: None)
+    chaotic = make_engine(chaos=injector,
+                          retry=RetryPolicy(max_retries=3, backoff_base_s=0.0),
+                          sleep=lambda s: None)
+    hard = 0
+    for _ in range(1 + SERVE_ROUNDS):
+        submit_round(chaotic)
+        try:
+            chaotic.pump(force=True)
+        except RetriesExhaustedError:
+            hard += 1
+    while True:
+        try:
+            chaotic.drain()
+            break
+        except RetriesExhaustedError:
+            hard += 1
+    faults = chaotic.serve_report()[-1].get("faults", {})
+    check(injector.exhausted() and faults.get("retries") ==
+          plan.total_charges(), f"serve chaos: plan not delivered: {faults}")
+    check_probes(chaotic, "chaos run")
+    print(f"serve chaos: {plan.total_charges()} transfer/execute charges "
+          f"fired and retried ({faults}), {hard} exhausted; probes bitwise, "
+          f"accounting closes")
+    return per_flush
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -650,9 +957,10 @@ def main() -> int:
     print(f"kernel vs plain: sparse_tick one-tick op (sparse_tick_kernel), "
           f"largest absolute gap {tick_err}")
 
-    def run_both(plan, params, stream, overflow):
+    def run_both(plan, params, stream, overflow, acc0=None):
         """The whole-run kernel and its plain version on the same frames,
-        the dense fallback's rows written alike first."""
+        the dense fallback's rows written alike first, both sums seeded by
+        ``acc0`` when given."""
         lanes, ticks = stream.shape[:2]
         cur = torch.full(tuple(stream.shape), math.nan, device=dev)
         table = torch.full((ticks, len(StepStats._fields), lanes), math.nan,
@@ -666,10 +974,39 @@ def main() -> int:
         index = None if len(sparse) == ticks else torch.tensor(
             sparse, dtype=torch.int32, device=dev)
         acc = sparse_kernel.sparse_run_cuda(stream, index, plan.run.kernel,
-                                            cur, table)
-        want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain)
+                                            cur, table, acc0)
+        want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain,
+                                         acc0)
         torch.cuda.synchronize()
         return (cur, table, acc), (*plain, want)
+
+    whole = [StepStats._fields.index(f) for f in WHOLE_FIELDS]
+
+    def seed_acc(lanes):
+        """A (12, B) accumulator seed as a served lane carries it: whole
+        numbers in the whole-number fields, fractions in the rest."""
+        acc0 = torch.rand((len(StepStats._fields), lanes), generator=gen,
+                          device=dev) * 1000
+        acc0[whole] = acc0[whole].round()
+        return acc0
+
+    def seeded_gap(label, plan, params, stream, overflow):
+        """`run_gap` of the kernel and its plain version seeded by one
+        non-zero seed; the seeded sums also bitwise, each the kernel's own
+        table summed in tick order from the seed, and the seed unwritten.
+        Returns (the kernel's outputs, the seed, `run_gap`'s result)."""
+        acc0 = seed_acc(stream.shape[0])
+        kept = acc0.clone()
+        got, want = run_both(plan, params, stream, overflow, acc0)
+        out = run_gap(label, got, want)
+        check(torch.equal(got[2], want[2]),
+              f"{label}: seeded sums differ from the plain version's")
+        check(torch.equal(got[2], sparse_ref.sum_in_tick_order(got[1], acc0)),
+              f"{label}: the seeded sum is not its table's, in tick order "
+              f"from the seed")
+        check(torch.equal(acc0, kept) and got[2].data_ptr() != acc0.data_ptr(),
+              f"{label}: the kernel wrote its seed")
+        return got, acc0, out
 
     def run_gap(label, got, want):
         """Currents bitwise, whole-number stats exact, the rest within
@@ -719,12 +1056,69 @@ def main() -> int:
                 overflow = [t in RUN_BURST for t in range(RUN_TICKS)]
                 g, b = run_gap(f"sparse_run {scheme}/{noc}/{cores}",
                                *run_both(plan, params, stream, overflow))
-                gap, bitwise, pairs = max(gap, g), bitwise and b, pairs + 1
+                _, _, (g2, b2) = seeded_gap(
+                    f"seeded sparse_run {scheme}/{noc}/{cores}", plan,
+                    params, stream, overflow)
+                gap, bitwise = max(gap, g, g2), bitwise and b and b2
+                pairs += 1
         print(f"kernel vs plain: sparse_run, {pairs} arbiter x NoC pairs at "
               f"{cores}x{NEURONS}x{ENTRIES}, {RUN_LANES} lanes x {RUN_TICKS} "
-              f"ticks (ticks {RUN_BURST} overflow): currents bitwise, "
-              f"whole-number stats exact, largest relative gap of the rest "
-              f"{gap:.3e} (limit {REL_TOL}); every stat bitwise: {bitwise}")
+              f"ticks (ticks {RUN_BURST} overflow), each unseeded and seeded "
+              f"by a non-zero acc0 (seeded sums bitwise, seed unwritten): "
+              f"currents bitwise, whole-number stats exact, largest relative "
+              f"gap of the rest {gap:.3e} (limit {REL_TOL}); every stat "
+              f"bitwise: {bitwise}")
+
+    # the seeded whole run at the serve path's shape: one pallas_sparse
+    # group's SERVE_TENANTS // 2 lanes x SERVE_FLUSH ticks on the scaled
+    # fabric, each lane its tenant's scenario stream, right-padded with
+    # all-False frames as the engine masks a ragged flush; the last lane is
+    # at rest and returns its seed row.  The served frames overflow at
+    # every tick (clustered and hotspot_core), so the kernel only sums the
+    # dense rows; the same frames cut to the capacity but at one tick give
+    # it sparse ticks to compute as well.
+    from repro_torch import traffic
+    from repro_torch.serve import TenantSpec, default_connectivity
+    serve_cfg = dataclasses.replace(paper_dynaps.scaled_config().fabric,
+                                    impl="pallas_sparse")
+    serve_session = Interface(serve_cfg).compile(
+        default_connectivity(serve_cfg, 0), device=dev)
+    capacity = serve_session.plan.run.capacity
+    names = traffic.scenario_names()
+    lanes = SERVE_TENANTS // 2
+    live = [SERVE_FLUSH >> i if i < lanes - 1 else 0 for i in range(lanes)]
+    served = torch.stack([
+        TenantSpec(f"tenant{i}", serve_cfg, scenario=names[i % len(names)],
+                   seed=i).stream(SERVE_FLUSH, round=0)
+        for i in range(lanes)]).to(dev)
+    for i, n in enumerate(live):
+        served[i, n:] = False
+    cut = served & (served.to(torch.int32).cumsum(-1) <= capacity)
+    cut[:, 3] = served[:, 3]
+    for label, stream in (("served frames", served),
+                          ("frames cut to the capacity but at tick 3", cut)):
+        stream = stream.contiguous()
+        overflow = (stream.sum(-1).amax((0, 2)) > capacity).tolist()
+        check(any(overflow), f"serve-shape sparse_run ({label}): no tick "
+              f"overflows")
+        got, acc0, (g, b) = seeded_gap(
+            f"seeded sparse_run at the serve shape ({label})",
+            serve_session.plan, serve_session.params, stream, overflow)
+        check(bool((got[0][lanes - 1] == 0).all())
+              and torch.equal(got[2][:, lanes - 1], acc0[:, lanes - 1]),
+              f"serve-shape sparse_run ({label}): the lane at rest has "
+              f"currents or moved from its seed")
+        print(f"kernel vs plain: seeded sparse_run at the serve path's "
+              f"shape, {label}: {serve_cfg.cores}x"
+              f"{serve_cfg.neurons_per_core}x{serve_cfg.cam.entries} "
+              f"({serve_cfg.scheme}, {serve_cfg.noc.scheme}), {lanes} lanes "
+              f"x {SERVE_FLUSH} ticks of scenarios "
+              f"{[names[i % len(names)] for i in range(lanes)]}, live ticks "
+              f"{live}, {sum(overflow)} of {SERVE_FLUSH} ticks overflow: "
+              f"currents bitwise, whole-number stats exact, largest "
+              f"relative gap of the rest {g:.3e} (limit {REL_TOL}), seeded "
+              f"sums bitwise, the lane at rest returns its seed; every stat "
+              f"bitwise: {b}")
 
     # cam_search counts at the path's shapes: the fabric's own packed tags
     # against every source address, valid = the lanes' spike frames, at
@@ -1271,6 +1665,10 @@ def main() -> int:
     path_launches["moe_dispatch"], moe_ids = served_lm(
         dev, tag, reset_launches, read_launches, no_launch)
 
+    # the fabric serving tier: its checks, launches per flush and times
+    serve_per_flush = served_fabric(dev, tag, reset_launches, read_launches,
+                                    no_launch)
+
     rows = []
 
     # the launch floor: an empty sm_90a kernel, one block of 32 threads
@@ -1377,10 +1775,31 @@ def main() -> int:
         f"flags scanned, 4 integer ops an event", 400, plain_reps=2,
         label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
     rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b1_ms * 1e3 / TICKS,
-                    launches_per_512_ticks=path_launches["sparse_tick"])
+                    launches_per_512_ticks=path_launches["sparse_tick"],
+                    serve_launches_per_flush=serve_per_flush["sparse_tick"])
     print(f"{tag} sparse_tick whole run: {b1_ms * 1e3 / TICKS:.4f} us per "
           f"tick; {path_launches['sparse_tick']} launches in the 512 "
           f"pallas_sparse ticks of phase 4 ({sources} sources spiked)")
+
+    # the seed's cost: the same launch seeded by a (12, 1) acc0, as every
+    # served flush launches it, timed beside the unseeded one in the order
+    # unseeded, seeded, seeded, unseeded (profiler, 40 launches each)
+    run_seed = seed_acc(1)
+    b1_pair = {"unseeded": [], "seeded": []}
+    for which in ("unseeded", "seeded", "seeded", "unseeded"):
+        acc0 = run_seed if which == "seeded" else None
+        b1_pair[which].append(device_ms_per_call(
+            lambda: sparse_kernel.sparse_run_cuda(run_frames, None, kops,
+                                                  *run_out, acc0), 40,
+            "sparse_run_kernel"))
+    seed_us = (statistics.mean(b1_pair["seeded"])
+               - statistics.mean(b1_pair["unseeded"])) * 1e3
+    print(f"{tag} sparse_tick whole run seeded by acc0 (the serve path's "
+          f"launch): " + "; ".join(
+              f"{k} " + ", ".join(f"{v * 1e3:.3f}" for v in vs) + " us"
+              for k, vs in b1_pair.items()) + f" per launch (profiler, 40 "
+          f"launches each, order unseeded, seeded, seeded, unseeded); "
+          f"seeded - unseeded {seed_us:.3f} us")
 
     # the same run at 64 cores: one block a tick holds the fabric there too
     wide = config("hier_tree", 4 * CORES)
@@ -1442,6 +1861,8 @@ def main() -> int:
               f"{all_by} over all {b} x {src_words.shape[0]} pairs; kernel "
               f"at {live_ms / ms:.4f} of the first, {all_pairs_ms / ms:.4f} "
               f"of the second")
+    next(r for r in rows if r["name"] == "cam_search").update(
+        serve_launches_per_flush=serve_per_flush["cam_search"])
 
     # B3 on the path: one hat_run launch over the Bernoulli stream's 256
     # ticks (one lane), with the pallas session's own policy.  The bound
@@ -1461,7 +1882,8 @@ def main() -> int:
         "int32 ops at 33.5 TOP/s, one a neuron", 2000, plain_reps=40,
         label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
     rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b3_ms * 1e3 / TICKS,
-                    launches_per_512_ticks=path_launches["hat_encode"])
+                    launches_per_512_ticks=path_launches["hat_encode"],
+                    serve_launches_per_flush=serve_per_flush["hat_encode"])
     print(f"{tag} hat_encode whole run: {b3_ms * 1e3 / TICKS:.4f} us per "
           f"tick; {path_launches['hat_encode']} launches in the 512 pallas "
           f"ticks of phase 4")

@@ -48,8 +48,13 @@
 //        tick's 12 StepStats fields as one row of a (T, 12, B) table.
 //   The last block to finish (a global counter, which that block's
 //   atomicInc wraps back to 0 for the next launch) sums the table in tick
-//   order per (field, lane) from 0.0, as the JAX lax.scan carry does; the
-//   session writes its dense fallback ticks' rows before the launch.
+//   order per (field, lane), as the JAX lax.scan carry does: from the
+//   caller's seed acc0[field, lane] (a served lane's accumulator carried
+//   from its previous chunk), or from 0.0 without one.  The seed is the
+//   sum's first term, not added after it: float addition is not
+//   associative, and only the seeded order gives a chunked stream the
+//   bits of one uninterrupted run.  The session writes its dense fallback
+//   ticks' rows before the launch.
 //
 //   One block holds a whole (tick, lane): at 64 cores x 256 neurons x 512
 //   entries, nine in ten of them live, that is 221 KB of shared memory,
@@ -135,6 +140,7 @@ struct RunArgs {
   float* currents;           // (B, T, C, n)
   float* table;              // (T, 12, B) per-tick stats
   float* acc;                // (12, B) the table summed in tick order
+  const float* acc0;         // (12, B) the sum's seed, or null: 0.0
   unsigned* done;            // finished (tick, lane) items; 0 at launch,
                              // 0 again after it
   int lanes, ticks_total, items, cores, links_n;
@@ -619,9 +625,10 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
   }
   __syncthreads();
 
-  // 6. the last block: the table summed in tick order from 0.0, one thread
-  // per (field, lane), the rows staged into shared memory by cp.async in
-  // chunks (a row's fields are a multiple of 4 floats, 16-byte aligned)
+  // 6. the last block: the table summed in tick order from the seed (0.0
+  // without one), one thread per (field, lane), the rows staged into
+  // shared memory by cp.async in chunks (a row's fields are a multiple of
+  // 4 floats, 16-byte aligned)
   if (is_last) {
     __threadfence();
     float* stage = reinterpret_cast<float*>(run_smem);
@@ -629,7 +636,7 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     for (int p0 = 0; p0 < pairs; p0 += kRunThreads) {
       const int P = min(kRunThreads, pairs - p0);
       const int rows = a.stage_floats / P;
-      float acc = 0.0f;
+      float acc = (a.acc0 != nullptr && tid < P) ? a.acc0[p0 + tid] : 0.0f;
       for (int t0 = 0; t0 < T; t0 += rows) {
         const int nrows = min(rows, T - t0);
         __syncthreads();             // the previous chunk is summed
@@ -726,8 +733,8 @@ extern "C" int sparse_run_launch(
     int policy, const void* stream_frames, const void* ticks, const void* ptr,
     const void* src, const void* weight, const void* hops, const void* depth,
     const void* dest, const void* swept, const void* links, void* currents,
-    void* table, void* acc, void* done, const int* ints, const float* floats,
-    unsigned long long smem, void* stream) {
+    void* table, void* acc, const void* acc0, void* done, const int* ints,
+    const float* floats, unsigned long long smem, void* stream) {
   RunArgs a;
   a.p = policy_args(ints[8], ints[9], ints[10], ints[11], ints[12],
                     floats[0], floats[1]);
@@ -744,6 +751,7 @@ extern "C" int sparse_run_launch(
   a.currents = static_cast<float*>(currents);
   a.table = static_cast<float*>(table);
   a.acc = static_cast<float*>(acc);
+  a.acc0 = static_cast<const float*>(acc0);
   a.done = static_cast<unsigned*>(done);
   a.lanes = ints[0];
   a.ticks_total = ints[1];

@@ -376,13 +376,14 @@ def dense_tick(plan: TickPlan, params, spikes, terms=None):
     return currents, stats
 
 
-def run_stream(plan: TickPlan, params, stream, overflow):
+def run_stream(plan: TickPlan, params, stream, overflow, acc0=None):
     """Every tick of a (B, T, cores, n) stream under ``pallas_sparse``.
 
     ``overflow`` (T,) host bools pick each tick's branch: the dense tick
     writes its currents and its stats row first, then one `sparse_run`
     computes every other tick and sums the (T, 12, B) stats table in tick
-    order.  Returns (currents (B, T, cores, n), (12, B) summed stats).
+    order, starting from each lane's seed ``acc0`` (12, B) (None: 0.0).
+    Returns (currents (B, T, cores, n), (12, B) summed stats).
     """
     lanes, ticks = stream.shape[:2]
     cfg, dev = plan.cfg, stream.device
@@ -397,7 +398,7 @@ def run_stream(plan: TickPlan, params, stream, overflow):
             table[t] = torch.stack(tuple(st))
     sparse = [t for t in range(ticks) if not overflow[t]]
     acc = sparse_ops.sparse_run(stream, None if len(sparse) == ticks
-                                else sparse, plan.run, currents, table)
+                                else sparse, plan.run, currents, table, acc0)
     return currents, acc
 
 

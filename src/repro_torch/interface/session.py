@@ -23,9 +23,18 @@ of every tick of a run first, in one `hat_run` (one kernel launch on the
 card, `pipeline.arbiter_terms`), then runs the dense tick on each frame
 with its slice.
 
+Masked runs (the serving tier's ragged lanes): ``mask`` erases each
+masked tick by ``spikes & mask`` before the loop, whose body is the
+unmasked one; an all-False frame gives exactly zero `StepStats` and zero
+currents under every impl and scheme.  ``stats0`` seeds each lane's
+accumulator, so a stream served in chunks sums its stats in the order of
+one uninterrupted run, bit for bit (under ``pallas_sparse`` the seed is
+the first term of the kernel's tick-order sum).
+
 Not ported yet (`NotImplementedError`, naming the ROADMAP queue A item):
-``chips > 1``, ``shard=``, ``mask=``/``stats0=``, ``telemetry=`` and
-``fault_tick0=`` (item 7), ``fault=`` (item 9).
+``chips > 1``, ``shard=``, ``telemetry=`` and ``fault_tick0=`` (item 7),
+``fault=`` (item 9).  ``mask`` with ``telemetry`` raises the JAX
+package's `CompositionError`.
 """
 
 from __future__ import annotations
@@ -41,6 +50,15 @@ from repro_torch.interface.stats import StepStats
 from repro_torch.interface.types import InterfaceParams, resolve_device
 
 _SHARD_MODES = (None, "chips")
+
+
+class CompositionError(ValueError):
+    """A requested run-mode combination is not supported.
+
+    Typed rejection (still a ValueError), as in the JAX package: today
+    ``mask`` together with ``telemetry``, and ``shard="chips"`` on a
+    one-chip tenant config (`repro_torch.serve.TenantSpec`).
+    """
 
 
 class Interface:
@@ -103,13 +121,29 @@ class InterfaceSession:
         """Multi-timestep simulation, ticks in order.
 
         spikes: (T, cores, neurons_per_core) bool
+        mask: optional (T,) bool - ticks where it is False contribute
+            exactly zero stats and zero currents.
+        stats0: optional `StepStats` of 0-d fields seeding the accumulator
+            (only with ``mask``); zeros when omitted.
         returns (currents (T, cores, neurons_per_core) float32, accumulated
         `StepStats` of 0-d tensors); ``stats.summary(ticks=T)`` gives
         per-tick means.
+
+        Raises:
+          CompositionError: ``mask`` with ``telemetry``.
+          ValueError: on a mis-shaped stream or mask, an unknown ``shard``
+            mode, or ``stats0`` without ``mask``.
+          NotImplementedError: ``shard=``, ``telemetry=`` or
+            ``fault_tick0=`` (ROADMAP queue A item 7).
         """
-        self._refuse(shard, telemetry, mask, stats0, fault_tick0)
         spikes = self._check(spikes, 3)
-        currents, stats = self._loop(spikes[None])
+        if mask is not None:
+            mask = torch.as_tensor(mask)[None]
+        if stats0 is not None:
+            stats0 = StepStats(*(torch.as_tensor(f).reshape(1)
+                                 for f in stats0))
+        currents, stats = self.run_batched(spikes[None], shard, telemetry,
+                                           mask, stats0, fault_tick0)
         return currents[0], StepStats(*(f[0] for f in stats))
 
     def run_batched(self, spikes, shard: str | None = None,
@@ -121,23 +155,40 @@ class InterfaceSession:
         Returns (currents (B, T, C, N), stats with (B,)-shaped fields, each
         accumulated over that lane's T ticks).  The lanes share every
         tick's launches (a written-out batch axis, not a loop over lanes).
+
+        ``mask`` (B, T) bool marks the live ticks of each lane: masked
+        ticks contribute zero stats and currents, so ragged streams
+        right-padded to one T give each lane the bits of its solo run (an
+        all-False lane returns its ``stats0`` row unchanged).  ``stats0``
+        seeds the per-lane accumulator ((B,)-shaped fields; zeros when
+        omitted); thread the returned stats back in to chunk one stream
+        over several calls.  Raises as `run` does.
         """
-        self._refuse(shard, telemetry, mask, stats0, fault_tick0)
+        self._refuse(shard, telemetry, mask, fault_tick0)
         spikes = self._check(spikes, 4)
+        if mask is not None:
+            mask = self._check_mask(mask, spikes, 2)
+            return self._loop(spikes & mask[:, :, None, None],
+                              self._seed(stats0, spikes.shape[0]))
+        if stats0 is not None:
+            raise ValueError("stats0 is only meaningful with mask")
         return self._loop(spikes)
 
-    def _loop(self, stream: torch.Tensor):
-        """(B, T, C, n) frames -> ((B, T, C, n) currents, (B,) stats)."""
+    def _loop(self, stream: torch.Tensor, acc0: torch.Tensor | None = None):
+        """(B, T, C, n) frames -> ((B, T, C, n) currents, (B,) stats),
+        each lane's stats summed in tick order from its ``acc0`` column
+        ((12, B); None: 0.0)."""
         if self.plan.run is not None:
             stream = stream.contiguous()
             currents, acc = pipeline.run_stream(
-                self.plan, self.params, stream, self._overflow(stream))
+                self.plan, self.params, stream, self._overflow(stream), acc0)
             return currents, StepStats(*acc.unbind(0))
         lanes, ticks = stream.shape[:2]
         terms = pipeline.arbiter_terms(self.plan, stream)
         stream = stream.transpose(0, 1).contiguous()
-        acc = torch.zeros((len(StepStats._fields), lanes),
-                          dtype=torch.float32, device=self.device)
+        acc = acc0 if acc0 is not None else torch.zeros(
+            (len(StepStats._fields), lanes), dtype=torch.float32,
+            device=self.device)
         currents = []
         for t in range(ticks):
             cur, st = pipeline.dense_tick(
@@ -161,20 +212,52 @@ class InterfaceSession:
         per_core = stream.sum(-1)                        # (B, T, C)
         return (per_core.amax((0, 2)) > self.plan.run.capacity).tolist()
 
-    def _refuse(self, shard, telemetry, mask, stats0, fault_tick0):
-        """Refuse, by name, the run modes this package does not carry."""
+    def _refuse(self, shard, telemetry, mask, fault_tick0):
+        """Refuse, by name, the run modes this package does not carry,
+        and ``mask`` with ``telemetry`` as the JAX package does."""
         if shard not in _SHARD_MODES:
             raise ValueError(
                 f"unknown shard mode {shard!r}; expected one of "
                 f"{', '.join(repr(m) for m in _SHARD_MODES)}")
+        if mask is not None and telemetry != "off":
+            raise CompositionError(
+                "mask does not compose with telemetry; run the masked "
+                "scan without telemetry (currents and accumulated stats "
+                "are bit-identical across paths)")
         if shard is not None:
             raise pipeline.not_ported(f"run(shard={shard!r})", 7)
         if telemetry != "off":
             raise pipeline.not_ported(f"run(telemetry={telemetry!r})", 7)
-        if mask is not None or stats0 is not None:
-            raise pipeline.not_ported("run(mask=..., stats0=...)", 7)
         if fault_tick0 is not None:
             raise pipeline.not_ported("run(fault_tick0=...)", 7)
+
+    def _check_mask(self, mask, spikes, ndim: int) -> torch.Tensor:
+        if isinstance(mask, np.ndarray):
+            mask = torch.from_numpy(mask)
+        mask = torch.as_tensor(mask, device=self.device)
+        if tuple(mask.shape) != tuple(spikes.shape[:ndim]):
+            raise ValueError(
+                f"mask shape {tuple(mask.shape)} does not cover the spike "
+                f"stream's leading axes {tuple(spikes.shape[:ndim])}")
+        if mask.dtype != torch.bool:
+            mask = mask > 0
+        return mask
+
+    def _seed(self, stats0, lanes: int) -> torch.Tensor:
+        """The (12, B) float32 accumulator seed of ``stats0`` ((B,)
+        fields; None: zeros), a fresh tensor on the session's device."""
+        if stats0 is None:
+            return torch.zeros((len(StepStats._fields), lanes),
+                               dtype=torch.float32, device=self.device)
+        fields = [torch.as_tensor(np.asarray(f) if not torch.is_tensor(f)
+                                  else f) for f in stats0]
+        if len(fields) != len(StepStats._fields) or any(
+                tuple(f.shape) != (lanes,) for f in fields):
+            raise ValueError(
+                f"stats0 must be a StepStats of ({lanes},) fields, got "
+                f"shapes {[tuple(f.shape) for f in fields]}")
+        return torch.stack([f.to(self.device, torch.float32)
+                            for f in fields])
 
     def _check(self, spikes, ndim: int) -> torch.Tensor:
         if isinstance(spikes, np.ndarray):

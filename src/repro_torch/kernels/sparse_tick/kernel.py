@@ -13,7 +13,9 @@ operand on each call.
 `sparse_run_cuda` runs every sparse tick of a session run in one launch,
 from the bool frames: compaction, the tick above, the event-indexed
 accounting and the stats tail, one (T, 12, B) table row per (tick,
-lane), and the table summed in tick order.  Its plan-time operands
+lane), and the table summed in tick order (from a caller's (12, B)
+seed, a served lane's carried accumulator, or from 0.0).  Its plan-time
+operands
 (`RunOperands`, built by `run_operands`) are checked once when they are
 bound; each call checks only the frames and the outputs.  One block
 holds a (tick, lane) in shared memory; a fabric that needs more than
@@ -44,7 +46,7 @@ tick_launches = 0
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 +
              [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_RUN_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 16 +
+_RUN_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 +
                  [ctypes.c_ulonglong, ctypes.c_void_p])
 
 FIELDS = 12                      # StepStats fields: a table row
@@ -224,7 +226,8 @@ def run_operands(ptr, src, weight, hops, depth, dest, swept, links, *,
                        tuple(float(f) for f in floats), smem)
 
 
-def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table):
+def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table,
+                    acc0=None):
     """Launch the whole-run kernel.
 
     Launches that share ``ops`` share its finished-items counter, so they
@@ -238,9 +241,12 @@ def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table):
       currents: (B, T, C, n) float32 output; the listed ticks are written.
       table: (T, 12, B) float32 per-tick stats; the listed ticks' rows are
         written, every other row must hold its tick's stats already.
+      acc0: optional (12, B) float32 seed of the sum (None: 0.0); read,
+        never written.
 
     Returns:
-      (12, B) float32: the table summed over ticks in tick order from 0.0.
+      (12, B) float32, a fresh tensor: the table summed over ticks in tick
+      order, starting from ``acc0``.
 
     Raises:
       ValueError: on a tensor of the wrong device, dtype, shape or layout.
@@ -259,9 +265,11 @@ def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table):
     if ticks is not None:
         _check("ticks", ticks, torch.int32, (ticks.shape[0],), dev)
         count = ticks.shape[0]
+    if acc0 is not None:
+        _check("acc0", acc0, torch.float32, (FIELDS, lanes), dev)
     acc = torch.empty((FIELDS, lanes), dtype=torch.float32, device=dev)
     if lanes == 0 or total == 0:
-        return acc.zero_()
+        return acc.zero_() if acc0 is None else acc.copy_(acc0)
     sqrt_n = int(round(math.sqrt(ops.n)))
     lg = math.log2(ops.n)
     vec = int(ops.cores * ops.n % 16 == 0 and stream.data_ptr() % 16 == 0)
@@ -276,7 +284,8 @@ def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table):
         ops.src.data_ptr(), ops.weight.data_ptr(), ops.hops.data_ptr(),
         ops.depth.data_ptr(), ops.dest.data_ptr(), ops.swept.data_ptr(),
         ops.links.data_ptr(), currents.data_ptr(), table.data_ptr(),
-        acc.data_ptr(), ops.done.data_ptr(), ctypes.addressof(ints),
+        acc.data_ptr(), None if acc0 is None else acc0.data_ptr(),
+        ops.done.data_ptr(), ctypes.addressof(ints),
         ctypes.addressof(floats), ops.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

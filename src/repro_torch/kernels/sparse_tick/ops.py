@@ -8,7 +8,8 @@ the kernel to the plain version.
 
 `sparse_run` is the port's own: every sparse tick of a session run, from
 the bool frames to each tick's `StepStats` row and their sum in tick
-order, in one launch of `kernel.sparse_run_cuda` on the card.  Its plain
+order (from a caller's seed: a served lane's carried accumulator), in
+one launch of `kernel.sparse_run_cuda` on the card.  Its plain
 version (`sparse_run_ref`, CPU tensors) is the per-tick composition it
 replaces: `compact_events` -> `sparse_tick_ref` -> `event_indices` ->
 the interface's event-indexed accounting, then `ref.sum_in_tick_order`.
@@ -164,7 +165,7 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
                      account, kernel)
 
 
-def sparse_run(stream, ticks, run: SparseRun, currents, table):
+def sparse_run(stream, ticks, run: SparseRun, currents, table, acc0=None):
     """Every listed tick of a stream through the sparse tick.
 
     Args:
@@ -176,9 +177,13 @@ def sparse_run(stream, ticks, run: SparseRun, currents, table):
       table: (T, 12, B) float32 per-tick `StepStats` rows; the listed
         ticks' rows are written, every other row must hold its tick's
         stats already (the dense fallback's).
+      acc0: optional (12, B) float32 seed of the sum, on the stream's
+        device: a served lane's accumulator carried from its previous
+        chunk.  None starts from 0.0.  It is read, never written.
 
     Returns:
-      (12, B) float32: the table summed in tick order from 0.0.
+      (12, B) float32, a fresh tensor: the table summed in tick order,
+      starting from ``acc0``.
 
     Raises:
       ValueError: on mismatched shapes, a tick outside the stream, or (on
@@ -194,19 +199,26 @@ def sparse_run(stream, ticks, run: SparseRun, currents, table):
                          f"({total}, {sparse_kernel.FIELDS}, {lanes})")
     if ticks is not None and any(not 0 <= t < total for t in ticks):
         raise ValueError(f"ticks must lie in [0, {total})")
+    if acc0 is not None and (tuple(acc0.shape) != (sparse_kernel.FIELDS,
+                                                   lanes)
+                             or acc0.dtype != torch.float32):
+        raise ValueError(f"acc0 must be float32 ({sparse_kernel.FIELDS}, "
+                         f"{lanes}), got {acc0.dtype} {tuple(acc0.shape)}")
     if not stream.is_cuda:
-        return sparse_run_ref(stream, ticks, run, currents, table)
+        return sparse_run_ref(stream, ticks, run, currents, table, acc0)
     if run.kernel is None:
         raise ValueError("the sparse run was bound to CPU operands; "
                          "rebuild the plan on the card")
     index = None if ticks is None else torch.tensor(
         ticks, dtype=torch.int32, device=stream.device)
     return sparse_kernel.sparse_run_cuda(stream, index, run.kernel,
-                                         currents, table)
+                                         currents, table, acc0)
 
 
-def sparse_run_ref(stream, ticks, run: SparseRun, currents, table):
-    """`sparse_run` in plain torch: the per-tick composition, tick by tick."""
+def sparse_run_ref(stream, ticks, run: SparseRun, currents, table,
+                   acc0=None):
+    """`sparse_run` in plain torch: the per-tick composition, tick by
+    tick, then the table summed in tick order from ``acc0``."""
     lanes = stream.shape[0]
     for t in range(stream.shape[1]) if ticks is None else ticks:
         frames = stream[:, t]
@@ -221,4 +233,4 @@ def sparse_run_ref(stream, ticks, run: SparseRun, currents, table):
                             hits.sum(-1))
         currents[:, t] = cur
         table[t] = torch.stack(tuple(stats))
-    return ref.sum_in_tick_order(table)
+    return ref.sum_in_tick_order(table, acc0)

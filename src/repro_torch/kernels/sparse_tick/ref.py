@@ -148,10 +148,12 @@ def sparse_tick_ref(spikes_flat, buf, counts, src_idx, active, weights, csr,
     return currents, latencies, enc_per_core, drive.sum(-1)
 
 
-def sum_in_tick_order(table: torch.Tensor) -> torch.Tensor:
+def sum_in_tick_order(table: torch.Tensor, acc0=None) -> torch.Tensor:
     """(T, fields, B) per-tick stats -> (fields, B), added row by row in
-    tick order from 0.0 (the JAX ``lax.scan`` carry's order)."""
-    acc = table.new_zeros(table.shape[1:])
+    tick order (the JAX ``lax.scan`` carry's order), starting from the
+    seed ``acc0`` (fields, B) when given and from 0.0 otherwise.  The
+    result is a fresh tensor; ``acc0`` is not written."""
+    acc = table.new_zeros(table.shape[1:]) if acc0 is None else acc0.clone()
     for row in table:
         acc = acc + row
     return acc

@@ -12,8 +12,12 @@ contract: currents bitwise, `EXACT_FIELDS` exact, every other stat within
 `REL_TOL` (energies multiply float32 counts by Python-float constants,
 whose rounding may differ between the two frameworks).
 
-Also here: the surfaces the port refuses by name, the GPU default of
-`compile`, and that the port imports nothing of JAX or of the JAX package.
+Also here: the surfaces the port refuses by name (``mask`` and
+``stats0`` left the list when the masked session was ported; the
+serving tier's ``TenantSpec(fault=...)`` and ``shard="chips"`` joined
+it), ``mask`` with ``telemetry`` as the typed `CompositionError`, the GPU
+default of `compile`, and that the port imports nothing of JAX or of the
+JAX package (its serving tier, traffic, obs and ft layers included).
 """
 
 import ast
@@ -34,6 +38,8 @@ from repro.core import fabric
 from repro.interface import Interface as JInterface
 from repro.kernels.hat_encode import ops as jhat_ops
 from repro_torch.interface import Interface, StepStats, interface_tick
+from repro_torch.interface.session import CompositionError
+from repro_torch.serve import TenantSpec
 from repro_torch.interface import config as tconfig
 from repro_torch.interface import pipeline as tpipeline
 from repro_torch.interface.types import params_from_numpy, random_connectivity
@@ -248,11 +254,16 @@ REFUSED = {
     "chips": (lambda: _session(chips=2)[0].compile(_session()[1],
                                                    device="cpu"), 7),
     "shard": (lambda: _cpu().run(_zeros(), shard="chips"), 7),
-    "mask": (lambda: _cpu().run(_zeros(), mask=np.ones(2, bool)), 7),
-    "stats0": (lambda: _cpu().run(_zeros(), stats0=StepStats.zeros()), 7),
+    "mask_shard": (lambda: _cpu().run(_zeros(), mask=np.ones(2, bool),
+                                      shard="chips"), 7),
     "telemetry": (lambda: _cpu().run(_zeros(), telemetry="ticks"), 7),
+    "fault_tick0": (lambda: _cpu().run(_zeros(), fault_tick0=0), 7),
     "fault": (lambda: _session()[0].compile(_session()[1], device="cpu",
                                             fault=object()), 9),
+    "tenant_fault": (lambda: TenantSpec("t", _session()[0].config,
+                                        fault=object()), 9),
+    "tenant_shard": (lambda: TenantSpec("t", dataclasses.replace(
+        _session()[0].config, chips=2), shard="chips"), 7),
     "oracle": (lambda: interface_tick(_session()[1], _zeros()[0],
                                       _session()[0].config, oracle=True), 8),
 }
@@ -272,6 +283,16 @@ def test_unported_surfaces_raise_by_roadmap_item(surface):
     fn, item = REFUSED[surface]
     with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
         fn()
+
+
+def test_mask_with_telemetry_raises_composition_error():
+    """The JAX package's typed rejection, a ValueError, before the
+    telemetry refusal: mask and telemetry never compose."""
+    with pytest.raises(CompositionError, match="telemetry"):
+        _cpu().run(_zeros(), mask=np.ones(2, bool), telemetry="ticks")
+    with pytest.raises(CompositionError, match="one-chip"):
+        TenantSpec("t", _session()[0].config, shard="chips")
+    assert issubclass(CompositionError, ValueError)
 
 
 def test_xla_without_a_closed_form_raises_at_compile():
@@ -335,6 +356,19 @@ toks = ServeEngine(lm_cfg, lm_params, max_len=16).generate(
 assert toks.shape == (2, 3)
 route = event_router.hat_route(torch.randn(10, 8), 2, 4)
 assert int(route.load.sum()) == 20
+from repro_torch.serve import ServeEngine as FabricEngine, TenantSpec
+from repro_torch.ft import ChaosInjector, FaultPlan
+from repro_torch.obs import Tracer
+import repro_torch.obs.report
+engine = FabricEngine(flush_ticks=4, flush_deadline_s=0.0, device="cpu",
+                      chaos=ChaosInjector(FaultPlan()))
+cfg = InterfaceConfig(cores=4, neurons_per_core=16, cam_entries_per_core=32,
+                      impl="pallas_sparse")
+with Tracer():
+    for i in range(2):
+        engine.register(TenantSpec(f"t{i}", cfg, scenario="mixture", seed=i))
+        engine.submit_scenario(f"t{i}", 6)
+    assert engine.drain() == 12 and engine.accounting()["closes"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -123,9 +123,10 @@ def _run_case(scheme, noc, cores, n, entries, lanes, ticks, seed, device,
     return plan, params, stream, overflow
 
 
-def _kernel_and_plain(plan, params, stream, overflow):
+def _kernel_and_plain(plan, params, stream, overflow, acc0=None):
     """The fused kernel and its plain version on the same card inputs, the
-    dense fallback's rows written alike first."""
+    dense fallback's rows written alike first, both sums seeded by
+    ``acc0`` when given."""
     lanes, ticks = stream.shape[:2]
     cur = torch.full((lanes, ticks) + tuple(stream.shape[2:]), np.nan,
                      device=stream.device)
@@ -140,11 +141,11 @@ def _kernel_and_plain(plan, params, stream, overflow):
     before = sparse_kernel.launches
     acc = sparse_kernel.sparse_run_cuda(
         stream, None if len(sparse) == ticks else index, plan.run.kernel,
-        cur, table)
+        cur, table, acc0)
     torch.cuda.synchronize()
     assert sparse_kernel.launches == before + 1
     assert int(plan.run.kernel.done) == 0       # ready for the next launch
-    want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain)
+    want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain, acc0)
     return (cur, table, acc), (*plain, want)
 
 
@@ -237,6 +238,197 @@ def test_sparse_run_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError):
         sparse_kernel.sparse_run_cuda(stream, None, ops, cur[:, :1], table)
     assert sparse_kernel.launches == before
+
+
+def _seed(lanes, seed, device):
+    """A (12, B) accumulator seed as a served lane carries it: whole
+    numbers in the whole-number fields, fractions in the rest."""
+    rng = np.random.default_rng(seed)
+    acc0 = rng.random((12, lanes)).astype(np.float32) * 1000
+    acc0[list(INT_FIELDS)] = np.round(acc0[list(INT_FIELDS)])
+    return torch.from_numpy(acc0).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("noc", NOC_SCHEMES)
+def test_sparse_run_seeded_by_acc0_matches_plain_version(scheme, noc):
+    """The tick-order sum starts at the seed, as its plain version's does:
+    the sums bitwise, the seed untouched, with overflow ticks and a lane
+    at rest (all-False frames) that returns its seed row unchanged."""
+    device = _cuda()
+    plan, params, stream, overflow = _run_case(scheme, noc, 4, 16, 32, 3, 7,
+                                               11, device, burst=(2, 5))
+    stream[2] = False                    # lane 2 at rest: every frame empty
+    acc0 = _seed(3, 5, device)
+    kept = acc0.clone()
+    got, want = _kernel_and_plain(plan, params, stream, overflow, acc0)
+    _assert_run_equal(got, want)
+    assert torch.equal(got[2], want[2]), "seeded sums differ from the plain"
+    assert torch.equal(acc0, kept), "the kernel wrote its seed"
+    assert torch.equal(got[2][:, 2], kept[:, 2]), "a lane at rest moved"
+    assert got[2].data_ptr() != acc0.data_ptr()
+
+
+@pytest.mark.gpu
+def test_sparse_run_chunked_by_acc0_equals_one_run():
+    """A stream cut into chunks, each seeded with the previous chunk's
+    sums, gives the one run's sums bit for bit."""
+    device = _cuda()
+    plan, params, stream, overflow = _run_case(
+        "hier_tree", "multicast_tree", 16, 256, 512, 2, 12, 4, device,
+        burst=(3, 8))
+    _, one = _kernel_and_plain(plan, params, stream, overflow)
+    acc = None
+    for lo in (0, 5, 9):
+        hi = {0: 5, 5: 9, 9: 12}[lo]
+        got, _ = _kernel_and_plain(plan, params,
+                                   stream[:, lo:hi].contiguous(),
+                                   overflow[lo:hi], acc)
+        acc = got[2]
+    assert torch.equal(acc, one[2])
+
+
+@pytest.mark.gpu
+def test_sparse_run_of_no_ticks_returns_a_copy_of_its_seed():
+    device = _cuda()
+    plan, _, stream, _ = _run_case("hier_tree", "unicast", 4, 16, 32, 2, 3,
+                                   2, device)
+    acc0 = _seed(2, 1, device)
+    empty = stream[:, :0].contiguous()
+    before = sparse_kernel.launches
+    acc = sparse_kernel.sparse_run_cuda(
+        empty, None, plan.run.kernel, torch.empty((2, 0, 4, 16),
+                                                  device=device),
+        torch.empty((0, 12, 2), device=device), acc0)
+    assert torch.equal(acc, acc0) and acc.data_ptr() != acc0.data_ptr()
+    assert sparse_kernel.launches == before
+    with pytest.raises(ValueError, match="acc0"):
+        sparse_kernel.sparse_run_cuda(
+            stream, None, plan.run.kernel,
+            torch.empty(tuple(stream.shape), device=device),
+            torch.empty((3, 12, 2), device=device), acc0[:, :1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas_sparse", "pallas"])
+def test_masked_session_on_the_card_equals_solo_runs(impl):
+    """Ragged lanes of a masked run_batched, chunked through stats0, give
+    each lane its solo run's currents and stats bit for bit, with one B1
+    launch a chunk (pallas_sparse) or one B3 launch and one B2 launch a
+    tick (pallas)."""
+    device = _cuda()
+    plan, params, stream, _ = _run_case(
+        "hier_tree", "multicast_tree", 16, 256, 512, 3, 12, 4, device,
+        burst=(3, 8))
+    cfg = dataclasses.replace(plan.cfg, impl=impl)
+    session = Interface(cfg).compile(params)
+    lengths = (12, 7, 0)
+    mask = torch.zeros((3, 12), dtype=torch.bool, device=device)
+    for lane, t in enumerate(lengths):
+        mask[lane, :t] = True
+    counts = (sparse_kernel, hat_kernel, cam_kernel)
+    before = [m.launches for m in counts]
+    acc, parts = None, []
+    for lo, hi in ((0, 6), (6, 12)):
+        cur, acc = session.run_batched(stream[:, lo:hi], mask=mask[:, lo:hi],
+                                       stats0=acc)
+        parts.append(cur)
+    torch.cuda.synchronize()
+    grew = [m.launches - b for m, b in zip(counts, before)]
+    assert grew == ([2, 0, 0] if impl == "pallas_sparse" else [0, 2, 12])
+    cur = torch.cat(parts, 1)
+    for lane, t in enumerate(lengths):
+        assert not bool(cur[lane, t:].any()), lane
+        if t == 0:                       # all padding: exact zeros
+            assert all(float(a[lane]) == 0.0 for a in acc), lane
+            continue
+        solo_cur, solo = session.run(stream[lane, :t])
+        assert torch.equal(cur[lane, :t], solo_cur), lane
+        for f, (a, b) in enumerate(zip(acc, solo)):
+            assert torch.equal(a[lane], b), (lane, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas_sparse", "pallas"])
+def test_all_false_frame_gives_exact_zeros_on_the_card(impl):
+    """Every arbiter x NoC scheme: an empty tick adds exactly +0.0 to each
+    stat (an empty core's encode toggles times zero events), through B1's
+    stats tail and B3's terms, so a masked lane keeps its seed."""
+    device = _cuda()
+    for scheme in SCHEMES:
+        for noc in NOC_SCHEMES:
+            cfg = InterfaceConfig(cores=4, neurons_per_core=256,
+                                  cam_entries_per_core=64, scheme=scheme,
+                                  noc=NocConfig(noc), impl=impl)
+            params = random_connectivity(torch.Generator().manual_seed(2),
+                                         cfg).to(device)
+            session = Interface(cfg).compile(params)
+            frames = torch.zeros((2, 3, 4, 256), dtype=torch.bool,
+                                 device=device)
+            seed = _seed(2, 3, device)
+            cur, acc = session.run_batched(
+                frames, mask=torch.ones((2, 3), dtype=torch.bool,
+                                        device=device),
+                stats0=tuple(seed))
+            assert not bool(cur.any()), (scheme, noc)
+            assert torch.equal(torch.stack(tuple(acc)), seed), (scheme, noc)
+            _, st = session.step(frames[0, 0])
+            for v in st:
+                assert float(v) == 0.0 and not bool(torch.signbit(v)), (
+                    scheme, noc)
+
+
+@pytest.mark.gpu
+def test_serve_engine_on_the_card_equals_solo_runs():
+    """Two groups (pallas_sparse, pallas) on the card: each tenant bitwise
+    its solo run, under the drain and the background pump; B1 once a
+    pallas_sparse flush, B3 once and B2 flush_ticks times a pallas flush;
+    the chunks staged through pinned memory and the side stream."""
+    from repro_torch.serve import ServeEngine, TenantSpec
+    from repro_torch.serve import default_connectivity
+
+    device = _cuda()
+    base = InterfaceConfig(cores=4, neurons_per_core=256,
+                           cam_entries_per_core=64, scheme="hier_tree")
+    cfgs = {impl: dataclasses.replace(base, impl=impl)
+            for impl in ("pallas_sparse", "pallas")}
+    specs = [TenantSpec(f"t{i}", cfgs[impl], scenario=sc, seed=i)
+             for i, (impl, sc) in enumerate([
+                 ("pallas_sparse", "hotspot_core"),
+                 ("pallas_sparse", "sparse_poisson"),
+                 ("pallas", "clustered"), ("pallas", "mixture")])]
+    ticks = {"t0": 20, "t1": 9, "t2": 17, "t3": 8}
+    for pumped in (False, True):
+        engine = ServeEngine(flush_ticks=8, flush_deadline_s=0.0,
+                             keep_currents=True, device=device)
+        for spec in specs:
+            engine.register(spec)
+        before = [m.launches for m in (sparse_kernel, hat_kernel,
+                                       cam_kernel)]
+        if pumped:
+            engine.start(poll_interval_s=1e-4)
+        for spec in specs:
+            engine.submit_scenario(spec.name, ticks[spec.name])
+        if pumped:
+            engine.stop(drain=True)
+        else:
+            assert engine.drain() == sum(ticks.values())
+        torch.cuda.synchronize()
+        grew = [m.launches - b for m, b in zip(
+            (sparse_kernel, hat_kernel, cam_kernel), before)]
+        flushes = int(engine.registry.counter("serve.flushes").value)
+        if not pumped:    # 3 flushes a group: 20 and 17 ticks over 8
+            assert flushes == 6 and grew == [3, 3, 24], grew
+        assert engine.accounting()["closes"]
+        for spec in specs:
+            session = Interface(spec.config).compile(
+                default_connectivity(spec.config, 0), device=device)
+            cur, st = session.run(spec.stream(ticks[spec.name]).to(device))
+            assert np.array_equal(engine.currents(spec.name),
+                                  cur.cpu().numpy()), spec.name
+            assert [float(f) for f in engine.tenant_stats(spec.name)] == [
+                float(f) for f in st], spec.name
 
 
 @pytest.mark.gpu
