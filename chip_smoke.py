@@ -55,7 +55,18 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     512 CAM entries, 32 steps) on a batch of 128 rasters, impl="pallas"
     (lif_step once per step) against impl="xla" (spikes, rates and
     logits bitwise), the card against the CPU port on an 8-sample
-    prefix, and account=True on 32 samples (1024 ticks); then the served
+    prefix, and account=True on 32 samples (1024 ticks); then the SNN
+    trained through the port's example (examples/snn_multicore_torch.py)
+    at scaled_config: 40 AdamW steps at batch 32, the accounted
+    evaluation on 128 samples with lif_step once per step and the
+    whole-run sparse tick once (the fabric at impl="pallas_sparse"),
+    both held to impl="xla" (spikes, rates, logits and the replay's
+    currents bitwise, stats under the conformance contract), one
+    training step on the card against the CPU port on the samples of a
+    batch without a flipped spike (loss, gradients and updated
+    parameters, the largest gaps printed), two uninterrupted 10-step
+    runs bitwise equal and run_with_restarts (a failure injected at step
+    7, checkpoints every 2 steps) bitwise equal to them; then the served
     LM: DeepSeek-V2-Lite at full width and depth (15.71 B float32
     parameters drawn on the card), `ServeEngine.generate` greedy on 4
     requests of 128 prompt tokens and 32 new tokens, moe_dispatch once per
@@ -73,7 +84,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
-    forward's ms per batch, host split and device profile, the served
+    forward's ms per batch, host split and device profile, host ms per
+    training step (median and quartiles of the example's 40 steps), its
+    forward/backward/update split, one step's device profile and the
+    placement optimizer's host seconds at 4096 neurons, the served
     LM's prefill ms, decode ms per step, tokens/s, host split and device
     profile, and every kernel's, plain version's and library call's time
     per call (the whole-run sparse tick per launch and per tick, seeded
@@ -93,6 +107,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -142,6 +157,22 @@ SERVE_FLUSH = 16
 SERVE_TICKS = 64                # tenant i submits 64 - 8 (i % 4) a round
 SERVE_ROUNDS = 3                # measured, after one warm-up round
 SIDE_PAIRS = 10                 # side stream against a plain copy
+TRAIN_STEPS = 40                # examples/snn_multicore.py's SNN_STEPS
+TRAIN_EVAL_BATCH = 128          # and its SNN_EVAL_BATCH
+DRILL_STEPS = 10                # two uninterrupted runs and the drill
+DRILL_FAIL_AT = 7
+DRILL_EVERY = 2
+TRAIN_SPLIT_STEPS = 10          # steps timed by stage
+# one training step, card against CPU, on samples without a flipped
+# spike: the loss as the forward's logits; gradients within GRAD_RTOL of
+# each element plus GRAD_ATOL of the leaf's largest (tol); the updated
+# parameters within 1e-6 of the leaf's largest plus what that gradient
+# gap can move them: AdamW's first step moves an element by lr * g /
+# (|g| + eps), so a gap of tol moves it by at most 2 lr min(1, tol / |g|).
+# That bound says nothing where |g| <= tol, so the card's parameters are
+# also held, element by element within 1e-6 of the leaf's largest, to
+# the CPU port's adamw.update of the card's own gradient.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # card against CPU on the same inputs, float32 softmax and sums in
 # another order: route weights, aux and z losses (an H100 read 1.9e-6),
 # and the logits of the 2-layer full-width float32 cut (an H100 read
@@ -817,6 +848,262 @@ def served_fabric(dev, tag, reset_launches, read_launches, no_launch):
           f"fired and retried ({faults}), {hard} exhausted; probes bitwise, "
           f"accounting closes")
     return per_flush
+
+
+def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
+    """The paper's SNN trained on the card at `paper_dynaps.scaled_config`
+    through the port's example (examples/snn_multicore_torch.py): its
+    40 AdamW steps at batch 32 (TF32 refused), the accounted evaluation
+    on 128 samples through B4 (lif_step, once a step) and B1 (sparse_tick,
+    once a run), each held to ``impl="xla"``; one step on the card
+    against the CPU port; two uninterrupted runs bitwise equal, and the
+    restart drill (a failure injected at step 7, checkpoints every 2
+    steps) bitwise equal to them; then host ms per step, its split, one
+    step's device profile and the placement optimizer's host time.
+    Returns the launches of B4 and B1 in the example's run."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(root, "examples"))
+    import snn_multicore_torch as example
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.configs import paper_dynaps
+    from repro_torch.data.pipeline import SNNPipeline
+    from repro_torch.ft import FailureInjector, run_with_restarts
+    from repro_torch.interface import Interface
+    from repro_torch.models import snn
+    from repro_torch.noc import placement
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.optim import adamw
+
+    cfg = paper_dynaps.scaled_config()
+    eval_cfg = example.eval_config(cfg)
+    opt_cfg = example.OPT_CFG
+    fabric = cfg.fabric
+
+    def fresh(device):
+        params, topo = snn.init_snn(torch.Generator().manual_seed(0), cfg,
+                                    device=device)
+        return (params, adamw.init(opt_cfg, params)), topo
+
+    def bitwise(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    state0, topo = fresh(dev)
+    step = functools.partial(snn.train_step, topology=topo, cfg=cfg,
+                             opt_cfg=opt_cfg)
+    pipe = SNNPipeline(cfg, example.TRAIN_BATCH, seed=1, device=dev)
+    step(state0, pipe.batch(0))      # warm-up, its result dropped
+    torch.cuda.synchronize()
+
+    # the example: train, then the accounted evaluation
+    reset_launches()
+    out = example.main(cfg, TRAIN_STEPS, dev, eval_batch=TRAIN_EVAL_BATCH)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {**no_launch, "lif_step": cfg.t_steps, "sparse_tick": 1}
+    check(launches == want, f"trained snn example launches {launches}: "
+          f"want lif_step once per step and sparse_tick once (the "
+          f"accounted run), nothing else")
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"training losses not finite: {losses}")
+    logits, rates = out["logits"], out["rates"]
+    check(logits.shape == (TRAIN_EVAL_BATCH, cfg.d_out) and
+          bool(logits.isfinite().all()) and 0 < float(rates.mean()) < 1,
+          "trained snn evaluation: shapes, finite, rates in (0, 1)")
+    print(f"main path train snn (examples/snn_multicore_torch.py) at "
+          f"scaled_config ({cfg.n_total} neurons, {cfg.t_steps} steps): "
+          f"{TRAIN_STEPS} steps at batch {example.TRAIN_BATCH}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}, accuracy "
+          f"{out['accuracy']:.4f} on {TRAIN_EVAL_BATCH} samples; launches "
+          f"over the example's run {launches}")
+
+    # the accounted evaluation against impl="xla": spikes, rates, logits
+    # bitwise; the replay's currents bitwise, stats under the contract
+    params, topo_ = out["params"], out["topology"]
+    x = out["eval_batch"]["x"]
+    with torch.no_grad():
+        xla_logits, xla_rates, xla_stats = snn.snn_forward(
+            params, topo_, x, cfg, impl="xla", account=True)
+        r_mat = snn.routing_matrix(snn.fabric_params(params, topo_), fabric)
+        raster = {impl: snn.spike_raster(params, r_mat, x, cfg, impl=impl)
+                  for impl in ("pallas", "xla")}
+    for name, a, b in (("spikes", *raster.values()),
+                       ("rates", rates, xla_rates),
+                       ("logits", logits, xla_logits)):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"trained snn pallas {name} != xla on the card")
+    check_stats("trained snn account pallas_sparse vs xla", out["stats"],
+                xla_stats)
+    ticks = TRAIN_EVAL_BATCH * cfg.t_steps
+    frames = raster["pallas"].reshape(ticks, fabric.cores,
+                                      fabric.neurons_per_core) > 0.5
+    fab = snn.fabric_params(params, topo_)
+    sessions = {c.impl: Interface(c).compile(fab, device=dev)
+                for c in (eval_cfg.fabric, fabric)}
+    replay = {impl: s_.run(frames) for impl, s_ in sessions.items()}
+    capacity = sessions["pallas_sparse"].plan.run.capacity
+    check(torch.equal(replay["pallas_sparse"][0], replay["xla"][0]),
+          "trained snn replay: pallas_sparse currents != xla")
+    check_stats("trained snn replay pallas_sparse vs xla",
+                replay["pallas_sparse"][1], replay["xla"][1])
+    overflow = int((frames.sum(-1) > capacity).any(-1).sum())
+    print(f"trained snn evaluation: impl=pallas == xla on the card "
+          f"(spikes, rates, logits bitwise); the {ticks}-tick replay "
+          f"through pallas_sparse == xla (currents bitwise, stats under "
+          f"the conformance contract; {overflow} ticks past capacity "
+          f"{capacity} "
+          f"take the dense fallback); per-tick means "
+          f"{json.dumps(out['stats'].summary())}")
+
+    # one step on the card against the CPU port, from the same parameters
+    # and batch, on the samples whose rasters flip no spike
+    batch = pipe.batch(0)
+    cpu_state, cpu_topo = fresh("cpu")
+    with torch.no_grad():
+        card_r = snn.routing_matrix(snn.fabric_params(state0[0], topo),
+                                    fabric)
+        cpu_r = snn.routing_matrix(snn.fabric_params(cpu_state[0],
+                                                     cpu_topo), fabric)
+        flips = (snn.spike_raster(state0[0], card_r, batch["x"], cfg).cpu()
+                 != snn.spike_raster(cpu_state[0], cpu_r,
+                                     batch["x"].cpu(), cfg))
+    flipped = flips.flatten(1).sum(1)
+    same = flipped == 0
+    check(int(same.sum()) >= 2, f"fewer than 2 of {len(same)} samples "
+          f"without a flipped spike: {flipped.tolist()}")
+    sub = {k: v[same.to(dev)] for k, v in batch.items()}
+    sub_cpu = {k: v.cpu() for k, v in sub.items()}
+    grads = {}
+    for label, state, topo_x, b in (("card", state0, topo, sub),
+                                    ("cpu", cpu_state, cpu_topo, sub_cpu)):
+        p = {k: v.detach().requires_grad_() for k, v in state[0].items()}
+        loss = snn.snn_loss(p, topo_x, b, cfg)
+        grads[label] = (loss.detach().cpu(),
+                        {k: g.cpu() for k, g in
+                         snn.loss_gradients(loss, p).items()})
+    (card_new, _), card_m = step(state0, sub)
+    (cpu_new, _), cpu_m = snn.train_step(cpu_state, sub_cpu, cpu_topo, cfg,
+                                         opt_cfg)
+    lr = float(cpu_m["lr"])
+    card_rule, _, _ = adamw.update(opt_cfg, grads["card"][1], cpu_state[1],
+                                   cpu_state[0])
+    loss_gap = abs(float(grads["card"][0]) - float(grads["cpu"][0]))
+    check(torch.allclose(grads["card"][0], grads["cpu"][0], rtol=1e-5,
+                         atol=1e-6) and torch.equal(card_m["loss"].cpu(),
+                                                    grads["card"][0]),
+          f"train step loss card vs CPU beyond rtol 1e-5 / atol 1e-6: "
+          f"{loss_gap}")
+    gaps = []
+    for k in sorted(card_new):
+        gc, gp = grads["card"][1][k], grads["cpu"][1][k]
+        tol = GRAD_ATOL * float(gp.abs().max()) + GRAD_RTOL * gp.abs()
+        g_gap = (gc - gp).abs()
+        check(bool((g_gap <= tol).all()), f"train step gradient {k} card "
+              f"vs CPU: max gap {float(g_gap.max())} beyond rtol "
+              f"{GRAD_RTOL} + {GRAD_ATOL} of the leaf's largest")
+        p_gap = (card_new[k].cpu() - cpu_new[k]).abs()
+        p_tol = 1e-6 * float(cpu_new[k].abs().max())
+        moved = 2 * lr * (tol / gp.abs()).nan_to_num(1.0).clamp(max=1.0)
+        check(bool((p_gap <= p_tol + moved).all()),
+              f"train step params {k} card vs CPU: max gap "
+              f"{float(p_gap.max())}")
+        r_gap = (card_new[k].cpu() - card_rule[k]).abs()
+        check(bool((r_gap <= p_tol).all()),
+              f"train step params {k}: the card's update of its own "
+              f"gradient vs the CPU port's adamw.update of it: max gap "
+              f"{float(r_gap.max())} beyond {p_tol}")
+        gaps.append(f"{k}: grad {float(g_gap.max()):.3e} (largest "
+                    f"{float(gp.abs().max()):.3e}), params "
+                    f"{float(p_gap.max()):.3e}, {int((p_gap > p_tol).sum())}"
+                    f" of {p_gap.numel()} beyond 1e-6 of the largest, "
+                    f"{int((moved >= 2 * lr).sum())} with |g| <= tol "
+                    f"(allowed the full 2 lr); update of the card's "
+                    f"gradient {float(r_gap.max()):.3e}")
+    print(f"train step card vs CPU port at scaled_config on the "
+          f"{int(same.sum())} of {len(same)} samples of batch 0 without a "
+          f"flipped spike (flips per sample {flipped.tolist()}): loss gap "
+          f"{loss_gap:.3e} (rtol 1e-5 / atol 1e-6); largest gaps " +
+          "; ".join(gaps))
+
+    # determinism and the restart drill
+    def run(steps):
+        state = state0
+        for i in range(steps):
+            state, _ = step(state, pipe.batch(i))
+        return state
+    first, second = run(DRILL_STEPS), run(DRILL_STEPS)
+    check(bitwise(first, second), f"two uninterrupted {DRILL_STEPS}-step "
+          f"runs on the card differ")
+    registry, logs = MetricsRegistry(), []
+    with tempfile.TemporaryDirectory() as d:
+        manager = CheckpointManager(d, every=DRILL_EVERY, keep=5)
+        injector = FailureInjector(fail_at_steps=(DRILL_FAIL_AT,),
+                                   registry=registry)
+        drilled, history = run_with_restarts(
+            lambda: fresh(dev)[0], step, pipe, num_steps=DRILL_STEPS,
+            manager=manager, injector=injector, logger=logs.append)
+        saved = sorted(os.listdir(d))
+    resumed = DRILL_FAIL_AT - DRILL_FAIL_AT % DRILL_EVERY
+    check(any(f"resumed from step {resumed}" in line for line in logs)
+          and registry.counters["ft.injected_failures"].value == 1
+          and len(history) == DRILL_STEPS - resumed,
+          f"restart drill: {logs}")
+    check(drilled[0]["w_in"].device == first[0]["w_in"].device
+          and bitwise(drilled, first),
+          "restart drill's final state != the uninterrupted run's")
+    print(f"train snn on the card: two uninterrupted {DRILL_STEPS}-step "
+          f"runs bitwise equal; run_with_restarts with a failure at step "
+          f"{DRILL_FAIL_AT}, checkpoints every {DRILL_EVERY} steps (async "
+          f"writer; {len(saved)} files kept), resumed from step {resumed}, "
+          f"final state bitwise the uninterrupted run's")
+
+    # times
+    q1, med, q3 = statistics.quantiles(out["step_ms"], n=4)
+    print(f"{tag} train snn scaled_config batch {example.TRAIN_BATCH}: "
+          f"median {med:.4f} ms/step (quartiles {q1:.4f}-{q3:.4f}; host "
+          f"clock, the example's {TRAIN_STEPS} steps after one warm-up "
+          f"step, each ending in a synchronize)")
+    stages = (("forward (snn_loss)", snn, "snn_loss"),
+              ("  of it routing_matrix", snn, "routing_matrix"),
+              ("  of it the step loop (spike_raster)", snn, "spike_raster"),
+              ("backward (loss_gradients)", snn, "loss_gradients"),
+              ("update (adamw.update)", adamw, "update"))
+    total, spent = host_breakdown(lambda: run(TRAIN_SPLIT_STEPS), stages)
+    top = sum(v for k, v in spent.items() if not k.startswith(" "))
+    parts = "; ".join(f"{k.strip()} {v * 1e3 / TRAIN_SPLIT_STEPS:.3f}"
+                      for k, v in spent.items())
+    print(f"{tag} host ms per train step (mean of {TRAIN_SPLIT_STEPS}): "
+          f"total {total * 1e3 / TRAIN_SPLIT_STEPS:.3f} = {parts}; batch "
+          f"and the rest {(total - top) * 1e3 / TRAIN_SPLIT_STEPS:.3f}")
+    wall_us, events = device_events(lambda: step(state0, batch))
+    check(bool(events), "the profiler recorded no device op in a train step")
+    busy_us = sum(e.device_time_total for e in events)
+    by_name = {}
+    for e in events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.device_time_total, count + 1)
+    print(f"{tag} profile train step: wall {wall_us:.1f} us (host clock, "
+          f"profiler on), device busy {busy_us:.1f} us in {len(events)} "
+          f"device ops, idle share {1 - busy_us / wall_us:.4f}")
+    for key, (us, count) in sorted(by_name.items(),
+                                   key=lambda r: -r[1][0])[:8]:
+        print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
+    a = placement.fanout_adjacency(fab, fabric)
+    t = time.perf_counter()
+    perm = placement.greedy_overlap_placement(a, fabric.cores,
+                                              fabric.neurons_per_core)
+    place_s = time.perf_counter() - t
+    costs = {name: placement.traffic_cost(a, p_, fabric.cores,
+                                          fabric.neurons_per_core)
+             for name, p_ in (("identity", placement.identity_placement(
+                 cfg.n_total)), ("greedy", perm))}
+    print(f"{tag} greedy_overlap_placement at {cfg.n_total} neurons: "
+          f"{place_s:.4f} s host (numpy); traffic_cost identity "
+          f"{costs['identity']:.0f} -> greedy {costs['greedy']:.0f}")
+    return {name: launches[name] for name in ("lif_step", "sparse_tick")}
 
 
 def _leaves(tree):
@@ -1661,6 +1948,11 @@ def main() -> int:
                                        key=lambda r: -r[1][0])[:8]:
             print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
 
+    # the SNN trained through the port's example, before the served LM's
+    # parameters are drawn
+    train_launches = trained_snn(dev, tag, reset_launches, read_launches,
+                                 no_launch, root)
+
     # the served LM: its checks, times and profile (moe_dispatch's path)
     path_launches["moe_dispatch"], moe_ids = served_lm(
         dev, tag, reset_launches, read_launches, no_launch)
@@ -1776,7 +2068,8 @@ def main() -> int:
         label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
     rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b1_ms * 1e3 / TICKS,
                     launches_per_512_ticks=path_launches["sparse_tick"],
-                    serve_launches_per_flush=serve_per_flush["sparse_tick"])
+                    serve_launches_per_flush=serve_per_flush["sparse_tick"],
+                    train_eval_launches=train_launches["sparse_tick"])
     print(f"{tag} sparse_tick whole run: {b1_ms * 1e3 / TICKS:.4f} us per "
           f"tick; {path_launches['sparse_tick']} launches in the 512 "
           f"pallas_sparse ticks of phase 4 ({sources} sources spiked)")
@@ -1928,6 +2221,7 @@ def main() -> int:
            "lif_step", lambda: lif_ref.lif_step_ref(v, i, **lif_args), None,
            nbytes(v, i, *lif_outs), 3 * v.numel(), FP32_OPS_PER_S,
            "fp32 ops at 67 TFLOP/s", 2000, cold=True)
+    rows[-1].update(train_eval_launches=train_launches["lif_step"])
 
     # B5 on the path: the first MoE layer's prefill stream (4 x 128 tokens x
     # top-6 = 3072 events, E = 64; the kernels-line row), then a decode

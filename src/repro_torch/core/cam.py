@@ -1,10 +1,14 @@
-"""CAM routing-memory PPA model (paper §IV), the behavioural half.
+"""Asynchronous CAM routing-memory model (paper §IV).
 
-Port of the PPA layer of `repro.core.cam`: the registered circuit
-variants, `CamConfig`, the cycle-time model and the per-search energy
-model as a torch function.  The functional search half (`search`,
-`CamArray`) is not ported yet (ROADMAP queue A item 8); the tick only
-needs the decoded `RoutingIndex` gather.
+Port of `repro.core.cam`, both layers:
+
+- functional: `search` / `first_match` / `mismatch_bit_counts` and the
+  stateful `CamArray`, the NOR-type CAM semantics of the core input
+  interface, in plain torch (the session's tick uses the decoded
+  `RoutingIndex` gather, or the `cam_search` kernel, instead);
+- behavioural PPA: the registered circuit variants, `CamConfig`, the
+  cycle-time, per-search energy and area models, and the paper's
+  savings (`energy_saving`, `cycle_improvement`).
 
 Calibration constants are copied verbatim so both packages compute the
 same numbers from the same inputs.
@@ -15,8 +19,50 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 from repro_torch.core import ppa
 from repro_torch.interface import registry as interface_registry
+from repro_torch.interface.types import resolve_device
+
+# ---------------------------------------------------------------------------
+# Functional CAM semantics
+# ---------------------------------------------------------------------------
+
+
+def search(tags, valid, query) -> torch.Tensor:
+    """Parallel search: match[e] = valid[e] and tags[e, :] == query.
+
+    tags:  (entries, bits) {0,1} int
+    valid: (entries,) bool
+    query: (bits,) or (batch, bits), on the tags' device
+    returns (entries,) or (batch, entries) bool
+    """
+    tags = torch.as_tensor(tags)
+    valid = torch.as_tensor(valid, device=tags.device)
+    query = torch.as_tensor(query, device=tags.device)
+    if query.ndim == 1:
+        return (tags == query[None, :]).all(-1) & valid
+    eq = (tags[None, :, :] == query[:, None, :]).all(-1)
+    return eq & valid[None, :]
+
+
+def first_match(tags, valid, query) -> torch.Tensor:
+    """Index of the lowest matching entry, or `entries` if none."""
+    m = search(tags, valid, query)
+    entries = m.shape[-1]
+    idx = torch.arange(entries, device=m.device)
+    return torch.where(m, idx, entries).amin(-1)
+
+
+def mismatch_bit_counts(tags, query) -> torch.Tensor:
+    """Per-entry number of mismatching bits (drives the energy model)."""
+    tags = torch.as_tensor(tags)
+    query = torch.as_tensor(query, device=tags.device)
+    q = query[None, :] if query.ndim == 1 else query[:, None, :]
+    t = tags if query.ndim == 1 else tags[None, :, :]
+    return (t != q).sum(-1)
+
 
 # --- cycle-time calibration (ns): see repro.core.cam for the derivation ----
 T_REQ = 0.2
@@ -38,6 +84,12 @@ E_SENSE_NODE = 0.02
 E_CSCD_NET = 25.0
 M_CHARGE = 9.796
 F_CONV = 518.58
+
+# --- area calibration (um^2), exact through both published design points ----
+A_ENTRY_BASE = 7016.8 / 496      # 14.1468  (11 CAM cells + MLSA)
+A_PERIPH_BASE = 225.3 - 16 * A_ENTRY_BASE
+A_ENTRY_PROP = 7375.1 / 496      # 14.8691  (+OR gate in MLSA; no cell growth)
+A_PERIPH_PROP = 245.5 - 16 * A_ENTRY_PROP  # ~= 7.6 um^2: the CSCD block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +161,30 @@ def energy_coefficients(cfg: CamConfig) -> tuple[float, float, float]:
     return e_match, e_mm, F_CONV + (E_CSCD_NET if v.cscd else 0.0)
 
 
+def search_energy(cfg: CamConfig, n_match: float, n_mismatch: float) -> float:
+    """Average per-search energy for a given match composition (model units).
+
+    Raises:
+      ValueError: feedback or speculative sensing without CSCD, unless a
+        registered variant is named explicitly.
+    """
+    if not cfg.cscd and (cfg.feedback or cfg.speculative) \
+            and cfg.variant_name is None:
+        raise ValueError("feedback/speculative require the CSCD architecture")
+    e_match, e_mismatch, fixed = energy_coefficients(cfg)
+    return n_match * e_match + n_mismatch * e_mismatch + fixed
+
+
+def search_energy_for_queries(cfg: CamConfig, tags, valid, queries
+                              ) -> torch.Tensor:
+    """Average model energy over a batch of actual queries (0-d float32)."""
+    m = search(tags, valid, queries)          # (batch, entries)
+    n_match = m.sum(-1).to(torch.float32)
+    n_valid = torch.as_tensor(valid, device=m.device).sum().to(
+        torch.float32)
+    return energy(cfg, n_match, n_valid - n_match).mean()
+
+
 def energy(cfg: CamConfig, n_match, n_mismatch):
     """Per-search model energy for float32 match/mismatch tensors.
 
@@ -117,6 +193,66 @@ def energy(cfg: CamConfig, n_match, n_mismatch):
     """
     e_match, e_mm, fixed = energy_coefficients(cfg)
     return n_match * e_match + n_mismatch * e_mm + fixed
+
+
+def area_um2(cfg: CamConfig) -> float:
+    if cfg.variant_entry().cscd:
+        return A_ENTRY_PROP * cfg.entries + A_PERIPH_PROP
+    return A_ENTRY_BASE * cfg.entries + A_PERIPH_BASE
+
+
+def energy_saving(case: str, entries: int = 512) -> float:
+    """Model-predicted saving of the full proposed design vs. baseline."""
+    conv = CamConfig(entries, cscd=False, feedback=False, speculative=False)
+    prop = CamConfig(entries)
+    if case == "all_match":
+        comp = (float(entries), 0.0)
+    elif case == "all_mismatch":
+        comp = (0.0, float(entries))
+    elif case == "random":
+        # uniformly random query & tags: per-entry match prob = 2^-bits
+        p = 2.0 ** (-prop.bits)
+        comp = (entries * p, entries * (1 - p))
+    else:
+        raise ValueError(case)
+    return 1.0 - search_energy(prop, *comp) / search_energy(conv, *comp)
+
+
+def cycle_improvement(entries: int) -> float:
+    conv = CamConfig(entries, cscd=False, feedback=False, speculative=False)
+    prop = CamConfig(entries)
+    return 1.0 - cycle_time_ns(prop) / cycle_time_ns(conv)
+
+
+class CamArray:
+    """A stateful CAM routing LUT: stored tags + functional search + PPA.
+
+    Tensors live on ``device`` (the CUDA device when None; pass
+    ``device="cpu"`` for the CPU).  `write` returns a new array.
+    """
+
+    def __init__(self, cfg: CamConfig, tags=None, valid=None, device=None):
+        self.cfg = cfg
+        device = resolve_device(device)
+        self.tags = (torch.zeros((cfg.entries, cfg.bits), dtype=torch.int32,
+                                 device=device) if tags is None else
+                     torch.as_tensor(tags, dtype=torch.int32, device=device))
+        self.valid = (torch.zeros((cfg.entries,), dtype=torch.bool,
+                                  device=device) if valid is None else
+                      torch.as_tensor(valid, dtype=torch.bool, device=device))
+
+    def write(self, entry: int, tag) -> "CamArray":
+        tags, valid = self.tags.clone(), self.valid.clone()
+        tags[entry] = torch.as_tensor(tag, dtype=torch.int32,
+                                      device=tags.device)
+        valid[entry] = True
+        return CamArray(self.cfg, tags, valid, device=tags.device)
+
+    def search(self, query):
+        return search(self.tags, self.valid, query)
+
+    def first_match(self, query):
+        return first_match(self.tags, self.valid, query)
 
 
 for _v in (

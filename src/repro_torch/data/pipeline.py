@@ -4,10 +4,15 @@ Port of `repro.data.pipeline.snn_batch`.  It draws from a
 `torch.Generator`, so its numbers differ from `jax.random`'s for the
 same seed; the rasters have the same shapes and firing statistics.  Give
 both packages one raster as numpy arrays where bits must agree.
+
+`SNNPipeline` is the training stream: step -> batch, a pure function of
+(seed, step) drawn on the CPU, so any step's batch can be regenerated
+after a restart and every device trains on the same rasters.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.interface.session import resolve_device
@@ -37,3 +42,23 @@ def snn_batch(generator: torch.Generator, batch: int, t_steps: int,
     x = (torch.rand((batch, t_steps, d_in), generator=generator, device=gdev)
          < rates[:, None, :]).to(torch.float32)
     return {"x": x.to(device), "y": y.to(device)}
+
+
+class SNNPipeline:
+    """step -> `snn_batch` of ``batch`` samples of ``cfg`` (an
+    `SNNConfig`), drawn from a CPU generator seeded by (seed, step) and
+    placed on ``device`` (the CUDA device when None; ``device="cpu"``
+    for the CPU)."""
+
+    def __init__(self, cfg, batch: int, seed: int = 0, device=None):
+        self.cfg = cfg
+        self.batch_size = batch
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def batch(self, step: int) -> dict:
+        cfg = self.cfg
+        seed = np.random.SeedSequence([self.seed, step]).generate_state(1)
+        gen = torch.Generator().manual_seed(int(seed[0]))
+        return snn_batch(gen, self.batch_size, cfg.t_steps, cfg.d_in,
+                         cfg.d_out, device=self.device)

@@ -1,13 +1,15 @@
-"""`repro_torch.ft`: the serving tier's host-layer fault injection.
+"""`repro_torch.ft`: fault injection for serving and training.
 
 `repro_torch.ft.chaos` - `FaultPlan`/`ChaosInjector` raising or stalling
 at configured `repro_torch.serve.ServeEngine` pump rounds (transfer
 failures, slow devices, per-tenant lane faults), with the typed error
-ladder the engine retries or surfaces - and `repro_torch.ft.runner`'s
-`Watchdog` over per-flush wall time.
+ladder the engine retries or surfaces - and `repro_torch.ft.runner`:
+the `Watchdog` over per-flush or per-step wall time, and the training
+runner (`run_training`, `run_with_restarts`, `FailureInjector`) with
+checkpoint resume.
 
 Port of `repro.ft` without the fabric-level `FaultModel` (ROADMAP queue
-A item 9) and the training runner (item 11).
+A item 9).
 """
 
 from repro_torch.ft.chaos import (
@@ -21,17 +23,25 @@ from repro_torch.ft.chaos import (
     TransferFault,
     TransientFaultError,
 )
-from repro_torch.ft.runner import Watchdog
+from repro_torch.ft.runner import (
+    FailureInjector,
+    Watchdog,
+    run_training,
+    run_with_restarts,
+)
 
 __all__ = [
     "FAULT_KINDS",
     "ChaosError",
     "ChaosInjector",
     "ExecuteFault",
+    "FailureInjector",
     "FaultEvent",
     "FaultPlan",
     "RetriesExhaustedError",
     "TransferFault",
     "TransientFaultError",
     "Watchdog",
+    "run_training",
+    "run_with_restarts",
 ]

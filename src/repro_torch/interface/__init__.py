@@ -47,6 +47,8 @@ _LAZY_EXPORTS = {
     "build_tables": "repro_torch.interface.pipeline",
     "RoutingIndex": "repro_torch.interface.pipeline",
     "build_routing_index": "repro_torch.interface.pipeline",
+    "ppa_report": "repro_torch.interface.report",
+    "interface_area_um2": "repro_torch.interface.report",
 }
 
 __all__ = sorted([

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core import arbiter as arb
 from repro_torch.core import cam as cam_mod
-from repro_torch.interface import pipeline
+from repro_torch.interface import pipeline, report
 from repro_torch.interface.config import as_interface_config
 from repro_torch.interface.stats import StepStats
 from repro_torch.interface.types import InterfaceParams, resolve_device
@@ -81,6 +81,10 @@ class Interface:
             raise pipeline.not_ported("compile(fault=...) (FaultModel)", 9)
         return InterfaceSession(self.config, params, device=device)
 
+    def ppa_report(self) -> dict:
+        """Unified area/latency/energy report for this configuration."""
+        return report.ppa_report(self.config)
+
 
 class InterfaceSession:
     """A precompiled (config, params) binding on one device.
@@ -106,6 +110,12 @@ class InterfaceSession:
                                        self.arb_plan,
                                        cam_cycle_ns=self.cam_cycle_ns)
         self.routing = self.plan.routing
+
+    # ---- introspection ---------------------------------------------------
+
+    def ppa_report(self) -> dict:
+        """Unified area/latency/energy report for this configuration."""
+        return report.ppa_report(self.config)
 
     # ---- execution -------------------------------------------------------
 

@@ -12,6 +12,8 @@ Entry points, on torch tensors:
     params, topo = init_snn(torch.Generator().manual_seed(0), cfg)
     logits, rates, stats = snn_forward(params, topo, x, cfg,
                                        impl="pallas", account=True)
+    state = (params, adamw.init(opt_cfg, params))
+    state, metrics = train_step(state, batch, topo, cfg, opt_cfg)
 
 Tensors go to the CUDA device unless the caller passes ``device="cpu"``
 (`init_snn`, `snn_params_from_numpy`); `snn_forward` runs where its
@@ -19,6 +21,12 @@ operands lie.  ``impl="xla"`` is the differentiable path (surrogate
 gradient through `spike_fn`); ``impl="pallas"`` runs the neuron update
 through the `lif_step` kernel on CUDA tensors (its plain version on CPU
 tensors) and is for inference: call it under ``torch.no_grad()``.
+`train_step` is one AdamW step (`repro_torch.optim.adamw`) on the
+gradient of `snn_loss` through ``impl="xla"``, as the JAX package's
+example takes it with ``jax.value_and_grad``.  It sums in a fixed order
+on the card too (`routing_matrix` adds without colliding atomics, and
+its backward is a gather), so the same state and batch give the same
+bits on every run: a restarted run resumes bit-exactly.
 
 On the card, the step's float32 matrix products must stay full float32:
 `snn_forward` refuses to run with TF32 allowed for them
@@ -40,6 +48,7 @@ from repro_torch.interface.types import (InterfaceParams, params_from_numpy,
                                          random_connectivity)
 from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.lif_step import ref as lif_ref
+from repro_torch.optim import adamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,6 +253,32 @@ def snn_loss(params, topology, batch, cfg: SNNConfig, *, impl: str = "xla"):
     loss = -logp.gather(1, labels[:, None]).mean()
     # mild rate regularization keeps events sparse (the paper's regime)
     return loss + 0.01 * rates.square().mean()
+
+
+def loss_gradients(loss: torch.Tensor, params: dict) -> dict:
+    """d loss / d params, a dict in sorted key order (the backward)."""
+    names = sorted(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names])
+    return dict(zip(names, grads))
+
+
+def train_step(state, batch, topology, cfg: SNNConfig,
+               opt_cfg: adamw.AdamWConfig):
+    """One training step: `snn_loss` through ``impl="xla"``, its
+    gradient, one `adamw.update`.
+
+    state: ``(params, AdamWState)``; batch: ``{"x", "y"}`` on the
+    params' device.  Returns ``((params, AdamWState), metrics)`` with
+    0-d tensors ``loss``, ``grad_norm`` and ``lr``; the new params are
+    fresh tensors that do not require grad.
+    """
+    params, opt_state = state
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = snn_loss(leaves, topology, batch, cfg)
+    grads = loss_gradients(loss, leaves)
+    params, opt_state, metrics = adamw.update(opt_cfg, grads, opt_state,
+                                              params)
+    return (params, opt_state), {"loss": loss.detach(), **metrics}
 
 
 class SNN(nn.Module):

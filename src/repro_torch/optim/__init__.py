@@ -1,0 +1,14 @@
+"""`repro_torch.optim` - AdamW as plain functions on dicts of tensors
+(port of `repro.optim`)."""
+
+from repro_torch.optim.adamw import (  # noqa: F401
+    AdamWConfig,
+    AdamWState,
+    global_norm,
+    init,
+    schedule,
+    update,
+)
+
+__all__ = ["AdamWConfig", "AdamWState", "global_norm", "init", "schedule",
+           "update"]

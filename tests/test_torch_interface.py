@@ -394,7 +394,8 @@ def _imported_roots(path):
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" /
+              "snn_multicore_torch.py"]
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))
