@@ -19,7 +19,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     non-zero acc0 (currents bitwise, whole-number stats exact, the rest
     within 1e-6 relative, the largest gap printed; seeded sums bitwise),
     and seeded at the serve path's shape (4 lanes x 16 ticks of the
-    pallas_sparse group's scenario streams, ragged, one lane at rest);
+    pallas_sparse group's scenario streams, ragged, one lane at rest); the
+    whole run with the inter-chip tier inside at 16 x 256 x 512 as 2 and
+    4 chips, every arbiter x NoC pair, currents and all 12 stats bitwise
+    (its largest gap printed on its own line);
     cam_search's match counts at 8192 queries x 4096 sources x 1
     and 5 words, one lane at valid densities 0, one live source, 0.05,
     0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
@@ -79,8 +82,21 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     16, ragged rounds; each group's probe tenant bitwise against its solo
     session.run under the drain, the background pump and a chaos run,
     the accounting identity, and B1 once, B3 once and B2 16 times a
-    flush, with its events/s, tick ms, host split (also with a plain
-    copy in place of the side stream) and a flush's device profile;
+    flush, with its events/s, tick ms, host split (transfer, step,
+    wait, record) and a flush's device profile; then the multi-chip fabric (multichip_fabric): the scaled
+    fabric as 4 chips x 4 cores on the same params and streams, the
+    pallas_sparse (B1 once a run, the chip tier inside), pallas (B3 once
+    a run, B2 once a tick) and xla sessions and xla and pallas_sparse
+    with shard="chips" (no launch), each bitwise in currents to the
+    chips=1 session, stats under the conformance contract; "ticks" and
+    "cores" telemetry under pallas_sparse and pallas bitwise "off" and
+    summing back, inter-chip hops attributed only at chips > 1; a
+    FaultModel (dead core 3, drop rate 0.1, 64 corrupted CAM slots)
+    under all three impls, a stream in 4 chunks with fault_tick0 bitwise
+    one run, the drop mask on the card bitwise the CPU's; two faulted
+    tenants and a shard="chips" tenant served by ServeEngine, each
+    bitwise its solo run; the oracle tick (arbiter simulator, dense tag
+    sweep) on 8 ticks at chips 1 and 4 equal to xla;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -97,7 +113,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     over (query, live source) pairs; lif_step with L2 flushed before
     each launch; moe_dispatch at the served prefill and decode streams
     and at benchmarks/kernel_bench.py's 16384 x 160 and 65536 x 160),
-    beside the launch floor: an empty kernel's time;
+    beside the launch floor: an empty kernel's time; the multi-chip
+    sessions' host ms per tick beside their chips=1 twins, "cores"
+    telemetry beside "off", faulted runs beside clean ones, the oracle's
+    ms a tick, and B1 with and without the chip tier;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -156,7 +175,14 @@ SERVE_TENANTS = 8               # benchmarks/noc_bench.py --serve's default
 SERVE_FLUSH = 16
 SERVE_TICKS = 64                # tenant i submits 64 - 8 (i % 4) a round
 SERVE_ROUNDS = 3                # measured, after one warm-up round
-SIDE_PAIRS = 10                 # side stream against a plain copy
+MC_CHIPS = 4                    # the DYNAP-SE board: 4 chips x 4 cores
+MC_CHUNKS = 4                   # a faulted stream in chunks
+MC_SERVE_TICKS = 64             # each multichip tenant, 4 flushes
+MC_ORACLE_TICKS = 8
+MC_RUNS = 7                     # interleaved timing runs of the multichip
+TIER_PAIRS = 10                 # B1 with the chip tier against without
+MC_INVARIANT_FIELDS = ("events", "encode_latency", "encode_energy",
+                       "cam_searches", "cam_energy", "cam_time_ns")
 TRAIN_STEPS = 40                # examples/snn_multicore.py's SNN_STEPS
 TRAIN_EVAL_BATCH = 128          # and its SNN_EVAL_BATCH
 DRILL_STEPS = 10                # two uninterrupted runs and the drill
@@ -186,14 +212,20 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def check_field(label: str, field: str, got, want) -> None:
+    """One StepStats field under the conformance contract: EXACT_FIELDS
+    exactly, the rest within REL_TOL, finite."""
+    a, b = float(got), float(want)
+    ok = a == b if field in EXACT_FIELDS else math.isclose(
+        a, b, rel_tol=REL_TOL)
+    check(ok and math.isfinite(a), f"{label}: {field} {a} vs {b}")
+
+
 def check_stats(label: str, got, want) -> None:
     """Hold two StepStats to the conformance contract: EXACT_FIELDS
     exactly, the rest within REL_TOL, every value finite."""
     for field in want._fields:
-        a, b = float(getattr(got, field)), float(getattr(want, field))
-        ok = a == b if field in EXACT_FIELDS else math.isclose(
-            a, b, rel_tol=REL_TOL)
-        check(ok and math.isfinite(a), f"{label}: {field} {a} vs {b}")
+        check_field(label, field, getattr(got, field), getattr(want, field))
 
 
 def card_line() -> str:
@@ -219,20 +251,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_events(fn):
+def device_events(fn, captures: int = 3):
     """Run ``fn`` under the profiler; return (host wall us, the device-side
-    events: kernels, copies and sets, each with its duration in us)."""
+    events: kernels, copies and sets, each with its duration in us).
+
+    A capture of a short window with a handful of device ops now and then
+    comes back with no device event at all although the ops ran; such a
+    capture is taken again, at most ``captures`` times in all, and each
+    retry is printed.  The callers still fail when every capture came
+    back empty.
+    """
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(captures):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+        print(f"profiler capture {attempt + 1} of {captures} recorded no "
+              f"device event; capturing again" if attempt + 1 < captures
+              else f"profiler: none of {captures} captures recorded a "
+              f"device event")
     return wall_us, device
 
 
@@ -723,49 +769,6 @@ def served_fabric(dev, tag, reset_launches, read_launches, no_launch):
           f"staging, chunk packing, submit) "
           f"{(total - sum(spent.values())) * 1e3 / n:.4f}")
 
-    # what the side stream buys: the host split of a round with the
-    # engine's own `_transfer` (pinned copies on its side stream, an event
-    # the step waits on) and with a plain copy on the compute stream,
-    # SIDE_PAIRS pairs of rounds, each pair's order alternating
-    side_transfer = engine_mod.ServeEngine._transfer
-
-    def plain_transfer(self, chunk):
-        if self.chaos is not None:
-            self.chaos.on_transfer(self._round)
-        return engine_mod._OnDevice(
-            torch.from_numpy(chunk.spikes).to(self.device),
-            torch.from_numpy(chunk.mask).to(self.device), None, ())
-    split = {"side stream": [], "plain copy": []}
-    try:
-        for pair in range(SIDE_PAIRS):
-            for label in (("side stream", "plain copy") if pair % 2 == 0
-                          else ("plain copy", "side stream")):
-                engine_mod.ServeEngine._transfer = (
-                    side_transfer if label == "side stream"
-                    else plain_transfer)
-                before = engine.registry.counter("serve.flushes").value
-                total, spent = host_breakdown(one_round, stages)
-                n = engine.registry.counter("serve.flushes").value - before
-                split[label].append((total * 1e3 / n,
-                                     spent["transfer"] * 1e3 / n,
-                                     spent["step"] * 1e3 / n))
-    finally:
-        engine_mod.ServeEngine._transfer = side_transfer
-
-    def spread(values):
-        q1, median, q3 = statistics.quantiles(values, n=4)
-        return f"{median:.4f} ({q1:.4f}-{q3:.4f})"
-    side_wins = sum(a[0] < b[0] for a, b in zip(split["side stream"],
-                                                split["plain copy"]))
-    print(f"{tag} serve host ms per flush, side stream against a plain copy "
-          f"on the compute stream ({SIDE_PAIRS} pairs of rounds, order "
-          f"alternating; median (quartiles)): " + "; ".join(
-              f"{label}: total {spread([r[0] for r in runs])}, transfer "
-              f"{spread([r[1] for r in runs])}, step "
-              f"{spread([r[2] for r in runs])}"
-              for label, runs in split.items())
-          + f"; the side stream's total lower in {side_wins} of "
-          f"{SIDE_PAIRS} pairs")
     for impl in cfgs:
         group = [s for s in specs if s.config.impl == impl]
         frames = {s.name: s.stream(SERVE_FLUSH, round=100).numpy()
@@ -848,6 +851,299 @@ def served_fabric(dev, tag, reset_launches, read_launches, no_launch):
           f"fired and retried ({faults}), {hard} exhausted; probes bitwise, "
           f"accounting closes")
     return per_flush
+
+
+def multichip_fabric(dev, tag, reset_launches, read_launches, no_launch,
+                     params, flat_sessions, streams):
+    """The multi-chip fabric on the card: `paper_dynaps.scaled_config()`'s
+    fabric at chips = MC_CHIPS (16 cores as 4 chips x 4 cores x 256
+    neurons x 512 CAM entries, the DYNAP-SE board), on the phase-4 params
+    and streams.  Checks, each against the chips=1 sessions of phase 4:
+    the ``pallas_sparse`` (B1 once a run, the chip tier inside), ``pallas``
+    (B3 once a run, B2 once a tick), ``xla`` and ``xla`` with
+    ``shard="chips"`` (no launch) sessions' currents bitwise, their stats
+    under the conformance contract; ``"ticks"`` and ``"cores"`` telemetry
+    under ``pallas_sparse`` and ``pallas``, bitwise the ``"off"`` run and
+    summing back, with inter-chip hops attributed only at chips > 1; a
+    `FaultModel` under all three impls, a stream in MC_CHUNKS chunks with
+    ``fault_tick0`` bitwise one run, the drop mask on the card bitwise the
+    CPU's; two faulted tenants and a ``shard="chips"`` tenant served by
+    `ServeEngine`, each bitwise its solo run; the oracle tick on
+    MC_ORACLE_TICKS ticks at chips 1 and MC_CHIPS equal to ``xla``.
+    Prints host ms per tick of each session beside its chips=1 twin, the
+    ``"cores"`` run beside ``"off"``, the faulted run beside the clean one
+    and the oracle's ms a tick.  Returns the chips=MC_CHIPS sessions."""
+    from repro_torch import traffic
+    from repro_torch.ft import FaultModel
+    from repro_torch.interface import Interface, pipeline
+    from repro_torch.interface.stats import StepStats
+    from repro_torch.serve import ServeEngine, TenantSpec
+    from repro_torch.serve import default_connectivity
+
+    flat_cfg = flat_sessions["xla"].config
+    cfgs = {impl: dataclasses.replace(flat_cfg, impl=impl, chips=MC_CHIPS)
+            for impl in ("pallas_sparse", "pallas", "xla")}
+    check(cfgs["xla"].cores_per_chip * MC_CHIPS == flat_cfg.cores,
+          f"chips={MC_CHIPS}: cores_per_chip {cfgs['xla'].cores_per_chip}")
+    sessions = {impl: Interface(c).compile(params, device=dev)
+                for impl, c in cfgs.items()}
+    tables = sessions["xla"].tables
+    check(type(tables).__name__ == "HierTables"
+          and tuple(tables.chip_link_table.shape) == (
+              flat_cfg.cores * flat_cfg.neurons_per_core, 4),
+          f"chips={MC_CHIPS}: tables {type(tables).__name__}")
+    ticks = next(iter(streams.values())).shape[0]
+    print(f"multichip: {flat_cfg.cores} cores as {MC_CHIPS} chips x "
+          f"{cfgs['xla'].cores_per_chip} cores x {flat_cfg.neurons_per_core} "
+          f"neurons x {flat_cfg.cam.entries} entries ({flat_cfg.scheme}, "
+          f"{flat_cfg.noc.scheme}); link_table "
+          f"{tuple(tables.link_table.shape)}, chip_link_table "
+          f"{tuple(tables.chip_link_table.shape)}; {int(params.valid.sum())} "
+          f"valid CAM entries")
+
+    # ---- sessions: every path bitwise, launches counted
+    paths = (("pallas_sparse", sessions["pallas_sparse"], {}),
+             ("pallas", sessions["pallas"], {}),
+             ("xla", sessions["xla"], {}),
+             ("xla shard=chips", sessions["xla"], {"shard": "chips"}),
+             ("pallas_sparse shard=chips", sessions["pallas_sparse"],
+              {"shard": "chips"}))
+    want_launches = {"pallas_sparse": {**no_launch, "sparse_tick": 1},
+                     "pallas": {**no_launch, "cam_search": ticks,
+                                "hat_encode": 1}}
+    results = {}
+    for name, stream in streams.items():
+        flat_cur, flat_st = flat_sessions["xla"].run(stream)
+        for label, session, kw in paths:
+            reset_launches()
+            cur, st = session.run(stream, **kw)
+            torch.cuda.synchronize()
+            got = read_launches()
+            check(got == want_launches.get(label, no_launch),
+                  f"chips={MC_CHIPS} {label} {name}: launches {got}")
+            check(torch.equal(cur, flat_cur),
+                  f"chips={MC_CHIPS} {label} {name}: currents differ from "
+                  f"the chips=1 xla session")
+            for field in MC_INVARIANT_FIELDS:
+                check_field(f"chips={MC_CHIPS} {label} {name} vs chips=1",
+                            field, getattr(st, field), getattr(flat_st, field))
+            results[(name, label)] = st
+        ref = results[(name, "xla")]
+        check(float(ref.chip_hops) > 0 and float(flat_st.chip_hops) == 0,
+              f"{name}: chip_hops {float(ref.chip_hops)} at chips="
+              f"{MC_CHIPS}, {float(flat_st.chip_hops)} at one chip")
+        for label, _, _ in paths:
+            check_stats(f"chips={MC_CHIPS} {label} {name} vs xla",
+                        results[(name, label)], ref)
+        print(f"chips={MC_CHIPS} {name}: pallas_sparse (1 sparse_run launch), "
+              f"pallas (1 hat_run, {ticks} cam_search), xla, and xla and "
+              f"pallas_sparse with shard='chips' (no launch) == the chips=1 "
+              f"xla session's currents bitwise, the partition-invariant "
+              f"stats under the contract, the transport stats among "
+              f"themselves; per-tick means {json.dumps(ref.summary(ticks=ticks))}")
+
+    # ---- telemetry under pallas_sparse and pallas at chips > 1
+    burst = streams["burst_every_16"]
+    cores_by_impl = {}
+    for impl in ("pallas_sparse", "pallas"):
+        session = sessions[impl]
+        cur_off, st_off = session.run(burst)
+        for mode in ("ticks", "cores"):
+            reset_launches()
+            cur, st, tel = session.run(burst, telemetry=mode)
+            torch.cuda.synchronize()
+            got = read_launches()
+            check(got == want_launches[impl],
+                  f"telemetry {mode} {impl}: launches {got}")
+            check(torch.equal(cur, cur_off) and all(
+                torch.equal(a, b) for a, b in zip(st, st_off)),
+                f"telemetry {mode} {impl}: currents or stats differ from "
+                f"telemetry='off'")
+            for field in StepStats._fields:
+                series = getattr(tel.per_tick, field)
+                total = torch.zeros((), device=dev)
+                for t in range(series.shape[0]):
+                    total = total + series[t]
+                check(torch.equal(total, getattr(st, field)),
+                      f"telemetry {mode} {impl}: {field} series does not sum "
+                      f"back in tick order")
+            if mode == "cores":
+                pc, pt = tel.per_core, tel.per_tick
+                check(pc.events.shape == (ticks, flat_cfg.cores)
+                      and torch.equal(pc.events.sum(-1), pt.events)
+                      and torch.equal(pc.noc_hops.sum(-1), pt.noc_hops)
+                      and torch.equal(pc.chip_hops.sum(-1), pt.chip_hops)
+                      and torch.equal(pc.encode_latency.amax(-1),
+                                      pt.encode_latency)
+                      and torch.allclose(pc.encode_energy.sum(-1),
+                                         pt.encode_energy, rtol=REL_TOL,
+                                         atol=0)
+                      and float(pc.chip_hops.sum()) > 0,
+                      f"telemetry cores {impl}: the breakdown does not sum "
+                      f"back to the per-tick totals")
+                cores_by_impl[impl] = pc
+    for field in cores_by_impl["pallas"]._fields:
+        a = getattr(cores_by_impl["pallas_sparse"], field)
+        b = getattr(cores_by_impl["pallas"], field)
+        check(torch.allclose(a, b, rtol=REL_TOL, atol=0),
+              f"telemetry cores: pallas_sparse {field} differs from pallas")
+    flat_tel = flat_sessions["pallas_sparse"].run(burst, telemetry="cores")[2]
+    check(float(flat_tel.per_core.chip_hops.abs().sum()) == 0.0,
+          "telemetry cores at one chip attributes inter-chip hops")
+    print(f"telemetry ticks and cores at chips={MC_CHIPS} on {ticks} burst "
+          f"ticks, pallas_sparse (B1's rows and per-core output) and pallas "
+          f"(B3's terms): currents and stats bitwise telemetry='off', series "
+          f"summed in tick order bitwise the accumulated stats, per-core "
+          f"breakdowns summing back, chip_hops attributed "
+          f"({float(cores_by_impl['pallas'].chip_hops.sum()):.0f}) and 0 at "
+          f"one chip; the two impls' breakdowns agree")
+
+    # ---- faults under all three impls
+    fault = FaultModel(dead_cores=(3,), drop_rate=0.1,
+                       corrupt_cam_entries=64, seed=7)
+    faulted = {impl: Interface(c).compile(params, device=dev, fault=fault)
+               for impl, c in cfgs.items()}
+    stream = streams["bernoulli_0.05"]
+    live = np.ones(ticks, bool)
+    whole = {}
+    for impl, session in faulted.items():
+        cur, st = session.run(stream, mask=live)
+        acc, parts = None, []
+        for lo in range(0, ticks, ticks // MC_CHUNKS):
+            hi = lo + ticks // MC_CHUNKS
+            # each chunk's offset a tensor kept on the card
+            c, acc = session.run(stream[lo:hi],
+                                 fault_tick0=torch.tensor(lo, device=dev),
+                                 mask=live[lo:hi], stats0=acc)
+            parts.append(c)
+        check(torch.equal(torch.cat(parts), cur) and all(
+            torch.equal(a, b) for a, b in zip(acc, st)),
+            f"fault {impl}: {MC_CHUNKS} chunks with fault_tick0 differ from "
+            f"one run")
+        check(float(cur[:, 3].abs().max()) == 0.0,
+              f"fault {impl}: dead core 3 received current")
+        whole[impl] = (cur, st)
+    for impl in ("pallas_sparse", "pallas"):
+        check(torch.equal(whole[impl][0], whole["xla"][0]),
+              f"fault: {impl} currents differ from xla")
+        check_stats(f"fault {impl} vs xla", whole[impl][1], whole["xla"][1])
+    lanes = torch.stack([stream, streams["burst_every_16"]])
+    tick0 = torch.tensor([0, 1000], device=dev)
+    lane = torch.arange(2, device=dev)
+    on_card = fault.apply_spikes(lanes, tick0=tick0, lane=lane)
+    on_cpu = fault.apply_spikes(lanes.cpu(), tick0=tick0.cpu(),
+                                lane=lane.cpu())
+    check(torch.equal(on_card.cpu(), on_cpu),
+          "fault: the drop mask on the card differs from the CPU's")
+    clean_events = float(sessions["xla"].run(stream)[1].events)
+    print(f"fault {fault.describe()} at chips={MC_CHIPS}: xla, pallas, "
+          f"pallas_sparse currents bitwise (stats under the contract); "
+          f"{MC_CHUNKS} chunks with fault_tick0 bitwise one run; dead core "
+          f"silent; events {float(whole['xla'][1].events):.0f} of "
+          f"{clean_events:.0f}; the drop mask of 2 lanes x {ticks} ticks on "
+          f"the card bitwise the CPU's")
+
+    # ---- faulted and sharded tenants, served
+    names = traffic.scenario_names()
+    specs = [TenantSpec("faulted_sparse", cfgs["pallas_sparse"],
+                        scenario=names[0], seed=0, fault=fault),
+             TenantSpec("faulted_pallas", cfgs["pallas"], scenario=names[3],
+                        seed=1, fault=FaultModel(dead_cores=(5,),
+                                                 drop_rate=0.05, seed=11)),
+             TenantSpec("sharded", cfgs["xla"], scenario=names[2], seed=2,
+                        shard="chips")]
+    engine = ServeEngine(flush_ticks=SERVE_FLUSH, flush_deadline_s=0.0,
+                         keep_currents=True, device=dev)
+    for spec in specs:
+        engine.register(spec)
+    check(len(engine.groups) == len(specs), "multichip serve: groups")
+    for spec in specs:
+        engine.submit_scenario(spec.name, MC_SERVE_TICKS)
+    engine.drain()
+    for spec in specs:
+        solo = Interface(spec.config).compile(
+            default_connectivity(spec.config, spec.connectivity_seed),
+            device=dev, fault=spec.fault)
+        kw = ({"shard": "chips"} if spec.shard else {"fault_tick0": 0})
+        cur, st = solo.run(spec.stream(MC_SERVE_TICKS, round=0).to(dev), **kw)
+        check(np.array_equal(engine.currents(spec.name), cur.cpu().numpy()),
+              f"multichip serve: {spec.name} currents differ from its solo "
+              f"run")
+        mine = [float(f) for f in engine.tenant_stats(spec.name)]
+        check(mine == [float(f) for f in st],
+              f"multichip serve: {spec.name} stats differ from its solo run")
+    check(engine.accounting()["closes"], "multichip serve: accounting")
+    print(f"multichip serve: tenants {[s.name for s in specs]} "
+          f"({[s.scenario for s in specs]}; two with a FaultModel, one with "
+          f"shard='chips'), {MC_SERVE_TICKS} ticks each in flushes of "
+          f"{SERVE_FLUSH}: each bitwise its solo run (currents and stats); "
+          f"accounting closes")
+
+    # ---- the oracle: the simulator and the dense tag sweep
+    oracle_ms = {}
+    frames = burst[:MC_ORACLE_TICKS]
+    for chips in (1, MC_CHIPS):
+        cfg = dataclasses.replace(flat_cfg, impl="xla", chips=chips)
+        ref = (flat_sessions["xla"] if chips == 1 else sessions["xla"]).run(
+            frames)
+        tables = pipeline.build_tables(params, cfg)
+        acc, cur = StepStats.zeros(device=dev), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for frame in frames:
+            c, st = pipeline.interface_tick(params, frame, cfg, tables,
+                                            oracle=True)
+            acc, cur = acc.accumulate(st), cur + [c]
+        torch.cuda.synchronize()
+        oracle_ms[chips] = (time.perf_counter() - t) * 1e3 / len(frames)
+        check(torch.equal(torch.stack(cur), ref[0]),
+              f"oracle chips={chips}: currents differ from xla")
+        check_stats(f"oracle chips={chips} vs xla", acc, ref[1])
+    print(f"oracle (arbiter simulator + dense packed-tag sweep) on "
+          f"{MC_ORACLE_TICKS} burst ticks at chips 1 and {MC_CHIPS}: currents "
+          f"bitwise xla, stats under the contract")
+
+    # ---- times
+    def host_ms(fn, stream):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(stream)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / stream.shape[0]
+
+    def interleaved(label, runs, stream):
+        for fn in runs.values():
+            fn(stream)                              # warm-up
+        samples = {k: [] for k in runs}
+        for _ in range(MC_RUNS):
+            for k, fn in runs.items():
+                samples[k].append(host_ms(fn, stream))
+        for k, ms in samples.items():
+            q1, med, q3 = statistics.quantiles(ms, n=4)
+            print(f"{tag} {label} {k}: median {med:.4f} ms/tick (quartiles "
+                  f"{q1:.4f}-{q3:.4f}; host clock, {MC_RUNS} runs of "
+                  f"{stream.shape[0]} Bernoulli {RATE} ticks interleaved, "
+                  f"synchronized)")
+
+    interleaved("session", {
+        **{f"{impl} chips=1": flat_sessions[impl].run
+           for impl in ("pallas_sparse", "pallas", "xla")},
+        **{f"{impl} chips={MC_CHIPS}": sessions[impl].run
+           for impl in ("pallas_sparse", "pallas", "xla")},
+        f"xla shard=chips chips={MC_CHIPS}":
+            lambda s: sessions["xla"].run(s, shard="chips")}, stream)
+    interleaved(f"telemetry chips={MC_CHIPS}", {
+        f"{impl} {mode}": (lambda s, impl=impl, mode=mode:
+                           sessions[impl].run(s, telemetry=mode))
+        for impl in ("pallas_sparse", "pallas") for mode in ("off", "cores")},
+        stream)
+    interleaved(f"fault chips={MC_CHIPS}", {
+        **{f"{impl} clean": sessions[impl].run for impl in cfgs},
+        **{f"{impl} faulted": faulted[impl].run for impl in cfgs}}, stream)
+    print(f"{tag} oracle: " + ", ".join(
+        f"chips={c} {ms:.3f} ms/tick" for c, ms in oracle_ms.items())
+          + f" (host clock, {MC_ORACLE_TICKS} ticks, synchronized)")
+    return sessions
 
 
 def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
@@ -1355,6 +1651,48 @@ def main() -> int:
               f"currents bitwise, whole-number stats exact, largest relative "
               f"gap of the rest {gap:.3e} (limit {REL_TOL}); every stat "
               f"bitwise: {bitwise}")
+
+    # the whole-run sparse tick with the inter-chip tier inside: every
+    # arbiter x NoC pair at the scaled fabric split into 2 and MC_CHIPS
+    # chips, two lanes of a stream whose RUN_BURST ticks overflow; every
+    # output bitwise its plain version's, and the chip fields non-zero
+    chip_gap, chip_pairs = 0.0, 0
+    params = random_connectivity(torch.Generator(dev).manual_seed(SEED),
+                                 config("hier_tree"))
+    routing = pipeline.build_routing_index(params, config("hier_tree"))
+    frames = torch.rand((RUN_LANES, RUN_TICKS, CORES, NEURONS),
+                        generator=gen, device=dev) < RATE
+    for chips in (2, MC_CHIPS):
+        for noc in NOC_SCHEMES:
+            tables = pipeline.build_tables(params, dataclasses.replace(
+                config("hier_tree", noc=noc), chips=chips))
+            for scheme in SCHEMES:
+                cfg = dataclasses.replace(config(scheme, noc=noc),
+                                          chips=chips)
+                plan = pipeline.make_plan(params, cfg, tables=tables,
+                                          routing=routing)
+                check(plan.run.kernel.chip_hops is not None,
+                      f"chips={chips}: the plan has no chip tier")
+                stream = frames & (frames.to(torch.int32).cumsum(-1)
+                                   <= plan.run.capacity)
+                stream[:, list(RUN_BURST)] = True
+                overflow = [t in RUN_BURST for t in range(RUN_TICKS)]
+                got, want = run_both(plan, params, stream, overflow)
+                label = f"sparse_run chip tier {scheme}/{noc}/chips={chips}"
+                for g, w in zip(got, want):
+                    check(torch.equal(g, w), f"{label}: differs from the "
+                          f"plain version")
+                    chip_gap = max(chip_gap, float((g - w).abs().max()))
+                sparse_rows = [t for t in range(RUN_TICKS) if not overflow[t]]
+                check(float(got[1][sparse_rows, 9].sum()) > 0,
+                      f"{label}: the kernel's ticks have no inter-chip hop")
+                chip_pairs += 1
+    print(f"kernel == plain: sparse_run with the inter-chip tier, "
+          f"{chip_pairs} arbiter x NoC x chips (2, {MC_CHIPS}) cases at "
+          f"{CORES}x{NEURONS}x{ENTRIES}, {RUN_LANES} lanes x {RUN_TICKS} ticks "
+          f"(ticks {RUN_BURST} overflow): currents and all 12 stats bitwise")
+    print(f"kernel vs plain: sparse_run with the inter-chip tier, largest "
+          f"absolute gap {chip_gap}")
 
     # the seeded whole run at the serve path's shape: one pallas_sparse
     # group's SERVE_TENANTS // 2 lanes x SERVE_FLUSH ticks on the scaled
@@ -1961,6 +2299,12 @@ def main() -> int:
     serve_per_flush = served_fabric(dev, tag, reset_launches, read_launches,
                                     no_launch)
 
+    # the multi-chip fabric: the chip tier, shard="chips", telemetry,
+    # faults, faulted and sharded tenants, the oracle
+    chip_sessions = multichip_fabric(
+        dev, tag, reset_launches, read_launches, no_launch, params,
+        {label: s for label, s in sessions}, streams)
+
     rows = []
 
     # the launch floor: an empty sm_90a kernel, one block of 32 threads
@@ -2093,6 +2437,30 @@ def main() -> int:
               for k, vs in b1_pair.items()) + f" per launch (profiler, 40 "
           f"launches each, order unseeded, seeded, seeded, unseeded); "
           f"seeded - unseeded {seed_us:.3f} us")
+
+    # B1 with the inter-chip tier (the chips=MC_CHIPS plan) against the
+    # chips=1 plan on the same frames: TIER_PAIRS pairs of 40-launch
+    # windows, each pair's order alternating
+    chip_ops = chip_sessions["pallas_sparse"].plan.run.kernel
+    b1_tier = {"chips=1": [], f"chips={MC_CHIPS}": []}
+    for pair in range(TIER_PAIRS):
+        order = list(b1_tier) if pair % 2 == 0 else list(b1_tier)[::-1]
+        for which in order:
+            ops_ = kops if which == "chips=1" else chip_ops
+            b1_tier[which].append(device_ms_per_call(
+                lambda: sparse_kernel.sparse_run_cuda(run_frames, None, ops_,
+                                                      *run_out), 40,
+                "sparse_run_kernel"))
+    tier_wins = sum(a < b for a, b in zip(b1_tier[f"chips={MC_CHIPS}"],
+                                          b1_tier["chips=1"]))
+    print(f"{tag} sparse_tick whole run with the inter-chip tier against "
+          f"without ({TICKS} Bernoulli {RATE} ticks; profiler, {TIER_PAIRS} "
+          f"pairs of 40-launch windows, order alternating; median "
+          f"(quartiles) us per launch): " + "; ".join(
+              f"{k} {statistics.median(v) * 1e3:.3f} ("
+              + "-".join(f"{q * 1e3:.3f}" for q in statistics.quantiles(
+                  v, n=4)[::2]) + ")" for k, v in b1_tier.items())
+          + f"; chips={MC_CHIPS} faster in {tier_wins} of {TIER_PAIRS} pairs")
 
     # the same run at 64 cores: one block a tick holds the fabric there too
     wide = config("hier_tree", 4 * CORES)

@@ -1,7 +1,8 @@
 """Arbitration architectures for the neuromorphic core output interface.
 
-Port of the vectorized half of `repro.core.arbiter`: the five schemes of
-the paper (Tables I-III) as closed-form per-tick policies.
+Port of `repro.core.arbiter`: the five schemes of the paper (Tables
+I-III) as closed-form per-tick policies, and the discrete-event simulator
+those closed forms are held to.
 
   binary_tree  - flat binary arbiter tree (Boahen-style)
   greedy_tree  - binary tree with greedy re-grant of hot subtrees
@@ -16,10 +17,14 @@ buffer padded with n, plus live counts), and ``encode_energy`` over a
 dense address stream.  Every quantity is an exact small integer in
 float32, so the results are the same bits as the JAX package's.
 
-The discrete-event simulator (`_simulate`, the `Arbiter` drivers) is not
-ported yet (ROADMAP queue A item 8).  Where the JAX package falls back to
-it - a factory returning ``None``: ``greedy_tree`` at n <= 2,
-``hier_ring`` at a non-square n - the port raises instead.
+The discrete-event simulator (`_simulate`) serves one granted event a
+step, n steps, through each scheme's policies (``select_key``,
+``grant_delay``, ``token_update``), vectorised over any leading axes
+(cores, lanes).  Where a scheme's closed form does not apply - a
+factory returning ``None``: ``greedy_tree`` at n <= 2, ``hier_ring`` at
+a non-square n - `tick_latency_fn` returns the simulator's tick
+latency, as the JAX package's `batched_tick_latency` falls back to it.
+`Arbiter` drives it as the JAX class does.
 
 ``kernel_policy`` names the compile-time branch of the CUDA kernels that
 compute the scheme's policies: the sparse tick's
@@ -40,11 +45,11 @@ import torch
 
 from repro_torch.core import ppa
 from repro_torch.interface import registry as interface_registry
+from repro_torch.interface.types import resolve_device
 
 SCHEMES = ppa.SCHEMES
 
-_SIMULATOR_ITEM = ("the discrete-event arbiter simulator is not ported yet "
-                   "(ROADMAP queue A item 8)")
+INF = float("inf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +65,15 @@ class ArbiterContext:
 
 @dataclasses.dataclass(frozen=True)
 class ArbiterScheme:
-    """Registry entry: the vectorized policy bundle of one architecture.
+    """Registry entry: the policy bundle of one architecture.
 
     encode_energy(n, addr_seq (..., n)) -> (...) float32 toggles/event.
+    select_key(ctx, tok_hi, tok_lo) -> (..., n) float32 priority among
+        arrived requests (argmin wins); ``tok_*`` are (...) int64.
+    grant_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr, granted_any)
+        -> (...) float32 delay between service start and grant.
+    token_update(ctx, sel, taken, tok_hi, tok_lo) -> (tok_hi, tok_lo),
+        optional ring-token advance after a grant.
     tick_latency(ctx) -> Optional[(..., n) bool -> (...) float32]
     sparse_tick_latency(ctx) -> Optional[(buf, counts) -> (...) float32]
     sparse_encode_energy(ctx) -> Optional[(buf, counts) -> (...) float32]
@@ -77,6 +88,9 @@ class ArbiterScheme:
     sparse_tick_latency: Optional[Callable] = None
     sparse_encode_energy: Optional[Callable] = None
     kernel_policy: Optional[int] = None
+    select_key: Optional[Callable] = None
+    grant_delay: Optional[Callable] = None
+    token_update: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,21 +128,89 @@ def make_context(config: ArbiterConfig) -> ArbiterContext:
                           levels=config.levels, fill=config.pipeline_fill)
 
 
-def tick_latency_fn(config: ArbiterConfig) -> Callable:
-    """The scheme's dense per-tick latency policy for ``config``.
+def _ring_dist(frm, to, n):
+    return torch.remainder(to - frm, n)
 
-    Raises:
-      NotImplementedError: where the closed form does not apply and the
-        JAX package would run its discrete-event simulator instead.
+
+def _simulate(request_times: torch.Tensor, entry: ArbiterScheme,
+              ctx: ArbiterContext) -> torch.Tensor:
+    """Serve every finite request; grant times (inf where no request).
+
+    request_times: (..., n) float32.  One step grants one event: the
+    scheme's key picks among requests that have arrived by the server's
+    clock, or the earliest arrival (address tie-break) when none has.
+    n steps, each a handful of whole-tensor ops over the leading axes;
+    steps past the last request re-select a served event and grant
+    nothing, as the JAX ``lax.scan`` does.
     """
+    n = ctx.n
+    req = request_times.to(torch.float32)
+    lead, dev = req.shape[:-1], req.device
+    addrs = torch.arange(n, device=dev)
+    active = torch.isfinite(req)
+    clock = torch.zeros(lead, dtype=torch.float32, device=dev)
+    tok_hi = torch.zeros(lead, dtype=torch.int64, device=dev)
+    tok_lo = torch.zeros(lead, dtype=torch.int64, device=dev)
+    prev_addr = torch.zeros(lead, dtype=torch.int64, device=dev)
+    served = torch.zeros(req.shape, dtype=torch.bool, device=dev)
+    granted_any = torch.zeros(lead, dtype=torch.bool, device=dev)
+    key_waiting = req * float(n) + addrs.to(torch.float32)
+    grants = torch.full(req.shape, INF, dtype=torch.float32, device=dev)
+    for _ in range(n):
+        pending = active & ~served
+        arr = torch.where(pending, req, INF)
+        arrived = pending & (arr <= clock[..., None])
+        key = torch.where(arrived, entry.select_key(ctx, tok_hi, tok_lo), INF)
+        waiting = torch.where(pending, key_waiting, INF)
+        sel = torch.where(arrived.any(-1), key.argmin(-1), waiting.argmin(-1))
+        sel_arr = req.gather(-1, sel[..., None])[..., 0]
+        start = torch.maximum(sel_arr, clock)
+        backlog = clock > sel_arr
+        delay = entry.grant_delay(ctx, sel, backlog, tok_hi, tok_lo,
+                                  prev_addr, granted_any).to(torch.float32)
+        grant = start + delay
+        taken = pending.gather(-1, sel[..., None])[..., 0]
+        if entry.token_update is not None:
+            tok_hi, tok_lo = entry.token_update(ctx, sel, taken, tok_hi,
+                                                tok_lo)
+        hit = (addrs == sel[..., None]) & taken[..., None]
+        served = served | hit
+        grants = torch.where(hit, grant[..., None], grants)
+        clock = torch.where(taken, grant, clock)
+        prev_addr = torch.where(taken, sel, prev_addr)
+        granted_any = granted_any | taken
+    return grants
+
+
+def _simulated_tick_latency(config: ArbiterConfig) -> Callable:
+    """The simulator's per-tick latency: every spike requests at t=0, and
+    a core's latency is its last finite grant (0.0 without a spike)."""
+    entry: ArbiterScheme = interface_registry.get_arbiter(config.scheme)
+    ctx = make_context(config)
+
+    def lat(spikes):
+        req = torch.where(spikes, 0.0, INF).to(torch.float32)
+        grants = _simulate(req, entry, ctx)
+        last = torch.where(torch.isfinite(grants), grants, 0.0).amax(-1)
+        return torch.where(spikes.any(-1), last, 0.0)
+    return lat
+
+
+def has_closed_form(config: ArbiterConfig) -> bool:
+    """Does the scheme's vectorized tick latency apply at ``config``?"""
+    entry: ArbiterScheme = interface_registry.get_arbiter(config.scheme)
+    return (entry.tick_latency is not None
+            and entry.tick_latency(make_context(config)) is not None)
+
+
+def tick_latency_fn(config: ArbiterConfig) -> Callable:
+    """The scheme's dense per-tick latency policy for ``config``: its
+    closed form, or the discrete-event simulator where none applies (as
+    the JAX package's `batched_tick_latency` falls back)."""
     entry: ArbiterScheme = interface_registry.get_arbiter(config.scheme)
     fn = (entry.tick_latency(make_context(config))
           if entry.tick_latency is not None else None)
-    if fn is None:
-        raise NotImplementedError(
-            f"arbiter scheme {config.scheme!r} has no closed-form tick "
-            f"latency at n={config.n}; {_SIMULATOR_ITEM}")
-    return fn
+    return fn if fn is not None else _simulated_tick_latency(config)
 
 
 def batched_tick_latency(config: ArbiterConfig, spikes: torch.Tensor
@@ -138,6 +220,59 @@ def batched_tick_latency(config: ArbiterConfig, spikes: torch.Tensor
     spikes: (..., n) bool, every request at t=0.  Returns (...) float32.
     """
     return tick_latency_fn(config)(spikes)
+
+
+class Arbiter:
+    """Discrete-event model of one core-output arbiter.
+
+    ``device=None`` means the CUDA device (raising without one); pass
+    ``device="cpu"`` for the CPU.  Requests are simulated there.
+    """
+
+    def __init__(self, config: ArbiterConfig, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+
+    def simulate(self, request_times) -> torch.Tensor:
+        """request_times: (..., n) float, inf = no request -> grant times."""
+        request_times = torch.as_tensor(request_times, dtype=torch.float32,
+                                        device=self.device)
+        if request_times.shape[-1:] != (self.config.n,):
+            raise ValueError(f"expected shape ({self.config.n},)")
+        entry = interface_registry.get_arbiter(self.config.scheme)
+        return _simulate(request_times, entry, make_context(self.config))
+
+    # ---- experiments (paper section III-D) ---------------------------------
+
+    def sparse_event_latency(self, generator: torch.Generator,
+                             num_trials: int = 64) -> torch.Tensor:
+        """Average latency of isolated random single-neuron events (units);
+        the positions are drawn from ``generator`` (on its device) and
+        simulated on the arbiter's."""
+        n = self.config.n
+        positions = torch.randint(0, n, (num_trials,), generator=generator,
+                                  device=generator.device).to(self.device)
+        req = torch.full((num_trials, n), INF, dtype=torch.float32,
+                         device=self.device)
+        req[torch.arange(num_trials, device=self.device), positions] = 0.0
+        grants = self.simulate(req)
+        return grants.gather(-1, positions[:, None])[:, 0].mean()
+
+    def burst_latency(self) -> torch.Tensor:
+        """Completion time of a full-frame burst (all neurons fire at t=0)."""
+        return self.simulate(torch.zeros((self.config.n,),
+                                         device=self.device)).amax()
+
+    # ---- closed forms ----------------------------------------------------
+
+    def theoretical_sparse_units(self) -> float:
+        return ppa.sparse_latency_units(self.config.scheme, self.config.n)
+
+    def theoretical_burst_units(self) -> float:
+        return ppa.burst_latency_units(self.config.scheme, self.config.n)
+
+    def theoretical_area_units(self) -> float:
+        return ppa.area_units(self.config.scheme, self.config.n)
 
 
 # ---------------------------------------------------------------------------
@@ -341,32 +476,134 @@ def _hat_sparse_encode_energy(ctx):
     return enc
 
 
+# ---------------------------------------------------------------------------
+# The simulator's policies (`ArbiterScheme.select_key`, ``grant_delay``,
+# ``token_update``), over any leading axes: ``sel``, ``tok_*`` and
+# ``prev_addr`` are (...) int64, ``backlog``/``granted_any``/``taken``
+# (...) bool.
+# ---------------------------------------------------------------------------
+
+
+def _addrs(ctx, like):
+    return torch.arange(ctx.n, device=like.device)
+
+
+def _tree_select(ctx, tok_hi, tok_lo):
+    """Trees grant the lowest pending address (deterministic tie-break)."""
+    return _addrs(ctx, tok_hi).to(torch.float32).expand(
+        tok_hi.shape + (ctx.n,))
+
+
+def _token_ring_select(ctx, tok_hi, tok_lo):
+    """Rings grant the nearest pending request downstream of the token."""
+    return _ring_dist(tok_hi[..., None], _addrs(ctx, tok_hi), ctx.n).to(
+        torch.float32)
+
+
+def _hier_ring_select(ctx, tok_hi, tok_lo):
+    s = ctx.sqrt_n
+    a = _addrs(ctx, tok_hi)
+    hi, lo = a // s, a % s
+    th, tl = tok_hi[..., None], tok_lo[..., None]
+    dist = _ring_dist(th, hi, s) * (s + 2) + _ring_dist(
+        torch.where(hi == th, tl, 0), lo, s)
+    return dist.to(torch.float32)
+
+
+def _const(value, like):
+    return torch.full(like.shape, value, dtype=torch.float32,
+                      device=like.device)
+
+
+def _binary_tree_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr,
+                       granted_any):
+    return _const(2.0 * (ctx.lg - 1.0), sel)     # full round trip, always
+
+
+def _greedy_tree_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr,
+                       granted_any):
+    # greedy re-grant services backlog at leaf level (~3 units); a lone
+    # event still pays the full climb
+    return torch.where(backlog, 3.0, 2.0 * (ctx.lg - 1.0)).to(torch.float32)
+
+
+def _token_ring_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr,
+                      granted_any):
+    # idle: the token travels dist hops then grants (+1); backlogged: the
+    # hop overlaps the previous handshake -> 1 unit/event
+    dist = _ring_dist(tok_hi, sel, ctx.n).to(torch.float32)
+    return torch.where(backlog, dist.clamp_min(1.0), dist + 1.0)
+
+
+def _hier_ring_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr,
+                     granted_any):
+    s = ctx.sqrt_n
+    hi, lo = sel // s, sel % s
+    d_hi = _ring_dist(tok_hi, hi, s).to(torch.float32)
+    d_lo = _ring_dist(torch.where(hi == tok_hi, tok_lo, 0), lo, s).to(
+        torch.float32)
+    # idle: top hops + bottom hops + grant; backlogged: 1 unit/event with
+    # a 3-unit section-switch penalty
+    return torch.where(backlog, (d_lo + 3.0 * d_hi).clamp_min(1.0),
+                       d_hi + d_lo + 1.0)
+
+
+def _hier_tree_delay(ctx, sel, backlog, tok_hi, tok_lo, prev_addr,
+                     granted_any):
+    # sparse: 2 two-input stages per level; backlogged: 1 unit/event + 1
+    # when the level-2 cluster switches, + the one-off pipeline fill
+    size = 4 ** (ctx.levels - 1)
+    switch = (sel // size != prev_addr // size).to(torch.float32)
+    first = (~granted_any).to(torch.float32)
+    return torch.where(backlog, 1.0 + switch + first * ctx.fill,
+                       2.0 * ctx.levels).to(torch.float32)
+
+
+def _token_ring_update(ctx, sel, taken, tok_hi, tok_lo):
+    return torch.where(taken, sel, tok_hi), tok_lo
+
+
+def _hier_ring_update(ctx, sel, taken, tok_hi, tok_lo):
+    return (torch.where(taken, sel // ctx.sqrt_n, tok_hi),
+            torch.where(taken, sel % ctx.sqrt_n, tok_lo))
+
+
 for _entry in (
     ArbiterScheme("binary_tree", _flat_encode_energy,
                   tick_latency=_binary_tree_tick_latency,
                   sparse_tick_latency=_binary_tree_sparse_latency,
                   sparse_encode_energy=_flat_sparse_encode_energy,
-                  kernel_policy=0),
+                  kernel_policy=0,
+                  select_key=_tree_select, grant_delay=_binary_tree_delay,
+                  token_update=None),
     ArbiterScheme("greedy_tree", _flat_encode_energy,
                   tick_latency=_greedy_tree_tick_latency,
                   sparse_tick_latency=_greedy_tree_sparse_latency,
                   sparse_encode_energy=_flat_sparse_encode_energy,
-                  kernel_policy=1),
+                  kernel_policy=1,
+                  select_key=_tree_select, grant_delay=_greedy_tree_delay,
+                  token_update=None),
     ArbiterScheme("token_ring", _flat_encode_energy,
                   tick_latency=_token_ring_tick_latency,
                   sparse_tick_latency=_token_ring_sparse_latency,
                   sparse_encode_energy=_flat_sparse_encode_energy,
-                  kernel_policy=2),
+                  kernel_policy=2,
+                  select_key=_token_ring_select, grant_delay=_token_ring_delay,
+                  token_update=_token_ring_update),
     ArbiterScheme("hier_ring", _flat_encode_energy,
                   tick_latency=_hier_ring_tick_latency,
                   sparse_tick_latency=_hier_ring_sparse_latency,
                   sparse_encode_energy=_flat_sparse_encode_energy,
-                  kernel_policy=3),
+                  kernel_policy=3,
+                  select_key=_hier_ring_select, grant_delay=_hier_ring_delay,
+                  token_update=_hier_ring_update),
     ArbiterScheme("hier_tree", _hat_encode_energy,
                   tick_latency=_hier_tree_tick_latency,
                   sparse_tick_latency=_hier_tree_sparse_latency,
                   sparse_encode_energy=_hat_sparse_encode_energy,
-                  kernel_policy=4),
+                  kernel_policy=4,
+                  select_key=_tree_select, grant_delay=_hier_tree_delay,
+                  token_update=None),
 ):
     if _entry.name not in interface_registry.ARBITERS:
         interface_registry.register_arbiter(_entry.name, _entry)

@@ -34,18 +34,25 @@
 //        and computes the scheme's latency and encode energy from them;
 //     3. the event-indexed accounting compacts the tick's events into a
 //        list and gathers each event's NoC table entries (hops, depth,
-//        subscribed cores, swept entries, link row); every sum is of exact
-//        small integers, so its order is free: link l's load is summed by
-//        groups of threads, each over every G-th event, and the groups'
-//        partials added after (shared float atomics on the few link
-//        addresses contended and took a third of a block's time);
+//        subscribed cores, swept entries, link row) and, on a multi-chip
+//        fabric, its inter-chip tier's (chip hops, chip depth, and the
+//        chip links' columns, stored after the local links' in one row);
+//        every sum is of exact small integers, so its order is free: link
+//        l's load is summed by groups of threads, each over every G-th
+//        event, and the groups' partials added after (shared float atomics
+//        on the few link addresses contended and took a third of a block's
+//        time);
 //     4. each target's CSR segment is summed in ascending entry order from
 //        0.0 (the JAX scatter's order), a thread walking eight targets'
 //        segments side by side, and the currents are written;
 //     5. the stats tail (`pipeline._stats`, `cam.energy`, `router._latency`)
 //        runs one float32 operation at a time, each rounded as torch rounds
 //        it (__fmul_rn, __fadd_rn, __fdiv_rn: no contraction), and writes the
-//        tick's 12 StepStats fields as one row of a (T, 12, B) table.
+//        tick's 12 StepStats fields as one row of a (T, 12, B) table: the
+//        chip tier's three (hops, depth x hop time + busiest chip link x
+//        serialization, hops x hop energy; `hierarchy.chip_step_costs`) or,
+//        on one chip, zeros.  On request it also writes each core's arbiter
+//        latency and encode energy (the per-core telemetry).
 //   The last block to finish (a global counter, which that block's
 //   atomicInc wraps back to 0 for the next launch) sums the table in tick
 //   order per (field, lane), as the JAX lax.scan carry does: from the
@@ -136,14 +143,20 @@ struct RunArgs {
   const int32_t* depth;      // (S,) deepest path per event
   const int32_t* dest;       // (S,) subscribed cores per event
   const int32_t* swept;      // (S,) CAM entries swept per event
-  const float* links;        // (S, L) events per link per event
+  const float* links;        // (S, L) events per link per event: the
+                             // noc_links_n local links, then the chip links
+  const int32_t* chip_hops;  // (S,) inter-chip links per event, or null:
+                             // one chip, rows 9-11 are 0
+  const int32_t* chip_depth; // (S,) deepest inter-chip path per event
+  float* core_out;           // (2, T, B, C) latency, encode energy x events
+                             // of each core, or null
   float* currents;           // (B, T, C, n)
   float* table;              // (T, 12, B) per-tick stats
   float* acc;                // (12, B) the table summed in tick order
   const float* acc0;         // (12, B) the sum's seed, or null: 0.0
   unsigned* done;            // finished (tick, lane) items; 0 at launch,
                              // 0 again after it
-  int lanes, ticks_total, items, cores, links_n;
+  int lanes, ticks_total, items, cores, links_n, noc_links_n;
   int flood;                 // 1: every event searched in every core
   int vec;                   // frames 16-byte aligned: stage with cp.async
   int contrib_cap;           // live CAM entries (contribution slots)
@@ -151,11 +164,12 @@ struct RunArgs {
   float flood_eps;           // flood entries per search (mean valid count)
   float cam_cycle_ns, e_match, e_mm, e_fixed;
   float hop_ns, link_ns, hop_energy;
+  float chip_hop_ns, chip_link_ns, chip_hop_energy;
 };
 
 // A (tick, lane)'s integer and float reductions.
 struct Partial {
-  int events, hits, hops, dest, swept, depth;
+  int events, hits, hops, dest, swept, depth, chops, cdepth;
   float lat, enc;
 };
 
@@ -348,7 +362,7 @@ __host__ __device__ constexpr size_t align16(size_t x) {
 // The stats tail of one (tick, lane), from its reductions; the order and
 // rounding of pipeline._stats, cam.energy and router._latency.
 __device__ void stats_row(const RunArgs& a, const Partial& s, float busiest,
-                          float* row) {
+                          float cbusiest, float* row) {
   const float events = static_cast<float>(s.events);
   float searches, eps;
   if (a.flood) {
@@ -375,9 +389,14 @@ __device__ void stats_row(const RunArgs& a, const Partial& s, float busiest,
   row[7] = __fadd_rn(__fmul_rn(static_cast<float>(s.depth), a.hop_ns),
                      __fmul_rn(busiest, a.link_ns));    // noc_latency
   row[8] = __fmul_rn(hops, a.hop_energy);               // noc_energy
-  row[9] = 0.0f;                                        // chip_hops
-  row[10] = 0.0f;                                       // chip_latency
-  row[11] = 0.0f;                                       // chip_energy
+  const float chops = static_cast<float>(s.chops);
+  const bool chip = a.chip_hops != nullptr;
+  row[9] = chip ? chops : 0.0f;                         // chip_hops
+  row[10] = chip ? __fadd_rn(__fmul_rn(static_cast<float>(s.cdepth),
+                                       a.chip_hop_ns),
+                             __fmul_rn(cbusiest, a.chip_link_ns))
+                 : 0.0f;                                // chip_latency
+  row[11] = chip ? __fmul_rn(chops, a.chip_hop_energy) : 0.0f;  // chip_energy
 }
 
 template <int POLICY>
@@ -423,7 +442,7 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     }
     for (int q = tid; q <= fabric; q += kRunThreads)
       cp_async4(seg + q, a.ptr + q);
-    if (tid == 0) part = Partial{0, 0, 0, 0, 0, 0, 0.0f, 0.0f};
+    if (tid == 0) part = Partial{0, 0, 0, 0, 0, 0, 0, 0, 0.0f, 0.0f};
     const int e1 = a.contrib_cap;
     constexpr int R = 8;
     int hit = 0;
@@ -475,9 +494,17 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
       __syncwarp();
       const float2 le = policies<POLICY>(a.p, row, count, lm);
       if (ln == 0) {
+        const float e = __fmul_rn(le.y, static_cast<float>(count));
         cnt[lc] = count;
         lat[lc] = le.x;
-        encc[lc] = __fmul_rn(le.y, static_cast<float>(count));
+        encc[lc] = e;
+        if (a.core_out != nullptr) {
+          const size_t plane = static_cast<size_t>(a.ticks_total) * a.lanes *
+                               cores;
+          const size_t at = (static_cast<size_t>(t) * a.lanes + b) * cores + lc;
+          a.core_out[at] = le.x;
+          a.core_out[plane + at] = e;
+        }
       }
       __syncwarp();
     }
@@ -509,7 +536,7 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     }
     __syncthreads();
     const int nev = n_events;
-    int hops = 0, dest = 0, swept = 0, depth = 0;
+    int hops = 0, dest = 0, swept = 0, depth = 0, chops = 0, cdepth = 0;
     for (int e = tid; e < nev; e += kRunThreads) {
       const int src = ev[e];
       hops += a.hops[src];
@@ -517,6 +544,10 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
       if (!a.flood) {
         dest += a.dest[src];
         swept += a.swept[src];
+      }
+      if (a.chip_hops != nullptr) {
+        chops += a.chip_hops[src];
+        cdepth = max(cdepth, a.chip_depth[src]);
       }
     }
     // link loads: G groups of L threads, thread (g, l) sums link l of the
@@ -578,12 +609,16 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     dest = warp_sum(dest);
     swept = warp_sum(swept);
     depth = warp_max(depth);
+    chops = warp_sum(chops);
+    cdepth = warp_max(cdepth);
     if (ln == 0) {
       atomicAdd(&part.hits, hit);
       atomicAdd(&part.hops, hops);
       atomicAdd(&part.dest, dest);
       atomicAdd(&part.swept, swept);
       atomicMax(&part.depth, depth);
+      atomicAdd(&part.chops, chops);
+      atomicMax(&part.cdepth, cdepth);
     }
     __syncthreads();
     if (warp == 0) {           // latencies are >= 0; energies exact dyadics
@@ -605,12 +640,16 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     }
     __syncthreads();
     if (warp == 0) {
-      float busiest = 0.0f;
-      for (int l = ln; l < L; l += 32) busiest = fmaxf(busiest, loads[l]);
+      float busiest = 0.0f, cbusiest = 0.0f;
+      for (int l = ln; l < a.noc_links_n; l += 32)
+        busiest = fmaxf(busiest, loads[l]);
+      for (int l = a.noc_links_n + ln; l < L; l += 32)
+        cbusiest = fmaxf(cbusiest, loads[l]);
       busiest = warp_fmax(busiest);
+      cbusiest = warp_fmax(cbusiest);
       if (ln == 0) {
         float row[kFields];
-        stats_row(a, part, busiest, row);
+        stats_row(a, part, busiest, cbusiest, row);
         float* dst = a.table + static_cast<size_t>(t) * kFields * a.lanes + b;
         for (int f = 0; f < kFields; ++f) dst[f * a.lanes] = row[f];
         __threadfence();
@@ -725,16 +764,21 @@ extern "C" int sparse_tick_launch(
 }
 
 // ``ints``: lanes, ticks_total, items, cores, links_n, flood, vec,
-// contrib_cap, n, slots, levels, sqrt_n, ring_shift, stage_floats (14
-// values).
+// contrib_cap, n, slots, levels, sqrt_n, ring_shift, stage_floats,
+// noc_links_n (15 values).
 // ``floats``: per_grant, log2n, flood_eps, cam_cycle_ns, e_match, e_mm,
-// e_fixed, hop_ns, link_ns, hop_energy (10 values).
+// e_fixed, hop_ns, link_ns, hop_energy, chip_hop_ns, chip_link_ns,
+// chip_hop_energy (13 values).
+// ``chip_hops``/``chip_depth`` null: one chip; ``core_out`` null: no
+// per-core output.
 extern "C" int sparse_run_launch(
     int policy, const void* stream_frames, const void* ticks, const void* ptr,
     const void* src, const void* weight, const void* hops, const void* depth,
-    const void* dest, const void* swept, const void* links, void* currents,
-    void* table, void* acc, const void* acc0, void* done, const int* ints,
-    const float* floats, unsigned long long smem, void* stream) {
+    const void* dest, const void* swept, const void* links,
+    const void* chip_hops, const void* chip_depth, void* currents,
+    void* table, void* acc, const void* acc0, void* done, void* core_out,
+    const int* ints, const float* floats, unsigned long long smem,
+    void* stream) {
   RunArgs a;
   a.p = policy_args(ints[8], ints[9], ints[10], ints[11], ints[12],
                     floats[0], floats[1]);
@@ -748,6 +792,9 @@ extern "C" int sparse_run_launch(
   a.dest = static_cast<const int32_t*>(dest);
   a.swept = static_cast<const int32_t*>(swept);
   a.links = static_cast<const float*>(links);
+  a.chip_hops = static_cast<const int32_t*>(chip_hops);
+  a.chip_depth = static_cast<const int32_t*>(chip_depth);
+  a.core_out = static_cast<float*>(core_out);
   a.currents = static_cast<float*>(currents);
   a.table = static_cast<float*>(table);
   a.acc = static_cast<float*>(acc);
@@ -762,6 +809,7 @@ extern "C" int sparse_run_launch(
   a.vec = ints[6];
   a.contrib_cap = ints[7];
   a.stage_floats = ints[13];
+  a.noc_links_n = ints[14];
   a.flood_eps = floats[2];
   a.cam_cycle_ns = floats[3];
   a.e_match = floats[4];
@@ -770,6 +818,11 @@ extern "C" int sparse_run_launch(
   a.hop_ns = floats[7];
   a.link_ns = floats[8];
   a.hop_energy = floats[9];
+  a.chip_hop_ns = floats[10];
+  a.chip_link_ns = floats[11];
+  a.chip_hop_energy = floats[12];
+  if ((a.chip_hops == nullptr) != (a.chip_depth == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.cores < 1 || a.lanes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = static_cast<size_t>(smem);

@@ -1,6 +1,8 @@
-"""`repro_torch.ft`: fault injection for serving and training.
+"""`repro_torch.ft`: fault injection for the fabric, serving and training.
 
-`repro_torch.ft.chaos` - `FaultPlan`/`ChaosInjector` raising or stalling
+`repro_torch.ft.faults` - the fabric `FaultModel` (dead cores, dropped
+events, corrupted CAM entries) a session compiles in
+(``Interface.compile(params, fault=...)``); `repro_torch.ft.chaos` - `FaultPlan`/`ChaosInjector` raising or stalling
 at configured `repro_torch.serve.ServeEngine` pump rounds (transfer
 failures, slow devices, per-tenant lane faults), with the typed error
 ladder the engine retries or surfaces - and `repro_torch.ft.runner`:
@@ -8,8 +10,7 @@ the `Watchdog` over per-flush or per-step wall time, and the training
 runner (`run_training`, `run_with_restarts`, `FailureInjector`) with
 checkpoint resume.
 
-Port of `repro.ft` without the fabric-level `FaultModel` (ROADMAP queue
-A item 9).
+Port of `repro.ft`.
 """
 
 from repro_torch.ft.chaos import (
@@ -23,6 +24,7 @@ from repro_torch.ft.chaos import (
     TransferFault,
     TransientFaultError,
 )
+from repro_torch.ft.faults import FaultModel
 from repro_torch.ft.runner import (
     FailureInjector,
     Watchdog,
@@ -37,6 +39,7 @@ __all__ = [
     "ExecuteFault",
     "FailureInjector",
     "FaultEvent",
+    "FaultModel",
     "FaultPlan",
     "RetriesExhaustedError",
     "TransferFault",

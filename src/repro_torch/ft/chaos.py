@@ -2,11 +2,10 @@
 
 The port's own copy of `repro.ft.chaos` (pure Python: the plans draw
 from `random`, so a seed gives the JAX package's plan exactly).  Where
-the fabric-level `FaultModel` would perturb the compiled step (not
-ported yet, ROADMAP queue A item 9), this module perturbs the *host
-serving loop* around it: transfer failures, slow devices, and per-tenant
-lane faults, all scheduled by pump round so a chaos run is exactly
-reproducible.
+the fabric-level `repro_torch.ft.faults.FaultModel` perturbs the
+compiled step, this module perturbs the *host serving loop* around it:
+transfer failures, slow devices, and per-tenant lane faults, all
+scheduled by pump round so a chaos run is exactly reproducible.
 
   `FaultEvent`     one scheduled fault: a kind, the pump round it arms
                    at, how many times it fires (consecutive charges — the

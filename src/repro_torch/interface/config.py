@@ -2,8 +2,9 @@
 
 Port of `repro.interface.config`: the same fields, the same validation
 and the same error messages under the same conditions.  The legacy
-`FabricConfig` lift (`from_fabric`/`fabric`) is not ported; field-
-compatible configs are accepted through `as_interface_config`.
+`repro_torch.core.fabric.FabricConfig` (or any field-compatible config,
+the JAX package's included) lifts into it through `from_fabric`, and
+`fabric()` goes back.
 """
 
 from __future__ import annotations
@@ -124,24 +125,36 @@ class InterfaceConfig:
         """AER address width: bits needed to tag every neuron uniquely."""
         return max(1, math.ceil(math.log2(self.cores * self.neurons_per_core)))
 
+    @classmethod
+    def from_fabric(cls, cfg) -> "InterfaceConfig":
+        """Lift a legacy `FabricConfig` (or any field-compatible config)
+        into a validated `InterfaceConfig`.  A foreign ``cam``/``noc`` is
+        rebuilt from its fields as this package's own config."""
+        cam = cfg.cam
+        if not isinstance(cam, cam_mod.CamConfig):
+            cam = cam_mod.CamConfig(**dataclasses.asdict(cam))
+        noc = cfg.noc
+        if not isinstance(noc, noc_topology.NocConfig):
+            noc = noc_topology.NocConfig(noc.scheme)
+        return cls(cores=cfg.cores, neurons_per_core=cfg.neurons_per_core,
+                   scheme=cfg.scheme, cam=cam, noc=noc,
+                   impl=getattr(cfg, "impl", "xla"),
+                   chips=getattr(cfg, "chips", 1),
+                   sparse_capacity=getattr(cfg, "sparse_capacity", None))
+
+    def fabric(self):
+        """The equivalent legacy `FabricConfig` (for un-migrated call
+        sites)."""
+        from repro_torch.core import fabric as fabric_mod
+        return fabric_mod.FabricConfig(
+            cores=self.cores, neurons_per_core=self.neurons_per_core,
+            scheme=self.scheme, cam=self.cam, noc=self.noc, impl=self.impl,
+            chips=self.chips, sparse_capacity=self.sparse_capacity)
+
 
 def as_interface_config(config) -> InterfaceConfig:
-    """Accept an `InterfaceConfig` or any field-compatible config object.
-
-    Only this package's own `CamConfig`/`NocConfig` are accepted for the
-    nested fields; a foreign config is rebuilt from its scalar fields.
-    """
+    """Accept an `InterfaceConfig` or any field-compatible config object
+    (lifted by `InterfaceConfig.from_fabric`)."""
     if isinstance(config, InterfaceConfig):
         return config
-    cam = config.cam
-    if not isinstance(cam, cam_mod.CamConfig):
-        cam = cam_mod.CamConfig(**dataclasses.asdict(cam))
-    noc = config.noc
-    if not isinstance(noc, noc_topology.NocConfig):
-        noc = noc_topology.NocConfig(noc.scheme)
-    return InterfaceConfig(
-        cores=config.cores, neurons_per_core=config.neurons_per_core,
-        scheme=config.scheme, cam=cam, noc=noc,
-        impl=getattr(config, "impl", "xla"),
-        chips=getattr(config, "chips", 1),
-        sparse_capacity=getattr(config, "sparse_capacity", None))
+    return InterfaceConfig.from_fabric(config)

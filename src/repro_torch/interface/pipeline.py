@@ -27,9 +27,12 @@ deterministic per-target sum (`kernels.sparse_tick.ref.scatter_currents`).
                        takes the dense tick.  Both branches give the same
                        bits.
 
-Not ported yet, and refused with `NotImplementedError`: ``oracle=True``
-(ROADMAP queue A item 8), ``telemetry`` (item 7) and multi-chip tables
-(item 7).
+On ``cfg.chips > 1`` the tables are two-tier (`noc.hierarchy.HierTables`)
+and every path, B1's kernel included, accounts the inter-chip tier.
+``interface_tick(oracle=True)`` is the pre-optimization reference: the
+arbiter's discrete-event simulator per core and a dense sweep of every
+CAM tag against every source address; ``telemetry="cores"`` adds the
+per-core breakdown (`per_core_stats`).
 """
 
 from __future__ import annotations
@@ -43,27 +46,32 @@ from repro_torch.core import arbiter as arb
 from repro_torch.core import cam as cam_mod
 from repro_torch.core import ppa
 from repro_torch.interface import registry as interface_registry
+from repro_torch.interface.config import as_interface_config
 from repro_torch.interface.stats import StepStats
 from repro_torch.interface.types import int_to_bits
 from repro_torch.kernels.cam_search import ops as cam_ops
 from repro_torch.kernels.hat_encode import ops as hat_ops
 from repro_torch.kernels.sparse_tick import ops as sparse_ops
 from repro_torch.kernels.sparse_tick import ref as sparse_ref
+from repro_torch.kernels.hat_encode import ref as hat_ref
 from repro_torch.noc import hierarchy
 from repro_torch.noc import router as noc_router
+from repro_torch.obs import telemetry as obs_telemetry
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a JAX surface this package does not carry yet."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue A item "
-        f"{item}); use the JAX package `repro` for it")
+def build_tables(params, cfg):
+    """NoC routing tables for the configured scheme (build once, reuse).
 
-
-def build_tables(params, cfg) -> noc_router.NocTables:
-    """NoC routing tables for the configured scheme (build once, reuse)."""
-    if getattr(cfg, "chips", 1) > 1:
-        raise not_ported("chips > 1 (two-tier HierTables)", 7)
+    Flat single-chip `NocTables`, or two-tier `hierarchy.HierTables`
+    (chip-local meshes + the inter-chip tier) when ``cfg.chips > 1``.
+    """
+    chips = getattr(cfg, "chips", 1)
+    if chips > 1:
+        return hierarchy.build_hier_tables(
+            params.tags, params.valid, chips=chips,
+            cores_per_chip=cfg.cores_per_chip,
+            neurons_per_core=cfg.neurons_per_core,
+            tag_bits=cfg.tag_bits, scheme=cfg.noc.scheme)
     return noc_router.build_tables(params.tags, params.valid,
                                    cores=cfg.cores,
                                    neurons_per_core=cfg.neurons_per_core,
@@ -147,6 +155,22 @@ def arbiter_terms(plan, stream):
         return None
     lat, enc, _ = hat_ops.hat_run(stream, plan.hat, impl="pallas")
     return lat, enc
+
+
+def tick_terms(plan, spikes):
+    """(latencies, enc_per_core), each (B, cores), of one tick's (B,
+    cores, n) frames: through `hat_run` on this one tick (the kernel where
+    the plan takes it, its plain version elsewhere)."""
+    lat, enc, _ = hat_ops.hat_run(spikes[:, None], plan.hat,
+                                  impl=_hat_impl(plan.cfg))
+    return lat[0], enc[0]
+
+
+def plain_terms(plan, frames):
+    """(latencies, enc_per_core) of (..., n) frames in plain torch: the
+    scheme's dense latency and the encode energy of the AER streams."""
+    return hat_ref.arbiter_terms_ref(frames, plan.hat.latency_fn,
+                                     plan.hat.encode_fn)[:2]
 
 
 def resolve_sparse_plan(cfg, arb_cfg: arb.ArbiterConfig | None = None):
@@ -287,6 +311,12 @@ def bind_sparse_run(params, cfg, tables, routing, cam_cycle_ns,
 
     kernel_tables = None
     if params.weights.is_cuda:
+        chip = None
+        if isinstance(tables, hierarchy.HierTables):
+            chip = (tables.chip_hops, tables.chip_depth,
+                    tables.chip_link_table.contiguous(),
+                    (ppa.CHIP_HOP_LATENCY_NS, ppa.CHIP_LINK_SERIALIZATION_NS,
+                     ppa.CHIP_HOP_ENERGY))
         valid_cnt = params.valid.sum(1).to(torch.float32)
         floats = (float(valid_cnt.mean()), cam_cycle_ns,
                   *cam_mod.energy_coefficients(cfg.cam),
@@ -297,25 +327,15 @@ def bind_sparse_run(params, cfg, tables, routing, cam_cycle_ns,
             cfg.noc.scheme).sparse_cam_accounting)
         kernel_tables = (tables.hops, tables.depth, tables.dest_counts,
                          swept.to(torch.int32),
-                         tables.link_table.contiguous(), flood, floats)
+                         tables.link_table.contiguous(), flood, floats, chip)
     return sparse_ops.bind_run(
         routing.src_idx, routing.active, params.weights, routing.csr,
         n=cfg.neurons_per_core, capacity=capacity, policy=policy,
         account=account, kernel_tables=kernel_tables)
 
 
-def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
-              cam_cycle_ns=None) -> TickPlan:
-    """Build (or adopt) the tick's tables, index and policies, once.
-
-    Raises:
-      ValueError: on tables built for another NoC scheme or chip count,
-        or an unsupported ``pallas_sparse`` configuration.
-      NotImplementedError: on a surface not ported yet (chips > 1, a
-        scheme that would need the arbiter simulator).
-    """
-    if tables is None:
-        tables = build_tables(params, cfg)
+def _check_tables(tables, cfg) -> None:
+    """Refuse tables built for another NoC scheme or chip count."""
     if tables.scheme != cfg.noc.scheme:
         raise ValueError(
             f"NoC tables were built for scheme {tables.scheme!r} but the "
@@ -327,14 +347,31 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
             f"but the config requests chips={getattr(cfg, 'chips', 1)}; "
             f"rebuild them with repro_torch.interface.build_tables(params, "
             f"cfg)")
+
+
+def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
+              cam_cycle_ns=None) -> TickPlan:
+    """Build (or adopt) the tick's tables, index and policies, once.
+
+    Raises:
+      ValueError: on tables built for another NoC scheme or chip count,
+        an unsupported ``pallas_sparse`` configuration, or (on the card)
+        a scheme `hat_run`'s kernel has no form for.
+    """
+    if tables is None:
+        tables = build_tables(params, cfg)
+    _check_tables(tables, cfg)
     if arb_cfg is None:
         arb_cfg = arb.ArbiterConfig(cfg.scheme, cfg.neurons_per_core)
     n = cfg.neurons_per_core
+    # where the scheme has no closed-form tick latency the simulator gives
+    # it, and hat_run's kernel has no branch for that
+    kernel_policy = (interface_registry.get_arbiter(cfg.scheme).kernel_policy
+                     if arb.has_closed_form(arb_cfg) else None)
     hat = hat_ops.bind_run(
         arb.tick_latency_fn(arb_cfg),
         functools.partial(arb.encode_energy_units, cfg.scheme, n),
-        interface_registry.get_arbiter(cfg.scheme).kernel_policy,
-        arb_cfg.levels, n,
+        kernel_policy, arb_cfg.levels, n,
         params.weights.device if cfg.impl == "pallas" else "cpu")
     sparse = (resolve_sparse_plan(cfg, arb_cfg)
               if cfg.impl == "pallas_sparse" else None)
@@ -351,19 +388,48 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
                     hat=hat, run=run)
 
 
-def dense_tick(plan: TickPlan, params, spikes, terms=None):
+def _core_counts(tables, spikes):
+    """(events, noc_hops, chip_hops) of each core of (..., cores, n)
+    frames, each hop attributed to its event's source core through the
+    per-source tables `accounting_stats` totals over (exact integers)."""
+    ev = spikes.to(torch.float32)
+    frame = tuple(spikes.shape[-2:])
+    events = ev.sum(-1)
+    noc_hops = (ev * tables.hops.reshape(frame)).sum(-1)
+    if isinstance(tables, hierarchy.HierTables):
+        chip_hops = (ev * tables.chip_hops.reshape(frame)).sum(-1)
+    else:
+        chip_hops = torch.zeros_like(events)
+    return events, noc_hops, chip_hops
+
+
+def per_core_stats(cfg, tables, spikes, latencies,
+                   enc_per_core) -> obs_telemetry.CoreStats:
+    """Per-core telemetry breakdown of (..., cores, n) frames.
+
+    Events, encode energy and the NoC and chip hops sum exactly back to
+    the tick's `StepStats` (hops attributed to each event's source core);
+    the tick's ``encode_latency`` is the max over cores.
+    """
+    events, noc_hops, chip_hops = _core_counts(tables, spikes)
+    return obs_telemetry.CoreStats(events=events,
+                                   encode_latency=latencies.to(torch.float32),
+                                   encode_energy=enc_per_core * events,
+                                   noc_hops=noc_hops, chip_hops=chip_hops)
+
+
+def dense_tick(plan: TickPlan, params, spikes, terms=None, cores=False):
     """The dense event tick on (B, cores, n) bool frames.
 
     ``terms`` is this tick's precomputed ``(latencies, enc_per_core)``,
-    each (B, cores) (`arbiter_terms`); None computes them here, through
-    `hat_run` on this one tick.  Returns (currents (B, cores, n),
-    `StepStats` with (B,) fields).
+    each (B, cores) (`arbiter_terms`); None computes them here
+    (`tick_terms`).  Returns (currents (B, cores, n), `StepStats` with
+    (B,) fields), and with ``cores`` the tick's `CoreStats` ((B, cores)
+    fields) third.
     """
     cfg, n = plan.cfg, plan.cfg.neurons_per_core
     if terms is None:
-        lat, enc, _ = hat_ops.hat_run(spikes[:, None], plan.hat,
-                                      impl=_hat_impl(cfg))
-        terms = lat[0], enc[0]
+        terms = tick_terms(plan, spikes)
     latencies, enc_per_core = terms
     spikes_flat = spikes.reshape(spikes.shape[0], -1)
     drive = _entry_drive(params, spikes_flat, plan.routing, cfg.impl)
@@ -373,57 +439,80 @@ def dense_tick(plan: TickPlan, params, spikes, terms=None):
     stats = accounting_stats(cfg, plan.tables, spikes, latencies,
                              enc_per_core, hits_total, params.valid,
                              plan.cam_cycle_ns, plan.noc_scheme)
+    if cores:
+        return currents, stats, per_core_stats(cfg, plan.tables, spikes,
+                                               latencies, enc_per_core)
     return currents, stats
 
 
-def run_stream(plan: TickPlan, params, stream, overflow, acc0=None):
+def run_stream(plan: TickPlan, params, stream, overflow, acc0=None,
+               telemetry="off"):
     """Every tick of a (B, T, cores, n) stream under ``pallas_sparse``.
 
     ``overflow`` (T,) host bools pick each tick's branch: the dense tick
     writes its currents and its stats row first, then one `sparse_run`
     computes every other tick and sums the (T, 12, B) stats table in tick
     order, starting from each lane's seed ``acc0`` (12, B) (None: 0.0).
-    Returns (currents (B, T, cores, n), (12, B) summed stats).
+    Returns (currents (B, T, cores, n), (12, B) summed stats); under
+    ``telemetry`` "ticks" or "cores" also the (T, 12, B) table and, for
+    "cores", the run's `CoreStats` with (T, B, cores) fields (None for
+    "ticks"): the sparse ticks' latency and encode energy from the
+    kernel's per-core output, events and hop attribution from the frames.
     """
     lanes, ticks = stream.shape[:2]
     cfg, dev = plan.cfg, stream.device
+    cores = telemetry == "cores"
     currents = torch.empty((lanes, ticks, cfg.cores, cfg.neurons_per_core),
                            dtype=torch.float32, device=dev)
     table = torch.empty((ticks, len(StepStats._fields), lanes),
                         dtype=torch.float32, device=dev)
+    core = (torch.empty((2, ticks, lanes, cfg.cores), dtype=torch.float32,
+                        device=dev) if cores else None)
     for t in range(ticks):
         if overflow[t]:
-            cur, st = dense_tick(plan, params, stream[:, t])
+            cur, st, *cs = dense_tick(plan, params, stream[:, t], cores=cores)
             currents[:, t] = cur
             table[t] = torch.stack(tuple(st))
+            if cores:
+                core[0, t] = cs[0].encode_latency
+                core[1, t] = cs[0].encode_energy
     sparse = [t for t in range(ticks) if not overflow[t]]
     acc = sparse_ops.sparse_run(stream, None if len(sparse) == ticks
-                                else sparse, plan.run, currents, table, acc0)
-    return currents, acc
+                                else sparse, plan.run, currents, table, acc0,
+                                core)
+    if telemetry == "off":
+        return currents, acc
+    per_core = None
+    if cores:
+        events, noc_hops, chip_hops = _core_counts(
+            plan.tables, stream.transpose(0, 1))         # (T, B, C) each
+        per_core = obs_telemetry.CoreStats(events, core[0], core[1],
+                                           noc_hops, chip_hops)
+    return currents, acc, table, per_core
 
 
-def tick(plan: TickPlan, params, spikes, overflow: bool | None = None):
+def tick(plan: TickPlan, params, spikes, overflow: bool | None = None,
+         cores: bool = False):
     """One tick of (B, cores, n) bool frames under ``plan.cfg.impl``.
 
     ``overflow`` is the ``pallas_sparse`` branch choice: True takes the
     dense fallback, False the sparse run (the caller has proven that no
     core exceeds the capacity), None decides here from the event counts,
-    at the cost of one device-to-host copy.
+    at the cost of one device-to-host copy.  Returns (currents (B, cores,
+    n), `StepStats` with (B,) fields), and with ``cores`` the tick's
+    `CoreStats` ((B, cores) fields) third, from whichever branch ran.
     """
-    if plan.run is None:
-        return dense_tick(plan, params, spikes)
-    if overflow is None:
+    if plan.run is not None and overflow is None:
         overflow = bool((spikes.sum(-1) > plan.run.capacity).any())
-    if overflow:
-        return dense_tick(plan, params, spikes)
-    lanes, cores, n = spikes.shape
-    currents = torch.empty((lanes, 1, cores, n), dtype=torch.float32,
-                           device=spikes.device)
-    table = torch.empty((1, len(StepStats._fields), lanes),
-                        dtype=torch.float32, device=spikes.device)
-    sparse_ops.sparse_run(spikes[:, None].contiguous(), None, plan.run,
-                          currents, table)
-    return currents[:, 0], StepStats(*table[0].unbind(0))
+    if plan.run is None or overflow:
+        return dense_tick(plan, params, spikes, cores=cores)
+    currents, _, table, core = run_stream(
+        plan, params, spikes[:, None].contiguous(), [False],
+        telemetry="cores" if cores else "ticks")
+    out = (currents[:, 0], StepStats(*table[0].unbind(0)))
+    if cores:
+        out += (obs_telemetry.CoreStats(*(f[0] for f in core)),)
+    return out
 
 
 def interface_tick(params, spikes: torch.Tensor, cfg,
@@ -438,16 +527,14 @@ def interface_tick(params, spikes: torch.Tensor, cfg,
     """One fabric tick of a (cores, neurons_per_core) frame.
 
     Arguments as in `repro.interface.pipeline.interface_tick`.  Returns
-    currents (cores, neurons_per_core) float32 and scalar `StepStats`.
+    currents (cores, neurons_per_core) float32 and scalar `StepStats`,
+    and under ``telemetry="cores"`` the tick's `CoreStats` third.
     """
     if telemetry not in ("off", "cores"):
         raise ValueError(
             f"interface_tick telemetry must be 'off' or 'cores' (the "
             f"'ticks' mode is a session-level scan concern), got {telemetry!r}")
-    if telemetry != "off":
-        raise not_ported("telemetry='cores'", 7)
-    if oracle:
-        raise not_ported("interface_tick(oracle=True)", 8)
+    cfg = as_interface_config(cfg)
     cores, n = spikes.shape
     if n != cfg.neurons_per_core or cores != cfg.cores:
         raise ValueError(
@@ -455,7 +542,65 @@ def interface_tick(params, spikes: torch.Tensor, cfg,
             f"({cfg.cores}, {cfg.neurons_per_core})")
     if spikes.dtype != torch.bool:
         spikes = spikes > 0
+    if oracle:
+        return _oracle_tick(params, spikes, cfg, tables, arb_cfg,
+                            cam_cycle_ns, telemetry)
     plan = make_plan(params, cfg, tables, arb_cfg, routing, cam_cycle_ns)
-    currents, stats = tick(plan, params, spikes[None],
-                           overflow=False if sparse_unchecked else None)
-    return currents[0], StepStats(*(f[0] for f in stats))
+    currents, stats, *core = tick(plan, params, spikes[None],
+                                  overflow=False if sparse_unchecked else None,
+                                  cores=telemetry == "cores")
+    out = (currents[0], StepStats(*(f[0] for f in stats)))
+    return out + tuple(obs_telemetry.CoreStats(*(f[0] for f in c))
+                       for c in core)
+
+
+def _oracle_tick(params, spikes, cfg, tables, arb_cfg, cam_cycle_ns,
+                 telemetry):
+    """The pre-optimization reference tick: every core's arbiter through
+    the discrete-event simulator, and a dense sweep of every CAM tag
+    against every source address (packed int32 words: the booleans of the
+    JAX package's bit-by-bit compare), each target's sum in ascending
+    entry order from 0.0."""
+    cores, n = spikes.shape
+    if tables is None:
+        tables = build_tables(params, cfg)
+    _check_tables(tables, cfg)
+    if arb_cfg is None:
+        arb_cfg = arb.ArbiterConfig(cfg.scheme, n)
+    if cam_cycle_ns is None:
+        cam_cycle_ns = cam_mod.cycle_time_ns(cfg.cam)
+    req = torch.where(spikes, 0.0, arb.INF).to(torch.float32)
+    grants = arb.Arbiter(arb_cfg, req.device).simulate(req)  # (cores, n)
+    latencies = torch.where(
+        spikes.any(-1),
+        torch.where(torch.isfinite(grants), grants, 0.0).amax(-1), 0.0)
+
+    spikes_flat = spikes.reshape(-1)
+    bits = cfg.tag_bits
+    src_words = cam_ops.pack_bits(int_to_bits(
+        torch.arange(cores * n, device=spikes.device), bits))  # (S, W)
+    tag_words = cam_ops.pack_bits(params.tags.reshape(-1, bits)).reshape(
+        cores, -1, src_words.shape[-1])                       # (C, E, W)
+    drive = torch.empty(params.valid.shape, dtype=torch.float32,
+                        device=spikes.device)
+    for c in range(cores):
+        eq = (tag_words[c][:, None, :] == src_words[None]).all(-1)  # (E, S)
+        hit = eq & params.valid[c][:, None] & spikes_flat[None, :]
+        drive[c] = hit.sum(1).to(torch.float32)
+    everything = sparse_ref.build_target_csr(
+        params.targets, torch.ones_like(params.valid), n)
+    currents = sparse_ref.scatter_currents((drive * params.weights)[None],
+                                           everything, n)[0]
+    hits_total = drive.sum()
+
+    addr_seq = hat_ref.compact_stream(
+        *hat_ref.hat_encode_ref(spikes, row=1)[:2])
+    enc_per_core = arb.encode_energy_units(cfg.scheme, n, addr_seq)
+    stats = accounting_stats(cfg, tables, spikes[None], latencies[None],
+                             enc_per_core[None], hits_total[None],
+                             params.valid, cam_cycle_ns)
+    stats = StepStats(*(f[0] for f in stats))
+    if telemetry == "cores":
+        return currents, stats, per_core_stats(cfg, tables, spikes,
+                                               latencies, enc_per_core)
+    return currents, stats

@@ -6,8 +6,8 @@ configuration alone - the arbiter closed forms (unit-domain and
 calibrated ns), the CAM variant's cycle time / energy / area, and the
 NoC static topology facts.  Dynamic per-tick costs come from
 `InterfaceSession.run`'s `StepStats`.  The keys and values are the JAX
-package's; ``chips > 1`` raises `NotImplementedError` (ROADMAP queue A
-item 7), as the sessions do.
+package's, at one chip and at ``chips > 1`` (each chip's mesh, and the
+inter-chip tier's grid in the ``hierarchy`` block).
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ import torch
 from repro_torch.core import cam as cam_mod
 from repro_torch.core import ppa
 from repro_torch.interface.config import as_interface_config
-from repro_torch.interface.pipeline import not_ported
 from repro_torch.noc import topology
 
 
@@ -44,18 +43,13 @@ def ppa_report(config) -> dict:
     """One dict covering arbiter / CAM / NoC area, latency and energy.
 
     config: `InterfaceConfig` or a field-compatible config.
-
-    Raises:
-      NotImplementedError: ``chips > 1`` (ROADMAP queue A item 7).
     """
     cfg = as_interface_config(config)
-    if cfg.chips > 1:
-        raise not_ported("ppa_report at chips > 1", 7)
     n = cfg.neurons_per_core
     cam = cfg.cam
     conv = cam_mod.CamConfig(cam.entries, cscd=False, feedback=False,
                              speculative=False)
-    mesh_cores = cfg.cores
+    mesh_cores = cfg.cores_per_chip if cfg.chips > 1 else cfg.cores
     w, h = topology.mesh_dims(mesh_cores)
     hops = topology.hop_matrix(mesh_cores, device="cpu")
     chip_hops = topology.hop_matrix(cfg.chips, device="cpu")

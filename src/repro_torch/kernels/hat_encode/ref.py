@@ -43,6 +43,15 @@ def compact_stream(ranks: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     return out[..., :n]
 
 
+def arbiter_terms_ref(frames: torch.Tensor, latency_fn, encode_fn):
+    """(latency, encode energy, events int32) of (..., n) bool frames: the
+    scheme's dense latency, and the encode energy of each frame's AER
+    stream."""
+    ranks, count, _ = hat_encode_ref(frames, row=1)
+    return (latency_fn(frames), encode_fn(compact_stream(ranks, count)),
+            count)
+
+
 def hat_run_ref(stream: torch.Tensor, latency_fn, encode_fn):
     """The arbiter's tick terms of every bitmap of a run.
 
@@ -51,7 +60,4 @@ def hat_run_ref(stream: torch.Tensor, latency_fn, encode_fn):
     (...) float32 encode energies.  Returns (latency, encode energy,
     events int32), each (T, B, C).
     """
-    frames = stream.transpose(0, 1)
-    ranks, count, _ = hat_encode_ref(frames, row=1)
-    return (latency_fn(frames), encode_fn(compact_stream(ranks, count)),
-            count)
+    return arbiter_terms_ref(stream.transpose(0, 1), latency_fn, encode_fn)

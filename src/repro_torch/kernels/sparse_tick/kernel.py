@@ -12,9 +12,11 @@ operand on each call.
 
 `sparse_run_cuda` runs every sparse tick of a session run in one launch,
 from the bool frames: compaction, the tick above, the event-indexed
-accounting and the stats tail, one (T, 12, B) table row per (tick,
-lane), and the table summed in tick order (from a caller's (12, B)
-seed, a served lane's carried accumulator, or from 0.0).  Its plan-time
+accounting (with the inter-chip tier on a multi-chip fabric) and the
+stats tail, one (T, 12, B) table row per (tick, lane), and the table
+summed in tick order (from a caller's (12, B) seed, a served lane's
+carried accumulator, or from 0.0); on request also each (tick, lane,
+core)'s arbiter latency and encode energy (per-core telemetry).  Its plan-time
 operands
 (`RunOperands`, built by `run_operands`) are checked once when they are
 bound; each call checks only the frames and the outputs.  One block
@@ -46,7 +48,7 @@ tick_launches = 0
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 +
              [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_RUN_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17 +
+_RUN_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 20 +
                  [ctypes.c_ulonglong, ctypes.c_void_p])
 
 FIELDS = 12                      # StepStats fields: a table row
@@ -150,7 +152,11 @@ class RunOperands(NamedTuple):
     depth: torch.Tensor      # (S,) int32 deepest path per event
     dest: torch.Tensor       # (S,) int32 subscribed cores per event
     swept: torch.Tensor      # (S,) int32 CAM entries swept per event
-    links: torch.Tensor      # (S, L) float32 events per link per event
+    links: torch.Tensor      # (S, L + L_chip) float32 events per link per
+                             # event: the local links, then the chip links
+    chip_hops: torch.Tensor | None   # (S,) int32 inter-chip links per
+                                     # event; None on one chip
+    chip_depth: torch.Tensor | None  # (S,) int32 deepest inter-chip path
     done: torch.Tensor       # (1,) int32 finished items; 0 between launches
     cores: int
     n: int
@@ -159,7 +165,9 @@ class RunOperands(NamedTuple):
     levels: int
     flood: bool              # every event searched in every core
     floats: tuple            # flood_eps, cam_cycle_ns, e_match, e_mm,
-                             # e_fixed, hop_ns, link_ns, hop_energy
+                             # e_fixed, hop_ns, link_ns, hop_energy,
+                             # chip_hop_ns, chip_link_ns, chip_hop_energy
+    noc_links: int           # L: the local links' columns of ``links``
     smem: int                # dynamic shared memory of a block, bytes
 
 
@@ -168,9 +176,9 @@ def run_shared_bytes(cores: int, n: int, nnz: int, capacity: int,
     """Dynamic shared memory of the block that holds a (tick, lane): the
     frame, the contributions of the ``nnz`` live entries and the CSR
     offsets, the cores' event buffers, event list and per-core results,
-    the hier_ring scratch, the link loads and their groups' partials; at
-    least `MIN_SHARED_BYTES`, where the last block stages the stats table
-    to sum it.
+    the hier_ring scratch, the link loads (``links``: the local and the
+    chip links) and their groups' partials; at least `MIN_SHARED_BYTES`,
+    where the last block stages the stats table to sum it.
 
     Raises:
       ValueError: when that is over `MAX_SHARED_BYTES`.
@@ -192,8 +200,15 @@ def run_shared_bytes(cores: int, n: int, nnz: int, capacity: int,
 
 def run_operands(ptr, src, weight, hops, depth, dest, swept, links, *,
                  cores: int, n: int, capacity: int, policy: int,
-                 levels: int, flood: bool, floats) -> RunOperands:
+                 levels: int, flood: bool, floats, chip=None
+                 ) -> RunOperands:
     """Check and bind the whole-run kernel's plan-time operands, once.
+
+    ``links`` (S, L) and ``floats`` (8) are the local tier's; ``chip``,
+    on a multi-chip fabric, is ``(chip_hops, chip_depth, chip_links,
+    chip_floats)``: (S,) int32, (S,) int32, (S, L_chip) float32 and the
+    tier's (hop_ns, link_ns, hop_energy).  Without it the kernel writes
+    0.0 in the chip fields, as on one chip.
 
     Raises:
       ValueError: on an operand of the wrong device, dtype, shape or
@@ -219,15 +234,30 @@ def run_operands(ptr, src, weight, hops, depth, dest, swept, links, *,
         raise ValueError(f"ptr ends at {int(ptr[-1])}, expected {nnz}")
     if len(floats) != 8:
         raise ValueError(f"expected 8 float coefficients, got {len(floats)}")
+    noc_links = links.shape[-1]
+    chip_hops = chip_depth = None
+    chip_floats = (0.0, 0.0, 0.0)
+    if chip is not None:
+        chip_hops, chip_depth, chip_links, chip_floats = chip
+        _check("chip_hops", chip_hops, torch.int32, (total,), dev)
+        _check("chip_depth", chip_depth, torch.int32, (total,), dev)
+        _check("chip_links", chip_links, torch.float32,
+               (total, chip_links.shape[-1]), dev)
+        if len(chip_floats) != 3:
+            raise ValueError(f"expected 3 chip coefficients, got "
+                             f"{len(chip_floats)}")
+        links = torch.cat([links, chip_links], dim=-1).contiguous()
     smem = run_shared_bytes(cores, n, nnz, capacity, links.shape[-1])
     return RunOperands(ptr, src, weight, hops, depth, dest, swept, links,
+                       chip_hops, chip_depth,
                        torch.zeros(1, dtype=torch.int32, device=dev), cores,
                        n, capacity, policy, levels, bool(flood),
-                       tuple(float(f) for f in floats), smem)
+                       tuple(float(f) for f in (*floats, *chip_floats)),
+                       noc_links, smem)
 
 
 def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table,
-                    acc0=None):
+                    acc0=None, core=None):
     """Launch the whole-run kernel.
 
     Launches that share ``ops`` share its finished-items counter, so they
@@ -243,6 +273,8 @@ def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table,
         written, every other row must hold its tick's stats already.
       acc0: optional (12, B) float32 seed of the sum (None: 0.0); read,
         never written.
+      core: optional (2, T, B, C) float32 output: the listed ticks'
+        per-core arbiter latency [0] and encode energy times events [1].
 
     Returns:
       (12, B) float32, a fresh tensor: the table summed over ticks in tick
@@ -267,25 +299,33 @@ def sparse_run_cuda(stream, ticks, ops: RunOperands, currents, table,
         count = ticks.shape[0]
     if acc0 is not None:
         _check("acc0", acc0, torch.float32, (FIELDS, lanes), dev)
+    if core is not None:
+        _check("core", core, torch.float32, (2, total, lanes, ops.cores),
+               dev)
     acc = torch.empty((FIELDS, lanes), dtype=torch.float32, device=dev)
     if lanes == 0 or total == 0:
         return acc.zero_() if acc0 is None else acc.copy_(acc0)
     sqrt_n = int(round(math.sqrt(ops.n)))
     lg = math.log2(ops.n)
     vec = int(ops.cores * ops.n % 16 == 0 and stream.data_ptr() % 16 == 0)
-    ints = (ctypes.c_int * 14)(
+    ints = (ctypes.c_int * 15)(
         lanes, total, count * lanes, ops.cores, ops.links.shape[-1],
         int(ops.flood), vec, ops.src.shape[0], ops.n, ops.capacity + 1,
-        ops.levels, sqrt_n, int(math.log2(sqrt_n)), ops.smem // 4)
-    floats = (ctypes.c_float * 10)(2.0 * (lg - 1.0), lg, *ops.floats)
+        ops.levels, sqrt_n, int(math.log2(sqrt_n)), ops.smem // 4,
+        ops.noc_links)
+    floats = (ctypes.c_float * 13)(2.0 * (lg - 1.0), lg, *ops.floats)
+    chip = ops.chip_hops is not None
     err = _run_lib()(
         ops.policy, stream.data_ptr(),
         None if ticks is None else ticks.data_ptr(), ops.ptr.data_ptr(),
         ops.src.data_ptr(), ops.weight.data_ptr(), ops.hops.data_ptr(),
         ops.depth.data_ptr(), ops.dest.data_ptr(), ops.swept.data_ptr(),
-        ops.links.data_ptr(), currents.data_ptr(), table.data_ptr(),
-        acc.data_ptr(), None if acc0 is None else acc0.data_ptr(),
-        ops.done.data_ptr(), ctypes.addressof(ints),
+        ops.links.data_ptr(),
+        ops.chip_hops.data_ptr() if chip else None,
+        ops.chip_depth.data_ptr() if chip else None, currents.data_ptr(),
+        table.data_ptr(), acc.data_ptr(),
+        None if acc0 is None else acc0.data_ptr(), ops.done.data_ptr(),
+        None if core is None else core.data_ptr(), ctypes.addressof(ints),
         ctypes.addressof(floats), ops.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

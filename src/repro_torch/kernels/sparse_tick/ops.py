@@ -138,10 +138,11 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
         hits_total)`` -> the tick's 12 (B,) `StepStats` fields, the
         plain version's event-indexed accounting.
       kernel_tables: on the card, ``(hops, depth, dest, swept, links,
-        flood, floats)``: the per-source NoC tables as int32 (links
+        flood, floats, chip)``: the per-source NoC tables as int32 (links
         float32), whether the NoC floods every core (None: the scheme has
-        no kernel form), and the stats coefficients (see
-        `kernel.RunOperands`).  Ignored for CPU operands.
+        no kernel form), the stats coefficients (see
+        `kernel.RunOperands`), and the inter-chip tier's operands or None
+        on one chip (`kernel.run_operands`).  Ignored for CPU operands.
 
     Raises:
       ValueError: for CUDA operands whose arbiter or NoC scheme has no
@@ -149,7 +150,7 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
     """
     kernel = None
     if src_idx.is_cuda:
-        hops, depth, dest, swept, links, flood, floats = kernel_tables
+        hops, depth, dest, swept, links, flood, floats, chip = kernel_tables
         if policy.kernel_policy is None or flood is None:
             raise ValueError(
                 "this arbiter or NoC scheme registers no kernel form, so "
@@ -160,12 +161,13 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
             weights.reshape(-1)[entry].contiguous(), hops, depth, dest,
             swept, links, cores=src_idx.shape[0], n=n, capacity=capacity,
             policy=policy.kernel_policy, levels=policy.levels, flood=flood,
-            floats=floats)
+            floats=floats, chip=chip)
     return SparseRun(n, capacity, policy, src_idx, active, weights, csr,
                      account, kernel)
 
 
-def sparse_run(stream, ticks, run: SparseRun, currents, table, acc0=None):
+def sparse_run(stream, ticks, run: SparseRun, currents, table, acc0=None,
+               core=None):
     """Every listed tick of a stream through the sparse tick.
 
     Args:
@@ -180,6 +182,9 @@ def sparse_run(stream, ticks, run: SparseRun, currents, table, acc0=None):
       acc0: optional (12, B) float32 seed of the sum, on the stream's
         device: a served lane's accumulator carried from its previous
         chunk.  None starts from 0.0.  It is read, never written.
+      core: optional (2, T, B, cores) float32 output for per-core
+        telemetry: the listed ticks' arbiter latency [0] and encode
+        energy times events [1] of every core.
 
     Returns:
       (12, B) float32, a fresh tensor: the table summed in tick order,
@@ -204,19 +209,22 @@ def sparse_run(stream, ticks, run: SparseRun, currents, table, acc0=None):
                              or acc0.dtype != torch.float32):
         raise ValueError(f"acc0 must be float32 ({sparse_kernel.FIELDS}, "
                          f"{lanes}), got {acc0.dtype} {tuple(acc0.shape)}")
+    if core is not None and tuple(core.shape) != (2, total, lanes, want[2]):
+        raise ValueError(f"core shape {tuple(core.shape)} != "
+                         f"(2, {total}, {lanes}, {want[2]})")
     if not stream.is_cuda:
-        return sparse_run_ref(stream, ticks, run, currents, table, acc0)
+        return sparse_run_ref(stream, ticks, run, currents, table, acc0, core)
     if run.kernel is None:
         raise ValueError("the sparse run was bound to CPU operands; "
                          "rebuild the plan on the card")
     index = None if ticks is None else torch.tensor(
         ticks, dtype=torch.int32, device=stream.device)
     return sparse_kernel.sparse_run_cuda(stream, index, run.kernel,
-                                         currents, table, acc0)
+                                         currents, table, acc0, core)
 
 
 def sparse_run_ref(stream, ticks, run: SparseRun, currents, table,
-                   acc0=None):
+                   acc0=None, core=None):
     """`sparse_run` in plain torch: the per-tick composition, tick by
     tick, then the table summed in tick order from ``acc0``."""
     lanes = stream.shape[0]
@@ -233,4 +241,7 @@ def sparse_run_ref(stream, ticks, run: SparseRun, currents, table,
                             hits.sum(-1))
         currents[:, t] = cur
         table[t] = torch.stack(tuple(stats))
+        if core is not None:
+            core[0, t] = latencies
+            core[1, t] = enc_per_core * counts.to(torch.float32)
     return ref.sum_in_tick_order(table, acc0)

@@ -12,10 +12,9 @@ shedding, host-layer fault injection (`ServeEngine(chaos=...)`), a
 background pump (`ServeEngine.start`/`stop`), autoscaling lane
 capacities (`AutoscalePolicy`) and per-tenant token-bucket rate limiting
 (`RateLimitedError`).  It serves on the card unless the caller passes
-``device="cpu"``.
-
-Not ported: ``TenantSpec(shard="chips")`` groups (ROADMAP queue A item
-7) and ``TenantSpec(fault=...)`` (item 9).
+``device="cpu"``.  Tenants may compile a fabric `FaultModel` into their
+session (``TenantSpec(fault=...)``) and step through the per-chip
+sharded tick (``TenantSpec(shard="chips")`` on a multi-chip config).
 
 The LM prefill/decode loop lives in `repro_torch.serve.lm_engine`; its
 `ServeEngine` is a different class from the fabric engine exported here.

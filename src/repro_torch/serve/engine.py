@@ -9,8 +9,9 @@ The moving parts:
   admission   `AdmissionController` bounds groups/lanes/request size and
               assigns each tenant a session-compatibility key; frames are
               validated (shape/dtype/finite) before any device work.
-  grouping    tenants sharing (config, connectivity) become *lanes* of a
-              `TenantGroup`, which owns one precompiled session; the
+  grouping    tenants sharing (config, connectivity, fault, shard) become
+              *lanes* of a `TenantGroup`, which owns one precompiled
+              session; the
               whole group steps as one masked ``run_batched`` call over
               the lane axis (under ``impl="pallas_sparse"`` one B1
               `sparse_run` launch a flush, under ``impl="pallas"`` one B3
@@ -22,12 +23,10 @@ The moving parts:
               mask, so every lane stays *bit-identical* to its solo
               ``session.run`` (currents and stats; the per-lane
               accumulator is the seed ``stats0`` of the next chunk).
-  transfer    double-buffered host->device copies: a chunk's frames and
-              mask are staged in pinned host memory and copied with
-              ``non_blocking`` on a side CUDA stream, which carries copies
-              only; the compute stream waits on the copy's event.  Chunk
-              t+1's copy is issued while chunk t computes.  On the CPU the
-              chunk is used where it lies.
+  transfer    a chunk's frames and mask are copied to the serving device
+              on the compute stream (chunk t+1's copy is issued after
+              chunk t's step is launched, before it is waited on).  On the
+              CPU the chunk is used where it lies.
   metrics     per-tenant `repro_torch.obs.metrics` histograms/counters
               (events/sec, tick-latency p50/p99, queue depth), fleet-wide
               percentiles via `Histogram.merge`, JSONL sink + records
@@ -36,8 +35,10 @@ The moving parts:
 Graceful degradation, as in the JAX engine:
 
   faults      an optional `repro_torch.ft.chaos.ChaosInjector` fires a
-              seeded `FaultPlan` at configured pump rounds (the fabric
-              `FaultModel` is not ported: ROADMAP queue A item 9).
+              seeded `FaultPlan` at configured pump rounds, and tenants may
+              compile a fabric-level `repro_torch.ft.faults.FaultModel`
+              into their session (``TenantSpec.fault``); each lane keeps
+              its fault stream's global tick offset across chunks.
   retries     transient transfer/execute faults retry under a bounded
               exponential-backoff `RetryPolicy`; the per-lane accumulator
               commits only after a successful step, so a replayed chunk
@@ -93,9 +94,11 @@ Concurrency and scale:
               `RateLimitedError` before anything is queued and count in
               ``serve.rate_limited`` / ``serve.rate_limited_ticks``.
 
-Not ported: ``TenantSpec(shard="chips")`` groups (ROADMAP queue A item 7)
-and ``TenantSpec(fault=...)`` (item 9), refused by `TenantSpec`.  The LM
-serving loop is `repro_torch.serve.lm_engine`.
+  sharding    tenants with ``TenantSpec(shard="chips")`` land in groups
+              whose masked batched step runs the session's per-chip
+              sharded tick (one device: the chips axis is a batch axis).
+
+The LM serving loop is `repro_torch.serve.lm_engine`.
 """
 
 from __future__ import annotations
@@ -149,17 +152,10 @@ class _Staged:
 
 
 class _OnDevice(NamedTuple):
-    """A chunk's frames and mask on the serving device.
-
-    ``ready`` is the copy stream's event the step waits on (None on the
-    CPU); ``host`` holds the pinned host tensors the copies read, alive
-    until the step that reads the chunk has finished.
-    """
+    """A chunk's frames and mask on the serving device."""
 
     spikes: torch.Tensor  # (capacity, flush_ticks, cores, neurons_per_core)
     mask: torch.Tensor  # (capacity, flush_ticks) bool
-    ready: object  # torch.cuda.Event, or None
-    host: tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,19 +215,22 @@ class TenantGroup:
     (capacity,) float32 tensors.
     """
 
-    def __init__(self, key, config, params, queue: IngestQueue,
-                 autoscale: AutoscalePolicy | None = None, device=None):
-        """Compile the shared session for ``key`` (`compat_key`) on
-        ``device`` (None: the card) and start with zero lanes; tenants join
-        via `add`.  The JAX group's ``fault`` and ``shard`` have no
-        counterpart: `TenantSpec` refuses both."""
+    def __init__(self, key, config, params, queue: IngestQueue, fault=None,
+                 shard=None, autoscale: AutoscalePolicy | None = None,
+                 device=None):
+        """Compile the shared session for ``key`` = (config, connectivity,
+        fault, shard) on ``device`` (None: the card) and start with zero
+        lanes; tenants join via `add`."""
         self.key = key
         self.config = config
         self.params = params
         self.queue = queue
+        self.fault = fault
+        self.shard = shard
         self.autoscale = autoscale or AutoscalePolicy()
         with obs_trace.span("serve.group_compile", cores=config.cores):
-            self.session = Interface(config).compile(params, device=device)
+            self.session = Interface(config).compile(params, device=device,
+                                                     fault=fault)
         self.device = self.session.device
         self.specs: dict = {}  # name -> TenantSpec
         self.lanes: dict = {}  # name -> lane index (dense, < capacity)
@@ -240,6 +239,8 @@ class TenantGroup:
         self.capacity = 0  # padded lane axis of chunks + accumulator
         self.capacities_seen: set = set()  # one chunk shape each
         self.shapes_stepped: set = set()  # chunk shapes run_batched took
+        # per-lane global tick offset of the compiled fault's drop stream
+        self._lane_ticks = np.zeros((0,), np.int64)
 
     def add(self, spec: TenantSpec) -> int:
         """Assign ``spec`` the lowest free lane index and return it.
@@ -255,10 +256,12 @@ class TenantGroup:
         self._backlog[spec.name] = collections.deque()
         if lane >= self.capacity:
             self.resize(self.autoscale.target(lane + 1, self.capacity))
-        elif self._acc is not None:
+        else:
             # reusing a freed slot: its carry restarts from zero
-            self._acc = StepStats(*(_set_row(x, lane, 0.0)
-                                    for x in self._acc))
+            self._lane_ticks[lane] = 0
+            if self._acc is not None:
+                self._acc = StepStats(*(_set_row(x, lane, 0.0)
+                                        for x in self._acc))
         return lane
 
     def remove(self, name: str) -> None:
@@ -266,9 +269,9 @@ class TenantGroup:
 
         The tenant occupying the highest lane moves into the freed slot -
         its accumulator row moves with it, so every surviving tenant's
-        running stats stay bit-identical across the removal.  Lanes stay
-        dense, which is what lets a shrink truncate only free trailing
-        rows.
+        running stats (and fault-tick offset) stay bit-identical across
+        the removal.  Lanes stay dense, which is what lets a shrink
+        truncate only free trailing rows.
         """
         lane = self.lanes.pop(name)
         self.specs.pop(name)
@@ -277,9 +280,11 @@ class TenantGroup:
         if lane != last:
             mover = next(n for n, i in self.lanes.items() if i == last)
             self.lanes[mover] = lane
+            self._lane_ticks[lane] = self._lane_ticks[last]
             if self._acc is not None:
                 self._acc = StepStats(*(_set_row(x, lane, x[last])
                                         for x in self._acc))
+        self._lane_ticks[last] = 0
         self.resize(self.autoscale.target(len(self.lanes), self.capacity))
 
     def resize(self, new_capacity: int) -> None:
@@ -297,6 +302,9 @@ class TenantGroup:
                 f"cannot resize to {new_capacity} lanes below occupancy {len(self.lanes)}"
             )
         keep = min(self.capacity, new_capacity)
+        lane_ticks = np.zeros((new_capacity,), np.int64)
+        lane_ticks[:keep] = self._lane_ticks[:keep]
+        self._lane_ticks = lane_ticks
         if self._acc is not None:
             def fit_rows(x):
                 out = x.new_zeros((new_capacity,))
@@ -322,6 +330,14 @@ class TenantGroup:
         if self._acc is None:
             self._acc = StepStats.zeros((self.capacity,), device=self.device)
         return self._acc
+
+    def fault_tick0(self) -> np.ndarray:
+        """(capacity,) global tick offsets for the compiled fault stream."""
+        return self._lane_ticks
+
+    def advance_fault_ticks(self, flush_ticks: int) -> None:
+        """One chunk executed: every lane's fault window moved forward."""
+        self._lane_ticks = self._lane_ticks + flush_ticks
 
     def stage(self, requests) -> None:
         """Append flushed requests to the per-lane host backlog.
@@ -466,7 +482,6 @@ class ServeEngine:
         if flush_ticks < 1:
             raise ValueError(f"flush_ticks must be >= 1, got {flush_ticks}")
         self.device = resolve_device(device)
-        self._copy_stream = None  # the side CUDA stream of the transfers
         self.flush_ticks = flush_ticks
         self.flush_deadline_s = flush_deadline_s
         self.admission = AdmissionController(policy, clock=clock)
@@ -532,6 +547,7 @@ class ServeEngine:
                     frame_shape=(spec.config.cores, spec.config.neurons_per_core),
                 )
                 group = TenantGroup(key, spec.config, params, queue,
+                                    fault=spec.fault, shard=spec.shard,
                                     autoscale=self.autoscale,
                                     device=self.device)
                 self.groups[key] = group
@@ -935,21 +951,20 @@ class ServeEngine:
     def _step(self, group: TenantGroup, staged: _OnDevice):
         """One batched masked step (the unit a retry replays).
 
-        A chaos fault fires before the step's first launch.  On the card
-        the compute stream waits on the chunk's copy event, and the
-        copied tensors are recorded on it, so the allocator keeps them
-        until the step's launches have read them.
+        A chaos fault fires before the step's first launch.  A group with
+        a spike-perturbing `FaultModel` passes each lane's fault-tick
+        offset.
         """
         if self.chaos is not None:
             self.chaos.on_execute(self._round)
-        spikes, mask = staged.spikes, staged.mask
-        if staged.ready is not None:
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(staged.ready)
-            spikes.record_stream(compute)
-            mask.record_stream(compute)
+        kw = {}
+        fault = group.session.fault
+        if fault is not None and fault.perturbs_spikes:
+            kw["fault_tick0"] = group.fault_tick0()
+        spikes, mask = staged
         out = group.session.run_batched(spikes, mask=mask,
-                                        stats0=group.lane_stats())
+                                        stats0=group.lane_stats(),
+                                        shard=group.shard, **kw)
         group.shapes_stepped.add(tuple(spikes.shape))
         return out
 
@@ -962,11 +977,10 @@ class ServeEngine:
             done.synchronize()
 
     def _execute(self, group: TenantGroup, chunks: list) -> int:
-        """Step one group through its chunks with double-buffered transfer.
+        """Step one group through its chunks.
 
         Chunk t+1's copy is issued after chunk t's batched step is
-        launched but before it is waited on, so the host->device copy
-        overlaps device compute.
+        launched, on the same stream, before the step is waited on.
 
         Fault handling: every transfer and step runs under
         `_with_retries`; the group accumulator commits only *after* a
@@ -1004,6 +1018,7 @@ class ServeEngine:
                 self._wait()
             wall_s = self.clock() - t0
             group._acc = acc
+            group.advance_fault_ticks(self.flush_ticks)
             self.watchdog.observe(wall_s)
             self._record(group, chunk, currents, acc, wall_s)
             ticks_done += int(chunk.took.sum())
@@ -1014,30 +1029,12 @@ class ServeEngine:
         return ticks_done
 
     def _transfer(self, chunk: _Chunk) -> _OnDevice:
-        """Stage one chunk on the serving device.
-
-        On the card: pinned host copies of the frames and the mask, copied
-        ``non_blocking`` on the engine's side stream (copies only), with
-        an event the step waits on.  On the CPU the chunk is used where it
-        lies.
-        """
+        """Copy one chunk to the serving device, on the compute stream."""
         if self.chaos is not None:
             self.chaos.on_transfer(self._round)
         with obs_trace.span("serve.device_transfer"):
-            spikes = torch.from_numpy(chunk.spikes)
-            mask = torch.from_numpy(chunk.mask)
-            if self.device.type != "cuda":
-                return _OnDevice(spikes.to(self.device), mask.to(self.device),
-                                 None, ())
-            host = (spikes.pin_memory(), mask.pin_memory())
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._copy_stream):
-                spikes, mask = (t.to(self.device, non_blocking=True)
-                                for t in host)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-            return _OnDevice(spikes, mask, ready, host)
+            return _OnDevice(torch.from_numpy(chunk.spikes).to(self.device),
+                             torch.from_numpy(chunk.mask).to(self.device))
 
     # ---- metrics ----------------------------------------------------------
 
@@ -1248,6 +1245,8 @@ class ServeEngine:
                 "events": self._events_seen[name],
                 "queue_depth": group.queue.depth(),
             }
+            if spec.fault is not None:
+                rec["fault"] = spec.fault.describe()
             hist = self.registry.histograms.get(f"tenant.{name}.tick_ms")
             if hist is not None and hist.count:
                 summary = hist.summary()

@@ -11,11 +11,9 @@ configuration and connectivity, see `compat_key`) onto one precompiled
 A tenant's stream is drawn on the CPU from a `torch.Generator` keyed by
 (seed, round) (`repro_torch.traffic.stream_seed`), so it is the same
 whether the engine serves on the card or on the CPU, and a caller can
-rebuild it for a solo run.
-
-Not ported: ``TenantSpec(fault=...)`` (the fabric `FaultModel`, ROADMAP
-queue A item 9) and ``shard="chips"`` on a multi-chip config (item 7);
-both raise `NotImplementedError`.
+rebuild it for a solo run.  A tenant may compile a fabric `FaultModel`
+into its session (``fault=``) and step its group through the per-chip
+sharded tick (``shard="chips"``, on a multi-chip config).
 """
 
 from __future__ import annotations
@@ -26,8 +24,8 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch import traffic
+from repro_torch.ft.faults import FaultModel
 from repro_torch.interface.config import InterfaceConfig, as_interface_config
-from repro_torch.interface.pipeline import not_ported
 from repro_torch.interface.session import CompositionError
 from repro_torch.interface.types import random_connectivity
 
@@ -46,11 +44,16 @@ class TenantSpec:
     connectivity_seed:  seed of the shared fabric connectivity; part of
                         the compatibility key - tenants only share a
                         session when they share (config, connectivity).
-    fault:              must be None: the fabric `FaultModel` is not
-                        ported (ROADMAP queue A item 9).
-    shard:              None, or ``"chips"``: on a one-chip config the
-                        typed `CompositionError` (as in the JAX package),
-                        on ``chips > 1`` `NotImplementedError` (item 7).
+    fault:              optional `repro_torch.ft.faults.FaultModel`
+                        compiled into this tenant's session.  Part of the
+                        compatibility key, so faulted tenants never share
+                        a session with clean ones.
+    shard:              None, or ``"chips"``: this tenant's group steps
+                        through the per-chip sharded tick (the session's
+                        single-device body over a chips axis).  Needs
+                        ``config.chips > 1``: on a one-chip config the
+                        typed `CompositionError`.  Part of the
+                        compatibility key.
     """
 
     name: str
@@ -59,7 +62,7 @@ class TenantSpec:
     scenario_params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     seed: int = 0
     connectivity_seed: int = 0
-    fault: Any = None
+    fault: FaultModel | None = None
     shard: str | None = None
 
     def __post_init__(self):
@@ -76,11 +79,12 @@ class TenantSpec:
                     f"tenant {self.name!r}: shard='chips' on a one-chip "
                     f"config would silently run the flat path; use a config "
                     f"with chips > 1 or omit shard")
-            raise not_ported(f"tenant {self.name!r}: TenantSpec(shard="
-                             f"'chips')", 7)
         if self.fault is not None:
-            raise not_ported(f"tenant {self.name!r}: TenantSpec(fault=...)",
-                             9)
+            if not isinstance(self.fault, FaultModel):
+                raise ValueError(
+                    f"tenant {self.name!r}: fault must be a FaultModel, "
+                    f"got {type(self.fault).__name__}")
+            self.fault.validate(self.config)
         # fail at registration, not first flush, on unknown scenarios/params
         spec = traffic.get_scenario(self.scenario)
         unknown = sorted(set(self.scenario_params) - set(spec.defaults))
@@ -115,11 +119,11 @@ def compat_key(spec: TenantSpec) -> tuple:
 
     Tenants mapping to the same key are guaranteed steppable as lanes of
     one `InterfaceSession.run_batched` call: the session binds (config,
-    connectivity), so both are pinned here (the JAX key's ``fault`` and
-    ``shard`` are refused by `TenantSpec`).  Scenario and seed stay out -
-    a group legitimately mixes workloads.
+    connectivity) and, when set, the compiled-in `FaultModel`, so all
+    three are pinned here, plus the ``shard`` placement.  Scenario and
+    seed stay out - a group legitimately mixes workloads.
     """
-    return (spec.config, spec.connectivity_seed)
+    return (spec.config, spec.connectivity_seed, spec.fault, spec.shard)
 
 
 def default_connectivity(config: InterfaceConfig, connectivity_seed: int,

@@ -12,12 +12,13 @@ contract: currents bitwise, `EXACT_FIELDS` exact, every other stat within
 `REL_TOL` (energies multiply float32 counts by Python-float constants,
 whose rounding may differ between the two frameworks).
 
-Also here: the surfaces the port refuses by name (``mask`` and
-``stats0`` left the list when the masked session was ported; the
-serving tier's ``TenantSpec(fault=...)`` and ``shard="chips"`` joined
-it), ``mask`` with ``telemetry`` as the typed `CompositionError`, the GPU
-default of `compile`, and that the port imports nothing of JAX or of the
-JAX package (its serving tier, traffic, obs and ft layers included).
+Also here: the nine surfaces the port refused by ROADMAP item until the
+multi-chip fabric, telemetry, faults and the oracle were ported, each
+now run against the JAX package; an ``xla`` session where no closed-form
+arbiter latency exists (the simulator); ``mask`` with ``telemetry`` as
+the typed `CompositionError`; the GPU default of `compile`; and that the
+port imports nothing of JAX or of the JAX package (its serving tier,
+traffic, obs and ft layers included).
 """
 
 import ast
@@ -35,8 +36,11 @@ import torch
 
 from repro import traffic
 from repro.core import fabric
+from repro.ft import FaultModel as JFaultModel
 from repro.interface import Interface as JInterface
+from repro.interface import pipeline as jpipeline
 from repro.kernels.hat_encode import ops as jhat_ops
+from repro_torch.ft import FaultModel
 from repro_torch.interface import Interface, StepStats, interface_tick
 from repro_torch.interface.session import CompositionError
 from repro_torch.serve import TenantSpec
@@ -243,30 +247,112 @@ def test_random_connectivity_is_seeded_and_shaped():
     assert int(a.targets.max()) < 16 and a.targets.dtype == torch.int32
 
 
-# ---- refused surfaces and the device default --------------------------------------
+# ---- formerly refused surfaces and the device default --------------------------
 
 def _session(impl="xla", **kw):
     _, _, tcfg, tparams = _setup("hier_tree", "multicast_tree", impl)
     return Interface(dataclasses.replace(tcfg, **kw)), tparams
 
 
-REFUSED = {
-    "chips": (lambda: _session(chips=2)[0].compile(_session()[1],
-                                                   device="cpu"), 7),
-    "shard": (lambda: _cpu().run(_zeros(), shard="chips"), 7),
-    "mask_shard": (lambda: _cpu().run(_zeros(), mask=np.ones(2, bool),
-                                      shard="chips"), 7),
-    "telemetry": (lambda: _cpu().run(_zeros(), telemetry="ticks"), 7),
-    "fault_tick0": (lambda: _cpu().run(_zeros(), fault_tick0=0), 7),
-    "fault": (lambda: _session()[0].compile(_session()[1], device="cpu",
-                                            fault=object()), 9),
-    "tenant_fault": (lambda: TenantSpec("t", _session()[0].config,
-                                        fault=object()), 9),
-    "tenant_shard": (lambda: TenantSpec("t", dataclasses.replace(
-        _session()[0].config, chips=2), shard="chips"), 7),
-    "oracle": (lambda: interface_tick(_session()[1], _zeros()[0],
-                                      _session()[0].config, oracle=True), 8),
-}
+def _jax(**kw):
+    jcfg, jparams, _, _ = _setup("hier_tree", "multicast_tree", "xla")
+    jcfg = dataclasses.replace(jcfg, **kw)
+    return JInterface(jcfg), jparams
+
+
+def _frames(ticks=4):
+    rng = np.random.default_rng(9)
+    return rng.random((ticks, 4, 16)) < 0.2
+
+
+def _run_both(compile_kw=None, jcompile_kw=None, run_kw=None, cfg_kw=None):
+    """The port's and the JAX package's session on the same inputs."""
+    cfg_kw = cfg_kw or {}
+    interface, params = _session(**cfg_kw)
+    jinterface, jparams = _jax(**cfg_kw)
+    spikes = _frames()
+    run_kw = run_kw or {}
+    got = interface.compile(params, device="cpu", **(compile_kw or {})).run(
+        torch.from_numpy(spikes), **run_kw)
+    want = jinterface.compile(jparams, **(jcompile_kw or {})).run(
+        jnp.asarray(spikes), **run_kw)
+    return got, want
+
+
+def _chips():
+    _assert_conformant(*_run_both(cfg_kw={"chips": 2}), "chips=2")
+
+
+def _shard():
+    _assert_conformant(*_run_both(cfg_kw={"chips": 2},
+                                  run_kw={"shard": "chips"}), "shard")
+
+
+def _mask_shard():
+    mask = np.array([True, False, True, True])
+    _assert_conformant(*_run_both(cfg_kw={"chips": 2},
+                                  run_kw={"shard": "chips", "mask": mask}),
+                       "masked shard")
+
+
+def _telemetry():
+    got, want = _run_both(run_kw={"telemetry": "ticks"})
+    _assert_conformant(got[:2], want[:2], "telemetry")
+    _assert_conformant((got[0], got[2].per_tick), (want[0], want[2].per_tick),
+                       "telemetry series")
+
+
+def _fault_tick0():
+    got, want = _run_both(compile_kw={"fault": FaultModel(dead_cores=(2,))},
+                          jcompile_kw={"fault": JFaultModel(dead_cores=(2,))},
+                          run_kw={"fault_tick0": 3})
+    _assert_conformant(got, want, "fault_tick0")
+
+
+def _fault():
+    got, want = _run_both(compile_kw={"fault": FaultModel(dead_cores=(0, 3))},
+                          jcompile_kw={"fault": JFaultModel(dead_cores=(0, 3))})
+    _assert_conformant(got, want, "fault")
+    assert float(got[0][:, 0].abs().max()) == 0.0
+
+
+def _tenant_fault():
+    config = _session()[0].config
+    spec = TenantSpec("t", config, fault=FaultModel(drop_rate=0.5))
+    assert spec.fault.drop_rate == 0.5
+    other = TenantSpec("u", config)
+    from repro_torch.serve.tenant import compat_key
+    assert compat_key(spec) != compat_key(other)
+
+
+def _tenant_shard():
+    config = dataclasses.replace(_session()[0].config, chips=2)
+    spec = TenantSpec("t", config, shard="chips")
+    from repro_torch.serve.tenant import compat_key
+    assert compat_key(spec)[-1] == "chips"
+
+
+def _oracle():
+    _, jparams, tcfg, tparams = _setup("hier_tree", "multicast_tree", "xla")
+    frame = _frames(1)[0]
+    got = interface_tick(tparams, torch.from_numpy(frame), tcfg, oracle=True)
+    want = jpipeline.interface_tick(jparams, jnp.asarray(frame),
+                                    dataclasses.replace(tcfg), oracle=True)
+    _assert_conformant(got, want, "oracle")
+
+
+PORTED = {"chips": _chips, "shard": _shard, "mask_shard": _mask_shard,
+          "telemetry": _telemetry, "fault_tick0": _fault_tick0,
+          "fault": _fault, "tenant_fault": _tenant_fault,
+          "tenant_shard": _tenant_shard, "oracle": _oracle}
+
+
+@pytest.mark.parametrize("surface", sorted(PORTED))
+def test_formerly_refused_surfaces_run_as_in_jax(surface):
+    """The nine surfaces refused until the multi-chip fabric, telemetry,
+    the fabric faults and the oracle were ported, each run on the CPU and
+    held to the JAX package (or, for the tenant specs, built)."""
+    PORTED[surface]()
 
 
 def _cpu():
@@ -278,16 +364,9 @@ def _zeros():
     return torch.zeros((2, 4, 16), dtype=torch.bool)
 
 
-@pytest.mark.parametrize("surface", sorted(REFUSED))
-def test_unported_surfaces_raise_by_roadmap_item(surface):
-    fn, item = REFUSED[surface]
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        fn()
-
-
 def test_mask_with_telemetry_raises_composition_error():
-    """The JAX package's typed rejection, a ValueError, before the
-    telemetry refusal: mask and telemetry never compose."""
+    """The JAX package's typed rejection, a ValueError: mask and
+    telemetry never compose."""
     with pytest.raises(CompositionError, match="telemetry"):
         _cpu().run(_zeros(), mask=np.ones(2, bool), telemetry="ticks")
     with pytest.raises(CompositionError, match="one-chip"):
@@ -295,12 +374,22 @@ def test_mask_with_telemetry_raises_composition_error():
     assert issubclass(CompositionError, ValueError)
 
 
-def test_xla_without_a_closed_form_raises_at_compile():
+def test_xla_without_a_closed_form_runs_the_simulator():
+    """hier_ring at a non-square n has no closed-form tick latency: the
+    session runs the arbiter simulator, as the JAX package does."""
     cfg = tconfig.InterfaceConfig(cores=2, neurons_per_core=32,
                                   cam_entries_per_core=8, scheme="hier_ring")
-    params = random_connectivity(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Interface(cfg).compile(params, device="cpu")
+    jcfg = fabric.FabricConfig(cores=2, neurons_per_core=32,
+                               cam_entries_per_core=8, scheme="hier_ring")
+    jparams = fabric.random_connectivity(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(*(np.asarray(x) for x in jparams),
+                               device="cpu")
+    spikes = np.random.default_rng(2).random((3, 2, 32)) < 0.4
+    _assert_conformant(
+        Interface(cfg).compile(params, device="cpu").run(
+            torch.from_numpy(spikes)),
+        JInterface(jcfg).compile(jparams).run(jnp.asarray(spikes)),
+        "hier_ring n=32")
 
 
 def test_compile_defaults_to_cuda_and_refuses_without_it(monkeypatch):

@@ -104,13 +104,14 @@ def test_cuda_dispatch_launches_kernel_and_never_falls_back():
 
 
 def _run_case(scheme, noc, cores, n, entries, lanes, ticks, seed, device,
-              burst=(1,), fan_in=0.9):
+              burst=(1,), fan_in=0.9, chips=1):
     """A pallas_sparse plan on the card and a (B, T, C, n) stream whose
     ticks in ``burst`` overflow (full frames); the other frames are cut
     to the capacity."""
     cfg = InterfaceConfig(cores=cores, neurons_per_core=n,
                           cam_entries_per_core=entries, scheme=scheme,
-                          noc=NocConfig(noc), impl="pallas_sparse")
+                          noc=NocConfig(noc), impl="pallas_sparse",
+                          chips=chips)
     params = random_connectivity(torch.Generator().manual_seed(seed), cfg,
                                  fan_in=fan_in).to(device)
     plan = pipeline.make_plan(params, cfg)
@@ -123,10 +124,11 @@ def _run_case(scheme, noc, cores, n, entries, lanes, ticks, seed, device,
     return plan, params, stream, overflow
 
 
-def _kernel_and_plain(plan, params, stream, overflow, acc0=None):
+def _kernel_and_plain(plan, params, stream, overflow, acc0=None, core=False):
     """The fused kernel and its plain version on the same card inputs, the
     dense fallback's rows written alike first, both sums seeded by
-    ``acc0`` when given."""
+    ``acc0`` when given; with ``core`` also both per-core outputs (their
+    dense rows NaN alike), last."""
     lanes, ticks = stream.shape[:2]
     cur = torch.full((lanes, ticks) + tuple(stream.shape[2:]), np.nan,
                      device=stream.device)
@@ -138,14 +140,20 @@ def _kernel_and_plain(plan, params, stream, overflow, acc0=None):
     plain = (cur.clone(), table.clone())
     sparse = [t for t in range(ticks) if not overflow[t]]
     index = torch.tensor(sparse, dtype=torch.int32, device=stream.device)
+    cores = (torch.full((2, ticks, lanes, stream.shape[2]), np.nan,
+                        device=stream.device) if core else None)
+    plain_cores = cores.clone() if core else None
     before = sparse_kernel.launches
     acc = sparse_kernel.sparse_run_cuda(
         stream, None if len(sparse) == ticks else index, plan.run.kernel,
-        cur, table, acc0)
+        cur, table, acc0, cores)
     torch.cuda.synchronize()
     assert sparse_kernel.launches == before + 1
     assert int(plan.run.kernel.done) == 0       # ready for the next launch
-    want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain, acc0)
+    want = sparse_ops.sparse_run_ref(stream, sparse, plan.run, *plain, acc0,
+                                     plain_cores)
+    if core:
+        return (cur, table, acc, cores), (*plain, want, plain_cores)
     return (cur, table, acc), (*plain, want)
 
 
@@ -384,7 +392,7 @@ def test_serve_engine_on_the_card_equals_solo_runs():
     """Two groups (pallas_sparse, pallas) on the card: each tenant bitwise
     its solo run, under the drain and the background pump; B1 once a
     pallas_sparse flush, B3 once and B2 flush_ticks times a pallas flush;
-    the chunks staged through pinned memory and the side stream."""
+    the chunks copied to the card on the compute stream."""
     from repro_torch.serve import ServeEngine, TenantSpec
     from repro_torch.serve import default_connectivity
 
@@ -874,3 +882,115 @@ def test_moe_dispatch_one_launch_at_every_length(m, e, stream):
     if stream == "one_expert":
         assert torch.equal(pos, torch.arange(m, dtype=torch.int32,
                                              device=device))
+
+
+# ---- the chip tier and per-core output of B1, the fault drop mask -------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chips", [2, 4])
+@pytest.mark.parametrize("noc", NOC_SCHEMES)
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_sparse_run_chip_tier_matches_plain_version(scheme, noc, chips):
+    """B1 with the inter-chip tier inside: every stat bitwise, the chip
+    fields among them (whole numbers, and float32 products rounded as
+    torch rounds them)."""
+    device = _cuda()
+    case = _run_case(scheme, noc, 8, 16, 32, 3, 7, 13, device, burst=(2,),
+                     chips=chips)
+    assert case[0].run.kernel.chip_hops is not None
+    got, want = _kernel_and_plain(*case)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert float(got[1][:, 9].sum()) > 0, "no inter-chip hop in the run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chips", [1, 2, 4])
+@pytest.mark.parametrize("noc", NOC_SCHEMES)
+def test_sparse_run_chip_tier_at_full_width(noc, chips):
+    device = _cuda()
+    case = _run_case("hier_tree", noc, 16, 256, 512, 2, 9, 21, device,
+                     burst=(0, 4), chips=chips)
+    got, want = _kernel_and_plain(*case)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    chip_rows = got[1][:, 9:]
+    assert bool((chip_rows == 0).all()) == (chips == 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chips", [1, 4])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_sparse_run_per_core_output_matches_plain_version(scheme, chips):
+    """B1's optional per-core output (each core's arbiter latency and
+    encode energy x events) equals the plain terms, and the pallas_sparse
+    session's "cores" telemetry built on it equals the xla session's."""
+    device = _cuda()
+    plan, params, stream, overflow = _run_case(
+        scheme, "multicast_tree", 8, 16, 32, 2, 6, 17, device, burst=(3,),
+        chips=chips)
+    got, want = _kernel_and_plain(plan, params, stream, overflow, core=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.nan_to_num(-1.0), w.nan_to_num(-1.0))
+    cfg = plan.cfg
+    sparse = Interface(cfg).compile(params, device=device)
+    xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(
+        params, device=device)
+    a, b = (s.run_batched(stream, telemetry="cores") for s in (sparse, xla))
+    assert torch.equal(a[0], b[0])
+    for f, g, w in zip(a[2].per_core._fields, a[2].per_core, b[2].per_core):
+        assert torch.equal(g, w), f
+
+
+@pytest.mark.gpu
+def test_fault_drop_mask_on_the_card_equals_the_cpu():
+    from repro_torch.ft import FaultModel
+    device = _cuda()
+    fault = FaultModel(dead_cores=(3,), drop_rate=0.1, seed=7)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.random((3, 40, 16, 256)) < 0.3)
+    tick0 = torch.tensor([0, 17, 1 << 20])
+    lane = torch.arange(3)
+    got = fault.apply_spikes(frames.to(device), tick0=tick0.to(device),
+                             lane=lane.to(device))
+    want = fault.apply_spikes(frames, tick0=tick0, lane=lane)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(frames.sum())
+
+
+@pytest.mark.gpu
+def test_fault_tick0_kept_on_the_card_equals_a_host_offset():
+    from repro_torch.ft import FaultModel
+    device = _cuda()
+    cfg = InterfaceConfig(cores=4, neurons_per_core=64,
+                          cam_entries_per_core=32, impl="xla")
+    params = random_connectivity(torch.Generator().manual_seed(0), cfg)
+    session = Interface(cfg).compile(
+        params.to(device), device=device,
+        fault=FaultModel(dead_cores=(1,), drop_rate=0.2, seed=3))
+    rng = np.random.default_rng(0)
+    stream = torch.from_numpy(rng.random((2, 6, 4, 64)) < 0.3).to(device)
+    want = session.run_batched(stream, fault_tick0=np.array([5, 9]))
+    got = session.run_batched(
+        stream, fault_tick0=torch.tensor([5, 9], device=device))
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    one = session.run(stream[0], fault_tick0=torch.tensor(5, device=device))
+    assert torch.equal(one[0], want[0][0])
+
+
+@pytest.mark.gpu
+def test_arbiter_simulates_on_the_card_by_default():
+    _cuda()
+    sim = arb.Arbiter(arb.ArbiterConfig("hier_tree", 64))
+    assert sim.device.type == "cuda"
+    burst = sim.burst_latency()
+    assert burst.device.type == "cuda"
+    cpu = arb.Arbiter(arb.ArbiterConfig("hier_tree", 64), device="cpu")
+    assert float(burst) == float(cpu.burst_latency())
+    req = np.full((3, 64), np.inf, np.float32)
+    req[:, :5] = np.arange(5)
+    got = sim.simulate(req)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), cpu.simulate(req))

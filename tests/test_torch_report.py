@@ -14,6 +14,7 @@ numpy arrays made from a seed.  Tolerances, stated where they are used:
   tables of `apply_placement` and `clustered_connectivity`): exact.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -209,9 +210,11 @@ def test_session_ppa_report_and_refusals():
     # an arbiter without closed forms reports None, as in JAX
     assert treport._closed_form(ppa.area_units, "custom", 16) is None
     assert jreport._closed_form(ppa.area_units, "custom", 16) is None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ppa_report(InterfaceConfig(cores=8, chips=2, neurons_per_core=16,
-                                   cam_entries_per_core=32))
+    # at chips > 1 the report covers each chip's mesh and the chip tier
+    two = dataclasses.replace(paths.small_config("hier_tree", "multicast_tree",
+                                                 cores=8), chips=2)
+    _assert_report_equal(ppa_report(tconfig.as_interface_config(two)),
+                         jreport.ppa_report(two), "chips=2")
 
 
 # ---- placement -----------------------------------------------------------------

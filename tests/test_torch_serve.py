@@ -34,6 +34,7 @@ from repro.serve import TenantSpec as JTenantSpec
 from repro_torch.ft import (
     ChaosInjector,
     FaultEvent,
+    FaultModel,
     FaultPlan,
     RetriesExhaustedError,
     TransientFaultError,
@@ -238,8 +239,10 @@ def test_mask_and_stats0_validation():
         session.run_batched(spikes, mask=good, shard="dies")
     with pytest.raises(CompositionError, match="telemetry"):
         session.run_batched(spikes, mask=good, telemetry="ticks")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        session.run_batched(spikes, mask=good, shard="chips")
+    # a one-chip session's shard="chips" is its flat masked run
+    flat = session.run_batched(spikes, mask=good)
+    sharded = session.run_batched(spikes, mask=good, shard="chips")
+    assert torch.equal(flat[0], sharded[0])
     # a float mask counts > 0 as live, like the JAX package's
     cur, _ = session.run_batched(spikes, mask=good.astype(np.float32))
     assert torch.equal(cur, session.run_batched(spikes, mask=good)[0])
@@ -390,10 +393,12 @@ def test_tenant_spec_validation_streams_and_refusals():
         TenantSpec("bad", cfg, shard="chips")
     with pytest.raises(ValueError, match="unknown shard"):
         TenantSpec("bad", cfg, shard="dies")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TenantSpec("bad", dataclasses.replace(cfg, chips=2), shard="chips")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    two = TenantSpec("two", dataclasses.replace(cfg, chips=2), shard="chips")
+    assert two.shard == "chips" and compat_key(two)[-1] == "chips"
+    with pytest.raises(ValueError, match="FaultModel"):
         TenantSpec("bad", cfg, fault=object())
+    faulted = TenantSpec("f", cfg, fault=FaultModel(dead_cores=(0,)))
+    assert compat_key(faulted) != compat_key(spec)
 
 
 # ---- the engine ---------------------------------------------------------------
