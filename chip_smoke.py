@@ -96,7 +96,22 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     one run, the drop mask on the card bitwise the CPU's; two faulted
     tenants and a shard="chips" tenant served by ServeEngine, each
     bitwise its solo run; the oracle tick (arbiter simulator, dense tag
-    sweep) on 8 ticks at chips 1 and 4 equal to xla;
+    sweep) on 8 ticks at chips 1 and 4 equal to xla; impl="pallas" at
+    hier_ring, 16 x 512 (no closed-form latency), on both streams
+    widened to 512 neurons: B3's stream form once a run (hat_encode_cuda)
+    and cam_search once a tick, currents bitwise the xla session's and
+    stats under the conformance contract; the dense GQA LMs: each of
+    internlm2-1.8b, llama3.2-3b, qwen3-32b and gemma3-12b at full width
+    cut to one layer group (2 layers; gemma3-12b 6) in float32,
+    teacher-forced card against CPU; banded against masked flash
+    attention at gemma3-12b's heads, T 2048; internlm2-1.8b (4 x 128
+    prompt tokens) and gemma3-12b (2 x 2048, past its window) served at
+    full width and depth, 32 new tokens greedy, every step's logits
+    finite, two generates equal; internlm2-1.8b trained at full width
+    and depth (seq_len 4096, batch 2, remat), a finite loss; its restart
+    drill bitwise at a 2-layer cut and one step card against CPU at the
+    2-layer float32 cut, both under deterministic algorithms; no kernel
+    launches on the dense paths;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -116,7 +131,12 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     beside the launch floor: an empty kernel's time; the multi-chip
     sessions' host ms per tick beside their chips=1 twins, "cores"
     telemetry beside "off", faulted runs beside clean ones, the oracle's
-    ms a tick, and B1 with and without the chip tier;
+    ms a tick, and B1 with and without the chip tier; the hier_ring
+    pallas and xla sessions' ms a tick and the stream form's launch; the
+    dense LMs' prefill ms, decode ms a step, tokens/s, host split,
+    device profile and peak memory, and the trained LM's ms a step
+    (median and quartiles of 10), its forward/backward/update split,
+    profile and peak memory;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -171,6 +191,19 @@ MOE_BENCH = ((16384, 160), (65536, 160))   # benchmarks/kernel_bench.py times
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 128, 32
 LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 32
 LM_RUNS = 3
+# the dense GQA LMs: the four architectures' 2-layer full-width checks
+# (gemma3-12b: its 6-layer group), the served models and the trained one
+DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-32b", "gemma3-12b")
+DENSE_CHECK_TOKENS = 128
+DENSE_SERVE = {"internlm2-1.8b": (LM_BATCH, LM_PROMPT),
+               "gemma3-12b": (2, 2048)}   # prompt > gemma3's 1024 window
+DENSE_NEW_TOKENS = 32
+DENSE_PROFILE_STEPS = 4
+BANDED_TOKENS = 2048
+DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH = 4096, 2    # train_4k's seq_len
+DENSE_TRAIN_STEPS = 10
+DENSE_DRILL_STEPS, DENSE_DRILL_FAIL, DENSE_DRILL_EVERY = 3, 2, 2
+DENSE_DRILL_SEQ, DENSE_DRILL_BATCH = 256, 2
 SERVE_TENANTS = 8               # benchmarks/noc_bench.py --serve's default
 SERVE_FLUSH = 16
 SERVE_TICKS = 64                # tenant i submits 64 - 8 (i % 4) a round
@@ -1402,6 +1435,535 @@ def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
     return {name: launches[name] for name in ("lif_step", "sparse_tick")}
 
 
+def pallas_stream_form(dev, tag, reset_launches, read_launches, no_launch,
+                       streams):
+    """impl="pallas" at a scheme the whole-run hat kernel has no branch
+    for: hier_ring at 16 x 512 (a non-square n, so no closed-form tick
+    latency).  B3's stream form (`hat_encode_cuda` over every (tick,
+    lane, core) bitmap of a run, one launch) writes the AER streams, the
+    simulator gives the latency; currents bitwise the xla session's,
+    stats under the conformance contract, on both streams widened to 512
+    neurons.  Returns B3's stream-form launches."""
+    from repro_torch.interface import Interface, InterfaceConfig
+    from repro_torch.interface.types import random_connectivity
+    from repro_torch.kernels.hat_encode import kernel as hat_kernel
+    from repro_torch.kernels.hat_encode import ref as hat_ref
+    from repro_torch.noc.topology import NocConfig
+
+    n = 2 * NEURONS
+    cfg = InterfaceConfig(cores=CORES, neurons_per_core=n,
+                          cam_entries_per_core=ENTRIES, scheme="hier_ring",
+                          noc=NocConfig("multicast_tree"), impl="pallas")
+    params = random_connectivity(torch.Generator(dev).manual_seed(SEED + 7),
+                                 cfg)
+    pallas = Interface(cfg).compile(params)
+    xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(params)
+    check(pallas.plan.hat.stream_form and pallas.plan.hat.args is None,
+          "hier_ring at n=512: the pallas plan did not bind B3's stream form")
+    # each stream's frames side by side: (T, C, 256) -> (T, C, 512)
+    wide = {k: torch.cat([s, s.roll(1, dims=1)], dim=-1)
+            for k, s in streams.items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    got = {k: pallas.run(s) for k, s in wide.items()}
+    torch.cuda.synchronize()
+    pallas_s = time.perf_counter() - t0
+    launches = read_launches()
+    ticks_all = sum(s.shape[0] for s in wide.values())
+    check(launches == {**no_launch, "cam_search": ticks_all,
+                       "hat_encode_one_tick": len(wide)},
+          f"pallas at hier_ring n={n} launches {launches}: want cam_search "
+          f"once a tick and B3's stream form once a run")
+    t0 = time.perf_counter()
+    want = {k: xla.run(s) for k, s in wide.items()}
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t0
+    for name in wide:
+        (cur, st), (ref_cur, ref_st) = got[name], want[name]
+        check(cur.shape == ref_cur.shape and bool(cur.isfinite().all()),
+              f"hier_ring {name}: currents shape/finite")
+        check(torch.equal(cur, ref_cur),
+              f"pallas hier_ring n={n} {name}: currents != xla session")
+        check_stats(f"pallas hier_ring n={n} {name}", st, ref_st)
+        print(f"{name} at hier_ring, {CORES} x {n}: pallas (B3 stream "
+              f"form) == xla on the card (currents bitwise, stats under "
+              f"the conformance contract); per-tick means "
+              f"{json.dumps(st.summary(ticks=cur.shape[0]))}")
+    print(f"main path pallas at hier_ring {CORES} x {n} (no closed-form "
+          f"latency, B3's stream form): launches over {ticks_all} ticks "
+          f"{launches}")
+    # the stream form's one launch a run, on the first stream's frames:
+    # device time against its plain version (ranks, then compact_stream)
+    # and the bytes bound (each frame byte read once; ranks, stream,
+    # counts and cluster counts written once)
+    first = next(iter(wide))
+    frames = wide[first][:, None]
+    outs = hat_kernel.hat_encode_cuda(frames, row=256, stream=True)
+    kernel_ms = device_ms_per_call(
+        lambda: hat_kernel.hat_encode_cuda(frames, row=256, stream=True), 40,
+        "hat_encode_kernel")
+
+    def plain():
+        ranks, count, _ = hat_ref.hat_encode_ref(frames, row=256)
+        return hat_ref.compact_stream(ranks, count)
+    plain_ms = device_ms_per_call(plain, 10)
+    want = hat_ref.hat_encode_ref(frames, row=256)
+    check(all(torch.equal(a, b) for a, b in zip(outs[:2], want[:2]))
+          and torch.equal(outs[3], hat_ref.compact_stream(*want[:2])),
+          "the stream form's ranks, counts or AER streams != plain")
+    bound_ms, by = bound(nbytes(frames, *(o for o in outs if o is not None)),
+                         frames.numel(), INT32_OPS_PER_S)
+    print(f"{tag} hat_encode stream form (hat_encode_kernel) at hier_ring "
+          f"{CORES} x {n}, {frames.shape[0]} {first} ticks in one launch: "
+          f"{kernel_ms * 1e3:.3f} us per launch (profiler, 40 launches); "
+          f"plain version {plain_ms * 1e3:.3f} us; bound "
+          f"{bound_ms * 1e3:.4f} us by {by}; outputs bitwise the plain "
+          f"version's")
+    print(f"{tag} session pallas hier_ring {CORES} x {n}: "
+          f"{pallas_s * 1e3 / ticks_all:.4f} ms/tick over both streams "
+          f"(one run each, host clock, synchronized); xla "
+          f"{xla_s * 1e3 / ticks_all:.4f} ms/tick (the simulator's latency "
+          f"tick by tick)")
+    return launches["hat_encode_one_tick"]
+
+
+def lm_tree_gap(card, cpu):
+    """The largest |card - cpu| over two trees of tensors, and whether
+    every leaf is within rtol GRAD_RTOL / atol GRAD_ATOL of the CPU
+    leaf's largest magnitude."""
+    gap, ok = 0.0, True
+    for a, b in zip(_leaves(card), _leaves(cpu)):
+        a = a.detach().cpu().float()
+        b = b.detach().float()
+        d = (a - b).abs()
+        gap = max(gap, float(d.max()))
+        ok &= bool((d <= GRAD_RTOL * b.abs() + GRAD_ATOL
+                    * float(b.abs().max())).all())
+    return gap, ok
+
+
+def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
+    """The dense GQA LMs on the card: each of the four architectures at
+    full width cut to one layer group (2 layers; gemma3-12b 6) in
+    float32, card against the CPU port; banded against masked full
+    attention at gemma3's head shapes; internlm2-1.8b and gemma3-12b
+    served at full width and depth; internlm2-1.8b trained at full width
+    and depth (train_4k's seq_len 4096, batch DENSE_TRAIN_BATCH, remat),
+    its restart drill bitwise at a 2-layer cut and one step card against
+    CPU at the 2-layer float32 cut.  No kernel launches on these paths."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.ft import FailureInjector, run_training, \
+        run_with_restarts
+    from repro_torch.models import blocks, lm
+    from repro_torch.optim import adamw
+    from repro_torch.serve.lm_engine import ServeEngine
+    from repro_torch.train import step as train_step
+
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"dense LM phase {what}: {now - clock[0]:.1f} s (host clock)")
+        clock[0] = now
+
+    # ---- each architecture at full width, one layer group, float32 ------
+    for arch in DENSE_ARCHS:
+        cfg = configs.get_config(arch)
+        small = dataclasses.replace(
+            cfg, n_layers=2 if cfg.scan_group == 1 else cfg.scan_group,
+            compute_dtype="float32")
+        params = lm.init_model(torch.Generator(dev).manual_seed(SEED), small)
+        cpu_params = tree_to(params, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (LM_CHECK_BATCH,
+                                              DENSE_CHECK_TOKENS),
+                               generator=gen, device=dev, dtype=torch.int32)
+        reset_launches()
+        with torch.no_grad():
+            card = lm.forward(params, {"tokens": tokens}, small)["logits"]
+            torch.cuda.synchronize()
+            launches = read_launches()
+            cpu = lm.forward(cpu_params, {"tokens": tokens.cpu()},
+                             small)["logits"]
+        check(launches == no_launch, f"{arch} forward launched {launches}")
+        check(card.shape == (LM_CHECK_BATCH, DENSE_CHECK_TOKENS, cfg.vocab)
+              and bool(card.isfinite().all()), f"{arch} logits shape/finite")
+        gap = float((card.cpu() - cpu).abs().max())
+        check(torch.allclose(card.cpu(), cpu, rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL),
+              f"{arch} 2-layer full-width logits card vs CPU beyond rtol "
+              f"{LOGIT_RTOL} / atol {LOGIT_ATOL}: max {gap}")
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"LM {arch} card vs CPU port, full width cut to "
+              f"{small.n_layers} layers ({n_params} float32 parameters), "
+              f"teacher-forced on {LM_CHECK_BATCH} x {DENSE_CHECK_TOKENS} "
+              f"tokens: logits max abs diff {gap:.3e} (within rtol "
+              f"{LOGIT_RTOL} / atol {LOGIT_ATOL}; largest logit "
+              f"{float(cpu.abs().max()):.3f})")
+        del params, cpu_params, card, cpu
+        torch.cuda.empty_cache()
+    lap("2-layer cuts card vs CPU")
+
+    # ---- banded attention against masked full attention, gemma3's heads ---
+    g3 = configs.get_config("gemma3-12b")
+    kh, rep, dh = g3.n_kv_heads, g3.n_rep, g3.head_dim
+    t = BANDED_TOKENS
+    q = torch.randn((1, t, kh, rep, dh), generator=gen, device=dev)
+    k = torch.randn((1, t, kh, dh), generator=gen, device=dev)
+    v = torch.randn((1, t, kh, dh), generator=gen, device=dev)
+    with torch.no_grad():
+        banded = blocks.banded_attention(q, k, v, window=g3.sliding_window)
+        full = blocks.flash_attention(q, k, v, causal=True,
+                                      window=g3.sliding_window)
+        gap = float((banded - full).abs().max())
+        check(torch.allclose(banded, full, rtol=1e-5, atol=1e-6),
+              f"banded vs masked flash attention beyond rtol 1e-5 / atol "
+              f"1e-6: max {gap}")
+        band_ms = cuda_ms(lambda: blocks.banded_attention(
+            q, k, v, window=g3.sliding_window), 20)
+        full_ms = cuda_ms(lambda: blocks.flash_attention(
+            q, k, v, causal=True, window=g3.sliding_window), 20)
+    print(f"banded_attention vs masked flash_attention on the card at "
+          f"gemma3-12b's heads (T {t}, window {g3.sliding_window}, {kh} x "
+          f"{rep} heads of {dh}, float32): max abs diff {gap:.3e} (within "
+          f"rtol 1e-5 / atol 1e-6)")
+    print(f"{tag} attention at T {t}: banded {band_ms:.3f} ms, masked full "
+          f"(flash, every chunk pair) {full_ms:.3f} ms a call (CUDA events, "
+          f"20 calls)")
+    del q, k, v, banded, full
+    lap("banded vs masked attention")
+
+    # ---- served at full width and depth ---------------------------------
+    for arch, (batch, prompt) in DENSE_SERVE.items():
+        serve_dense(dev, tag, reset_launches, read_launches, no_launch,
+                    configs.get_config(arch), batch, prompt, gen)
+        lap(f"served {arch}")
+
+    # ---- internlm2-1.8b trained at full width and depth --------------------
+    cfg = configs.get_config("internlm2-1.8b")
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_step.init_state(torch.Generator(dev).manual_seed(SEED),
+                                  cfg, opt)
+    pipe = Pipeline(cfg, DataConfig(global_batch=DENSE_TRAIN_BATCH,
+                                    seq_len=DENSE_TRAIN_SEQ, seed=SEED),
+                    device=dev)
+    step = train_step.make_train_step(cfg, opt, remat=True)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    reset_launches()
+    state, m = step(state, pipe.batch(0))            # warm-up
+    torch.cuda.synchronize()
+    check(read_launches() == no_launch, "LM training launched a kernel")
+    check(math.isfinite(float(m["loss"])), f"LM training loss {m['loss']}")
+    step_ms, losses = [], [float(m["loss"])]
+    for i in range(1, 1 + DENSE_TRAIN_STEPS):
+        batch = pipe.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"LM losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    q1, med, q3 = statistics.quantiles(step_ms, n=4)
+    tokens = DENSE_TRAIN_BATCH * DENSE_TRAIN_SEQ
+    print(f"trained LM {cfg.name} at full width and depth ({n_params} "
+          f"float32 parameters, AdamW float32 moments), seq_len "
+          f"{DENSE_TRAIN_SEQ}, batch {DENSE_TRAIN_BATCH}, remat=True: "
+          f"losses {[round(x, 4) for x in losses]}; peak "
+          f"{peak:.2f} GiB allocated")
+    print(f"{tag} trained LM {cfg.name}: median {med:.3f} ms/step "
+          f"(quartiles {q1:.3f}-{q3:.3f}; {DENSE_TRAIN_STEPS} steps after a "
+          f"warm-up, host clock, synchronized) = "
+          f"{tokens / med * 1e3:.1f} tokens/s")
+
+    # the split: each stage synchronized at its ends
+    spent = {}
+
+    def synced(label, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t
+            return out
+        return wrapper
+
+    stages = (("forward (lm.forward)", lm, "forward"),
+              ("backward (torch.autograd.grad, remat's recompute in it)",
+               torch.autograd, "grad"),
+              ("update (adamw.update)", adamw, "update"))
+    saved = [(o, a, getattr(o, a)) for _, o, a in stages]
+    batch = pipe.batch(DENSE_TRAIN_STEPS + 1)
+    for label, owner, attr in stages:
+        setattr(owner, attr, synced(label, getattr(owner, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+    parts = "; ".join(f"{k} {v * 1e3:.3f}" for k, v in spent.items())
+    print(f"{tag} trained LM step split (each stage synchronized): total "
+          f"{total * 1e3:.3f} ms = {parts}; the rest (loss, tree walks) "
+          f"{(total - sum(spent.values())) * 1e3:.3f}")
+    wall_us, events = device_events(lambda: step(state, batch), captures=2)
+    check(bool(events), "the profiler recorded no device op in a step")
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"{tag} profile trained LM step: wall {wall_us:.1f} us (host "
+          f"clock, profiler on), device busy {busy_us:.1f} us in "
+          f"{len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}")
+    print_top(tag, events, 10)
+    del state, step, m, batch
+    torch.cuda.empty_cache()
+    lap("trained internlm2-1.8b")
+
+    # ---- the restart drill at a 2-layer cut (bitwise) ----------------------
+    cut = dataclasses.replace(cfg, n_layers=2)
+    dpipe = Pipeline(cut, DataConfig(global_batch=DENSE_DRILL_BATCH,
+                                     seq_len=DENSE_DRILL_SEQ, seed=SEED),
+                     device=dev)
+    dstep = train_step.make_train_step(cut, opt, remat=True)
+
+    def fresh():
+        return train_step.init_state(torch.Generator(dev).manual_seed(SEED),
+                                     cut, opt)
+
+    def bitwise(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # both the drill and the card-vs-CPU step hold the card to itself
+    # bitwise: the embedding's backward accumulates repeated tokens, which
+    # needs the deterministic kernels
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    logs = []
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            # the uninterrupted run keeps only its final checkpoint (6 GB
+            # a checkpoint at this cut)
+            clean, _ = run_training(
+                dstep, fresh(), dpipe, num_steps=DENSE_DRILL_STEPS,
+                manager=CheckpointManager(os.path.join(d, "clean"),
+                                          every=DENSE_DRILL_STEPS, keep=1),
+                logger=logs.append)
+            drilled, history = run_with_restarts(
+                fresh, dstep, dpipe, num_steps=DENSE_DRILL_STEPS,
+                manager=CheckpointManager(os.path.join(d, "drill"),
+                                          every=DENSE_DRILL_EVERY, keep=1),
+                injector=FailureInjector(fail_at_steps=(DENSE_DRILL_FAIL,)),
+                logger=logs.append)
+        resumed = DENSE_DRILL_FAIL - DENSE_DRILL_FAIL % DENSE_DRILL_EVERY
+        lap("restart drill")
+        dense_step_card_vs_cpu(dev, cut, opt, bitwise)
+        lap("one step card vs CPU")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(any(f"resumed from step {resumed}" in line for line in logs)
+          and len(history) == DENSE_DRILL_STEPS - resumed,
+          f"LM restart drill: {logs}")
+    check(bitwise(drilled, clean), "LM restart drill's final state != the "
+          "uninterrupted run's")
+    print(f"train LM {cut.name} cut to 2 layers at full width on the card "
+          f"(deterministic algorithms on): {DENSE_DRILL_STEPS} steps at "
+          f"seq_len {DENSE_DRILL_SEQ}, batch {DENSE_DRILL_BATCH}; "
+          f"run_with_restarts with a failure at step {DENSE_DRILL_FAIL}, "
+          f"checkpoints every {DENSE_DRILL_EVERY}, resumed from step "
+          f"{resumed}: final state bitwise the uninterrupted run's")
+    del clean, drilled
+    torch.cuda.empty_cache()
+
+
+def dense_step_card_vs_cpu(dev, cut, opt, bitwise):
+    """One training step of ``cut`` in float32 on the card and on the CPU
+    port from the same parameters and batch: the loss within 1e-5
+    relative, gradients within GRAD_RTOL / GRAD_ATOL of each leaf's
+    largest, parameters within what that gap can move them (AdamW's first
+    step moves an element by about lr g / (|g| + eps), so a gap of tol by
+    at most 2 lr min(1, tol / |g|)); and the card's step bitwise
+    `adamw.update` of the card's own gradient."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import blocks
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+
+    cut32 = dataclasses.replace(cut, compute_dtype="float32")
+    card_state = train_step.init_state(
+        torch.Generator(dev).manual_seed(SEED), cut32, opt)
+    cpu_state = train_step.TrainState(
+        tree_to(card_state.params, "cpu"), adamw.AdamWState(
+            card_state.opt.step.cpu(), tree_to(card_state.opt.mu, "cpu"),
+            tree_to(card_state.opt.nu, "cpu")), card_state.step.cpu())
+    cbatch = Pipeline(cut32, DataConfig(global_batch=LM_CHECK_BATCH,
+                                        seq_len=DENSE_CHECK_TOKENS,
+                                        seed=SEED), device="cpu").batch(0)
+    grads = {}
+    for where, st, b in (("card", card_state, tree_to(cbatch, dev)),
+                         ("cpu", cpu_state, cbatch)):
+        loss, _, g = train_step.value_and_grad(st.params, b, cut32,
+                                                blocks.LOCAL, True, None)
+        grads[where] = (loss, g)
+    loss_gap = abs(float(grads["card"][0]) - float(grads["cpu"][0]))
+    check(math.isclose(float(grads["card"][0]), float(grads["cpu"][0]),
+                       rel_tol=1e-5), f"LM step loss card vs CPU: {loss_gap}")
+    grad_gap, ok = lm_tree_gap(grads["card"][1], grads["cpu"][1])
+    check(ok, f"LM step gradients card vs CPU beyond rtol {GRAD_RTOL} / "
+          f"atol {GRAD_ATOL} of each leaf's largest: max {grad_gap}")
+    new_card, mc = train_step.make_train_step(cut32, opt)(
+        card_state, tree_to(cbatch, dev))
+    own, _, _ = adamw.update(
+        opt, tree_unflatten(card_state.params, grads["card"][1]),
+        card_state.opt, card_state.params)
+    check(bitwise(new_card.params, own), "the card's step != adamw.update "
+          "of the card's own gradient")
+    new_cpu, _ = train_step.make_train_step(cut32, opt)(cpu_state, cbatch)
+    lr = float(mc["lr"])
+    param_gap = 0.0
+    for a, b, g in zip(tree_leaves(new_card.params),
+                       tree_leaves(new_cpu.params),
+                       tree_leaves(grads["cpu"][1])):
+        a, b, g = a.cpu(), b, g.abs()
+        tol = GRAD_RTOL * g + GRAD_ATOL * float(g.max())
+        bound = (2 * lr * torch.clamp(tol / g.clamp_min(1e-30), max=1.0)
+                 + 1e-6 * float(b.abs().max()))
+        param_gap = max(param_gap, float((a - b).abs().max()))
+        check(bool(((a - b).abs() <= bound).all()),
+              "LM step parameters card vs CPU beyond what the gradient gap "
+              "moves them")
+    print(f"train LM {cut32.name} one step at the 2-layer float32 cut, card "
+          f"vs CPU port on {LM_CHECK_BATCH} x {DENSE_CHECK_TOKENS} tokens: "
+          f"loss {float(grads['cpu'][0]):.6f}, diff {loss_gap:.3e} (rtol "
+          f"1e-5); gradients max abs diff {grad_gap:.3e} (within rtol "
+          f"{GRAD_RTOL} / atol {GRAD_ATOL} of each leaf's largest); "
+          f"parameters max abs diff {param_gap:.3e} (within 2 lr min(1, "
+          f"gradient tolerance / |g|) + 1e-6 of each leaf's largest); the "
+          f"card's step bitwise adamw.update of its own gradient")
+    del card_state, cpu_state, new_card, new_cpu, own, grads
+    torch.cuda.empty_cache()
+
+
+def print_top(tag, events, count):
+    by_name = {}
+    for e in events:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.device_time_total, n + 1)
+    for key, (us, n) in sorted(by_name.items(),
+                               key=lambda r: -r[1][0])[:count]:
+        print(f"{tag}   {us:10.1f} us  x{n:5d}  {key[:90]}")
+
+
+def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
+                batch, prompt, gen):
+    """``cfg`` at full width and depth drawn on the card, served greedy:
+    ``batch`` requests of ``prompt`` tokens, DENSE_NEW_TOKENS new ones;
+    every step's logits finite, two generates equal; prefill ms, decode
+    ms a step, tokens/s, the host split, the device profile and peak
+    memory."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.serve.lm_engine import ServeEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"served LM {cfg.name}: {n_params} parameters ({n_params * 4 / 1e9:.2f}"
+          f" GB float32, {cfg.compute_dtype} compute) drawn on the card in "
+          f"{init_s:.3f} s; groups {cfg.scan_groups()}; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                            device=dev, dtype=torch.int32)
+    steps = DENSE_NEW_TOKENS
+    engine = ServeEngine(cfg, params, max_len=prompt + steps)
+    step_ms = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(label, fn):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            step_ms[label].append((time.perf_counter() - t) * 1e3)
+            finite.append(bool(logits.isfinite().all()))
+            return logits, cache
+        return wrapper
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = engine.generate(prompts, steps)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == no_launch, f"served {cfg.name} launched {launches}")
+    check(out.shape == (batch, steps) and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"served {cfg.name} tokens shape/range")
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = engine.generate(prompts, steps)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    engine.__post_init__()
+    check(all(finite) and len(finite) == 1 + steps,
+          f"served {cfg.name}: a step's logits are not finite")
+    check(torch.equal(again, out), f"served {cfg.name}: two greedy "
+          f"generates differ")
+    dq1, dmed, dq3 = statistics.quantiles(step_ms["decode"], n=4)
+    print(f"main path ServeEngine.generate {cfg.name}: {batch} requests x "
+          f"{prompt} prompt tokens, {steps} new tokens greedy; every step's "
+          f"logits finite, two generates equal; launches {launches}; peak "
+          f"{peak:.2f} GiB allocated")
+    print(f"{tag} served LM {cfg.name}, {batch} requests: prefill "
+          f"{step_ms['prefill'][0]:.3f} ms ({batch} x {prompt} tokens); "
+          f"decode median {dmed:.3f} ms/step (quartiles {dq1:.3f}-{dq3:.3f}, "
+          f"{steps} steps); generate {gen_s * 1e3:.3f} ms (that run, each "
+          f"step synchronized) = {batch * steps / gen_s:.3f} new tokens/s "
+          f"(host clock); peak {peak:.2f} GiB")
+    total, spent = host_breakdown(lambda: engine.generate(prompts, steps), (
+        ("attention (attention_apply)", blocks, "attention_apply"),
+        ("  of it banded_attention", blocks, "banded_attention"),
+        ("  of it flash_attention", blocks, "flash_attention"),
+        ("  of it decode_attention", blocks, "decode_attention"),
+        ("MLP (mlp_apply)", blocks, "mlp_apply"),
+        ("final norm and head (_head)", lm, "_head")))
+    top = sum(v for k_, v in spent.items() if not k_.startswith(" "))
+    parts = "; ".join(f"{k_.strip()} {v * 1e3:.3f}" for k_, v in spent.items())
+    print(f"{tag} host ms per generate {cfg.name} ({1 + steps} forwards): "
+          f"total {total * 1e3:.3f} = {parts}; embedding, norms, sampling "
+          f"and the wait for the device {(total - top) * 1e3:.3f}")
+    # the profile of a shorter generate (the prefill and DENSE_PROFILE_STEPS
+    # decode steps): the profiler's own processing grows with its events
+    wall_us, events = device_events(
+        lambda: engine.generate(prompts, DENSE_PROFILE_STEPS), captures=2)
+    check(bool(events), f"the profiler recorded no device op in "
+          f"{cfg.name}'s generate")
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"{tag} profile generate {cfg.name} (prefill and "
+          f"{DENSE_PROFILE_STEPS} decode steps): wall {wall_us:.1f} us (host "
+          f"clock, profiler on), device busy {busy_us:.1f} us in "
+          f"{len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}")
+    print_top(tag, events, 8)
+    del params, engine
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1465,6 +2027,9 @@ def main() -> int:
                 "sparse_tick_one_tick": sparse_kernel.tick_launches,
                 "hat_encode_one_tick": hat_kernel.tick_launches}
 
+    # cuBLAS's deterministic workspace, for the LM training phases that run
+    # under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     # bfloat16 products sum in float32 and round once, as the JAX package's
     # preferred_element_type=float32 asks
@@ -2030,6 +2595,11 @@ def main() -> int:
         print(f"card {label} == CPU plain {cpu_impl} on a {PREFIX}-tick "
               f"burst prefix")
 
+    # impl="pallas" where the whole-run hat kernel has no branch (hier_ring
+    # at a non-square n): B3's stream form, held to the xla session
+    stream_form_launches = pallas_stream_form(
+        dev, tag, reset_launches, read_launches, no_launch, streams)
+
     # the paper's SNN workload at scaled_config, batch 128: pallas runs
     # the lif_step kernel once per step, xla the surrogate-gradient step
     snn_params, snn_topo = snn.init_snn(
@@ -2295,6 +2865,11 @@ def main() -> int:
     path_launches["moe_dispatch"], moe_ids = served_lm(
         dev, tag, reset_launches, read_launches, no_launch)
 
+    # the dense GQA LMs: 2-layer full-width checks, banded attention,
+    # internlm2-1.8b and gemma3-12b served, internlm2-1.8b trained (no
+    # kernel on these paths), after the DeepSeek phase freed its 62.8 GB
+    dense_lms(dev, tag, reset_launches, read_launches, no_launch)
+
     # the fabric serving tier: its checks, launches per flush and times
     serve_per_flush = served_fabric(dev, tag, reset_launches, read_launches,
                                     no_launch)
@@ -2544,7 +3119,8 @@ def main() -> int:
         label=f"whole run: {TICKS} Bernoulli {RATE} ticks in one launch")
     rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b3_ms * 1e3 / TICKS,
                     launches_per_512_ticks=path_launches["hat_encode"],
-                    serve_launches_per_flush=serve_per_flush["hat_encode"])
+                    serve_launches_per_flush=serve_per_flush["hat_encode"],
+                    stream_form_launches_hier_ring_512=stream_form_launches)
     print(f"{tag} hat_encode whole run: {b3_ms * 1e3 / TICKS:.4f} us per "
           f"tick; {path_launches['hat_encode']} launches in the 512 pallas "
           f"ticks of phase 4")

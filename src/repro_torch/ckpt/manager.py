@@ -51,6 +51,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """``like``'s structure with ``leaves`` (a sequence in flatten order,
+    as `tree_leaves` lists them) as its leaves."""
+    return _unflatten(like, iter(leaves))
+
+
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the
     iterator ``leaves``."""

@@ -2,10 +2,15 @@
 (`paper_dynaps`) and the LM half of the JAX package's architecture
 registry (`get_config`, `get_smoke_config`).
 
-Of the registry's LM architectures the port runs DeepSeek-V2-Lite (MLA
-attention, event-routed MoE).  The others are known by name and raise
-`NotImplementedError` saying what they need: ROADMAP queue A item 12
-(the LM scaffolding) carries the rest.
+Of the registry's LM architectures the port runs two families: MLA
+attention with event-routed MoE (``deepseek-v2-lite-16b``), and dense GQA
+attention (``internlm2-1.8b``, ``llama3.2-3b``, ``qwen3-32b`` with qk-norm,
+``gemma3-12b`` with banded local layers).  The others are known by name
+and raise `NotImplementedError` saying what they need, all ROADMAP queue
+A item 12 (the LM scaffolding): the RWKV6 mixer (``rwkv6-3b``), the Mamba
+mixer (``jamba-1.5-large-398b``), the audio and vision frontends
+(``hubert-xlarge``, ``phi-3-vision-4.2b``), and a config of
+``deepseek-v2-236b`` that one card holds.
 """
 
 from __future__ import annotations
@@ -25,21 +30,18 @@ ARCHS = {
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
-PORTED = ("deepseek-v2-lite-16b",)
+PORTED = ("deepseek-v2-lite-16b", "gemma3-12b", "internlm2-1.8b",
+          "qwen3-32b", "llama3.2-3b")
 
 # what each architecture that is not ported needs first
 _NEEDS = {
-    "hubert-xlarge": "the audio frontend and encoder-only GQA attention",
+    "hubert-xlarge": "the audio frontend",
     "rwkv6-3b": "the RWKV6 time and channel mix",
     "deepseek-v2-236b": "its config (its MLA + MoE blocks are ported; "
                         "472 GB of bfloat16 parameters need more than "
                         "one card)",
-    "gemma3-12b": "GQA attention with banded local layers",
-    "internlm2-1.8b": "GQA attention",
-    "qwen3-32b": "GQA attention",
-    "llama3.2-3b": "GQA attention",
-    "jamba-1.5-large-398b": "the Mamba mixer and GQA attention",
-    "phi-3-vision-4.2b": "the vision frontend and GQA attention",
+    "jamba-1.5-large-398b": "the Mamba mixer",
+    "phi-3-vision-4.2b": "the vision frontend",
 }
 
 

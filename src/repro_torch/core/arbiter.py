@@ -132,6 +132,9 @@ def _ring_dist(frm, to, n):
     return torch.remainder(to - frm, n)
 
 
+_DONE_EVERY = 16
+
+
 def _simulate(request_times: torch.Tensor, entry: ArbiterScheme,
               ctx: ArbiterContext) -> torch.Tensor:
     """Serve every finite request; grant times (inf where no request).
@@ -139,9 +142,11 @@ def _simulate(request_times: torch.Tensor, entry: ArbiterScheme,
     request_times: (..., n) float32.  One step grants one event: the
     scheme's key picks among requests that have arrived by the server's
     clock, or the earliest arrival (address tie-break) when none has.
-    n steps, each a handful of whole-tensor ops over the leading axes;
-    steps past the last request re-select a served event and grant
-    nothing, as the JAX ``lax.scan`` does.
+    At most n steps, each a handful of whole-tensor ops over the leading
+    axes.  The steps the JAX ``lax.scan`` runs past the last request
+    re-select a served event and grant nothing, so the loop stops once
+    every request is served (looked at every `_DONE_EVERY` steps: one
+    host read of the card's state each time).
     """
     n = ctx.n
     req = request_times.to(torch.float32)
@@ -156,8 +161,10 @@ def _simulate(request_times: torch.Tensor, entry: ArbiterScheme,
     granted_any = torch.zeros(lead, dtype=torch.bool, device=dev)
     key_waiting = req * float(n) + addrs.to(torch.float32)
     grants = torch.full(req.shape, INF, dtype=torch.float32, device=dev)
-    for _ in range(n):
+    for step in range(n):
         pending = active & ~served
+        if step % _DONE_EVERY == 0 and not bool(pending.any()):
+            break
         arr = torch.where(pending, req, INF)
         arrived = pending & (arr <= clock[..., None])
         key = torch.where(arrived, entry.select_key(ctx, tok_hi, tok_lo), INF)

@@ -1,16 +1,21 @@
-"""Input data for the port's SNN: rate-coded class rasters.
+"""Input data of the port: SNN rasters and LM token batches.
 
-Port of `repro.data.pipeline.snn_batch`.  It draws from a
-`torch.Generator`, so its numbers differ from `jax.random`'s for the
-same seed; the rasters have the same shapes and firing statistics.  Give
-both packages one raster as numpy arrays where bits must agree.
+Port of `repro.data.pipeline`: `snn_batch` (rate-coded class rasters)
+and the token family of `Pipeline` (`DataConfig`, `synth_tokens`).  They
+draw from a `torch.Generator`, so their numbers differ from
+`jax.random`'s for the same seed; the batches have the same shapes and
+statistics.  Give both packages one batch as numpy arrays where bits
+must agree.
 
-`SNNPipeline` is the training stream: step -> batch, a pure function of
-(seed, step) drawn on the CPU, so any step's batch can be regenerated
-after a restart and every device trains on the same rasters.
+`SNNPipeline` and `Pipeline` are the training streams: step -> batch, a
+pure function of (seed, step) drawn on the CPU, so any step's batch can
+be regenerated after a restart and every device trains on the same
+numbers.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -62,3 +67,79 @@ class SNNPipeline:
         gen = torch.Generator().manual_seed(int(seed[0]))
         return snn_batch(gen, self.batch_size, cfg.t_steps, cfg.d_in,
                          cfg.d_out, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# LM token batches
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+    copy_frac: float = 0.5      # fraction of positions in copy runs
+    zipf_alpha: float = 1.1
+
+
+COPY_BACK = 8               # a copied token repeats the one 8 positions back
+
+
+def _zipf_logits(vocab: int, alpha: float) -> torch.Tensor:
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float32)
+    return -alpha * torch.log(ranks)
+
+
+def synth_tokens(generator: torch.Generator, batch: int, seq: int,
+                 vocab: int, cfg: DataConfig) -> torch.Tensor:
+    """(batch, seq) int32 tokens on ``generator``'s device: Zipfian
+    unigrams (``p(rank k) ~ k^-alpha``), and with probability
+    ``copy_frac`` a position repeats the token `COPY_BACK` positions back
+    (cyclically, as ``jnp.roll``), so the CE loss has structure to
+    learn.  The JAX package's distribution, not its numbers."""
+    dev = generator.device
+    probs = torch.softmax(_zipf_logits(vocab, cfg.zipf_alpha), -1).to(dev)
+    base = torch.multinomial(probs, batch * seq, replacement=True,
+                             generator=generator).reshape(batch, seq)
+    copy_mask = torch.rand((batch, seq), generator=generator,
+                           device=dev) < cfg.copy_frac
+    shifted = torch.roll(base, COPY_BACK, dims=1)
+    return torch.where(copy_mask, shifted, base).to(torch.int32)
+
+
+class Pipeline:
+    """step -> LM batch ``{"tokens", "labels"}`` (each (global_batch,
+    seq_len) int32; labels the next token, -100 at the last position),
+    a pure function of (seed, step): drawn from a CPU generator seeded by
+    both and placed on ``device`` (the CUDA device when None;
+    ``device="cpu"`` for the CPU), so any step's batch can be regenerated
+    after a restart.  Audio and vision batches raise
+    `NotImplementedError`."""
+
+    def __init__(self, model_cfg, data_cfg: DataConfig, device=None):
+        self.mc = model_cfg
+        self.dc = data_cfg
+        self.device = resolve_device(device)
+
+    def batch(self, step: int) -> dict:
+        mc, dc = self.mc, self.dc
+        kind = mc.frontend.kind
+        if kind != "none":
+            raise NotImplementedError(
+                f"{kind} batches are not ported to repro_torch (ROADMAP "
+                f"queue A item 12: the {kind} frontend); use the JAX "
+                f"package `repro`")
+        seed = np.random.SeedSequence([dc.seed, step]).generate_state(1)
+        gen = torch.Generator().manual_seed(int(seed[0]))
+        toks = synth_tokens(gen, dc.global_batch, dc.seq_len, mc.vocab, dc)
+        labels = torch.cat([toks[:, 1:], torch.full(
+            (dc.global_batch, 1), -100, dtype=torch.int32)], dim=1)
+        return {"tokens": toks.to(self.device),
+                "labels": labels.to(self.device)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1

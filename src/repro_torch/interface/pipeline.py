@@ -17,7 +17,9 @@ deterministic per-target sum (`kernels.sparse_tick.ref.scatter_currents`).
                        energy through the CUDA `hat_encode` kernel's
                        `hat_run`, once per run for all of its ticks
                        (`arbiter_terms`; on CPU tensors their plain
-                       versions, tick by tick);
+                       versions, tick by tick); a scheme the whole-run
+                       kernel has no branch for takes B3's stream form,
+                       one launch a run, and the simulator's latency;
   ``"pallas_sparse"``  the ticks where no core overflows its event
                        buffer go through `kernels.sparse_tick.ops.
                        sparse_run`: compaction, the sparse tick and the
@@ -355,8 +357,7 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
 
     Raises:
       ValueError: on tables built for another NoC scheme or chip count,
-        an unsupported ``pallas_sparse`` configuration, or (on the card)
-        a scheme `hat_run`'s kernel has no form for.
+        or an unsupported ``pallas_sparse`` configuration.
     """
     if tables is None:
         tables = build_tables(params, cfg)
@@ -365,7 +366,8 @@ def make_plan(params, cfg, tables=None, arb_cfg=None, routing=None,
         arb_cfg = arb.ArbiterConfig(cfg.scheme, cfg.neurons_per_core)
     n = cfg.neurons_per_core
     # where the scheme has no closed-form tick latency the simulator gives
-    # it, and hat_run's kernel has no branch for that
+    # it; hat_run's whole-run kernel has no branch for that, so on the
+    # card B3's stream form writes the AER streams instead
     kernel_policy = (interface_registry.get_arbiter(cfg.scheme).kernel_policy
                      if arb.has_closed_form(arb_cfg) else None)
     hat = hat_ops.bind_run(

@@ -11,8 +11,14 @@ version.  ``impl="pallas"`` keeps the JAX op's limits (N a multiple of
 `hat_run` is the port's own: the interface tick's use of the encoder, the
 arbiter's tick latency, the encode energy and the event count of every
 (tick, lane, core) bitmap of a session run, in one launch of
-`kernel.hat_run_cuda` on the card (N a multiple of 256).  Its plain
-version (`ref.hat_run_ref`, CPU tensors) is the composition it replaces.
+`kernel.hat_run_cuda` on the card (N a multiple of 256).  A scheme the
+whole-run kernel has no branch for (no closed-form tick latency, or no
+``kernel_policy``) takes B3's stream form instead, as the JAX package's
+``impl="pallas"`` tick does: one `kernel.hat_encode_cuda` launch writes
+the AER streams of every bitmap of the run, the scheme's ``encode_fn``
+takes the encode energy from them and its ``latency_fn`` (the simulator
+where there is no closed form) the tick latency.  Its plain version
+(`ref.hat_run_ref`, CPU tensors) is the composition it replaces.
 """
 
 from __future__ import annotations
@@ -34,27 +40,24 @@ class HatPolicy(NamedTuple):
     latency_fn: Callable         # dense (..., n) bool -> (...) float32
     encode_fn: Callable          # (..., n) int32 AER stream -> (...) float32
     n: int
-    args: Optional[hat_kernel.RunArgs]   # None: plain version only
+    args: Optional[hat_kernel.RunArgs]   # None: no whole-run kernel
+    stream_form: bool = False    # on the card: B3's streams, plain terms
 
 
 def bind_run(latency_fn, encode_fn, kernel_policy: Optional[int],
              levels: int, n: int, device) -> HatPolicy:
     """A scheme's `HatPolicy` for `hat_run` on ``device``, built once per
     plan.  On a CUDA device where the kernel takes n (`takes`), the
-    kernel's static quantities are derived here, once.
-
-    Raises:
-      ValueError: on a CUDA device, at an n the kernel takes, for a scheme
-        that registers no ``kernel_policy``.
-    """
+    whole-run kernel's static quantities are derived here, once; a scheme
+    with no ``kernel_policy`` (None) binds B3's stream form instead."""
     args = None
+    stream_form = False
     if torch.device(device).type == "cuda" and takes(n):
         if kernel_policy is None:
-            raise ValueError(
-                "this arbiter scheme registers no kernel_policy, so the "
-                "CUDA hat_run cannot run it (use impl='xla')")
-        args = hat_kernel.run_args(kernel_policy, n, levels)
-    return HatPolicy(latency_fn, encode_fn, n, args)
+            stream_form = True
+        else:
+            args = hat_kernel.run_args(kernel_policy, n, levels)
+    return HatPolicy(latency_fn, encode_fn, n, args, stream_form)
 
 
 def takes(n: int, row: int = RUN_ROW) -> bool:
@@ -105,8 +108,9 @@ def hat_run(stream, policy: HatPolicy, impl: str = "xla"):
     Args:
       stream: (B, T, C, n) bool frames.
       policy: the scheme's `HatPolicy` (`bind_run`).
-      impl: ``"pallas"`` takes the kernel on CUDA frames (one launch) and
-        raises for an n that is not a multiple of 256 or over
+      impl: ``"pallas"`` takes the kernel on CUDA frames (one launch: the
+        whole-run kernel, or the stream form where the policy binds it)
+        and raises for an n that is not a multiple of 256 or over
         `MAX_PALLAS_N`; ``"xla"`` and CPU frames take `ref.hat_run_ref`.
 
     Returns:
@@ -123,6 +127,11 @@ def hat_run(stream, policy: HatPolicy, impl: str = "xla"):
         raise ValueError(f"hat_run needs (B, T, C, {policy.n}) frames, got "
                          f"{tuple(stream.shape)}")
     if _pallas_ok(n, RUN_ROW, impl) and stream.is_cuda:
+        if policy.stream_form:
+            frames = stream.transpose(0, 1)
+            _, count, _, aer = hat_kernel.hat_encode_cuda(
+                frames, row=RUN_ROW, stream=True)
+            return policy.latency_fn(frames), policy.encode_fn(aer), count
         if policy.args is None:
             raise ValueError("this HatPolicy was bound for the CPU; bind "
                              "it on the frames' CUDA device")

@@ -1,9 +1,13 @@
-"""Transformer building blocks of the DeepSeek-V2 path (MLA + MoE).
+"""Transformer building blocks of the dense GQA and MLA + MoE paths.
 
-Port of the parts of `repro.models.blocks` that an MLA + MoE model runs
-on one device: RMS norm, activations, rotary embeddings, the exact
-chunked attention, MLA attention with its absorbed decode, the SwiGLU
-MLP and the event-routed MoE layer.
+Port of the parts of `repro.models.blocks` that a dense GQA model
+(with gemma3's banded local layers) or an MLA + MoE model (DeepSeek-V2)
+runs on one device: RMS norm, activations, rotary embeddings, the exact
+chunked attention, banded sliding-window attention, GQA attention with
+its cache decode, MLA attention with its absorbed decode, the SwiGLU MLP
+and the event-routed MoE layer.  Attention stays plain torch, as it is
+plain jnp in the JAX package: the same chunked online softmax, not a
+library attention.
 
 Conventions, as in the JAX package:
 
@@ -17,8 +21,8 @@ Conventions, as in the JAX package:
   here, and the expert FFN's products round once to ``compute_dtype``.
 
 Only the single-device path (`LOCAL`) is ported.  A `ShardCtx` with
-``enabled``, GQA `attention_apply`, `banded_attention` and int8 experts
-raise `NotImplementedError` naming their ROADMAP item.  On the card,
+``enabled`` (``parallel/``) and int8 experts raise `NotImplementedError`
+naming their ROADMAP item.  On the card,
 float32 products must stay full float32: `check_matmul_precision`
 refuses TF32.
 """
@@ -250,22 +254,142 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 
 def banded_attention(q, k, v, *, window: int, causal=True):
-    raise NotImplementedError(
-        f"banded (sliding-window) attention is not ported to repro_torch "
-        f"({ITEM_12}: GQA attention for local layers); use the JAX package "
-        f"`repro`")
+    """Sliding-window attention touching only in-window KV: O(T*window).
+
+    Chunks q by ``window``; chunk i attends to kv chunks {i-1, i} only,
+    and T is padded to a window multiple (the causal mask hides the
+    padding), as in the JAX package.
+    q: (B, T, KH, R, D); k, v: (B, T, KH, D).
+    """
+    b, t, kh, r, d = q.shape
+    w = window
+    t_orig = t
+    if t % w:
+        pad = w - t % w
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        t = t + pad
+    nc = t // w
+    dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    kc = k.reshape(b, nc, w, kh, d)
+    vc = v.reshape(b, nc, w, kh, dv)
+    # previous chunk (zeros before chunk 0)
+    kp = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vp = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kwin = torch.cat([kp, kc], dim=2)                     # (B, nc, 2w, KH, D)
+    vwin = torch.cat([vp, vc], dim=2)
+    qc = q.reshape(b, nc, w, kh, r, d)
+    s = _f32_einsum("bnqhrd,bnkhd->bnhrqk", qc, kwin) * scale
+    dev = q.device
+    q_pos = torch.arange(w, device=dev)[:, None] + w      # within 2w frame
+    k_pos = torch.arange(2 * w, device=dev)[None, :]
+    mask = (k_pos <= q_pos) if causal else torch.ones(
+        (w, 2 * w), dtype=torch.bool, device=dev)
+    mask = mask & (k_pos > q_pos - w)
+    mask_first = mask & (k_pos >= w)                      # chunk 0: no prev
+    full_mask = torch.where(torch.arange(nc, device=dev)[:, None, None] == 0,
+                            mask_first[None], mask[None])
+    s = torch.where(full_mask[None, :, None, None], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = _f32_einsum("bnhrqk,bnkhd->bnqhrd", p.to(vwin.dtype), vwin)
+    o = o.reshape(b, t, kh, r, dv).to(q.dtype)
+    return o[:, :t_orig]
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     ctx: ShardCtx = LOCAL):
+    """Tokens against a KV cache (the JAX package's single-device branch).
+
+    q: (B, Tq, KH, R, D); caches (B, S, KH, D).  ``cache_len``: the number
+    of valid cache positions; with ``window`` only the last ``window`` of
+    them are seen.
+    """
+    refuse_sharded(ctx)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = pos < cache_len
+    if window:
+        valid &= pos >= cache_len - window
+    s = _f32_einsum("bqhrd,bkhd->bhrqk", q, k_cache) * scale
+    s = torch.where(valid, s, -torch.inf)
+    m = torch.amax(s, dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, -1e30)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(valid, p, 0.0)
+    l = torch.sum(p, dim=-1)
+    acc = _f32_einsum("bhrqk,bkhd->bqhrd", p.to(v_cache.dtype), v_cache)
+    out = acc / torch.clamp_min(_blh(l)[..., 0], 1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
-# GQA attention layer: not ported
+# GQA attention layer (projections + rope + cache handling)
 # ---------------------------------------------------------------------------
 
 
-def attention_apply(p, x, cfg: ModelConfig, **kwargs):
-    raise NotImplementedError(
-        f"GQA attention (attention_apply) is not ported to repro_torch "
-        f"({ITEM_12}); the port runs MLA attention - use the JAX package "
-        f"`repro` for {cfg.name}")
+def init_attention(draw: Draw, cfg: ModelConfig) -> Params:
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pdt = dtype_of(cfg.param_dtype)
+    p = {"wq": _dense_init(draw, (d, h * dh), pdt),
+         "wk": _dense_init(draw, (d, kh * dh), pdt),
+         "wv": _dense_init(draw, (d, kh * dh), pdt),
+         "wo": _dense_init(draw, (h * dh, d), pdt)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(draw, dh, cfg)
+        p["k_norm"] = init_rmsnorm(draw, dh, cfg)
+    return p
+
+
+def attention_apply(p, x, cfg: ModelConfig, *, is_local: bool,
+                    positions=None, cache=None, cache_len=None,
+                    ctx: ShardCtx = LOCAL, causal=True):
+    """x (B, T, d) -> ((B, T, d), cache).  The cache ({"k", "v"}, each
+    (B, S, KH, Dh)) is written in place: from 0 at prefill, at
+    ``cache_len`` (a Python int; clamped as `cache_write` does) at
+    decode; the dict it returns holds the same tensors."""
+    refuse_sharded(ctx)
+    b, t, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = h // kh
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(b, t, kh, rep, dh)
+    k = (x @ p["wk"].to(dt)).reshape(b, t, kh, dh)
+    v = (x @ p["wv"].to(dt)).reshape(b, t, kh, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(t, device=x.device)[None, :]
+    theta = cfg.rope_theta_local if (is_local and cfg.rope_theta_local) \
+        else cfg.rope_theta
+    cos, sin = rope_tables(positions, dh, theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    window = cfg.sliding_window if is_local else 0
+    new_cache = None
+    if cache is not None and cache_len is not None:
+        # decode: append k/v at cache_len, attend over the cache
+        new_cache = {"k": cache_write(cache["k"], k, cache_len),
+                     "v": cache_write(cache["v"], v, cache_len)}
+        o = decode_attention(q, new_cache["k"], new_cache["v"],
+                             cache_len + t, window=window)
+    else:
+        if cache is not None:
+            # prefill: fill the cache, attend over this call's k/v
+            new_cache = {"k": cache_write(cache["k"], k, 0),
+                         "v": cache_write(cache["v"], v, 0)}
+        o = _prefill_attention(q, k, v, window, causal)
+    out = o.reshape(b, t, h * dh) @ p["wo"].to(dt)
+    return out, new_cache
+
+
+def _prefill_attention(q, k, v, window, causal):
+    if window:
+        return banded_attention(q, k, v, window=window, causal=causal)
+    return flash_attention(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""The language model of the PyTorch port: DeepSeek-V2's MLA + MoE stack.
+"""The language model of the PyTorch port: dense GQA and MLA + MoE stacks.
 
-Port of `repro.models.lm` for the families whose blocks are ported (MLA
-attention with dense MLP or event-routed MoE feed-forwards).  Structure:
-embed -> layer groups -> final norm -> lm head.  The parameter tree is
-the JAX package's: layers are stacked over the repeats of each
-homogeneous group of `ModelConfig.scan_groups` (``[(0, 1), (1, 26)]`` for
-DeepSeek-V2-Lite), and the port walks the stack with a Python loop over
-views where the JAX package scans.  KV caches mirror the same stacking
-and are updated in place.
+Port of `repro.models.lm` for the families whose blocks are ported:
+dense GQA transformers (internlm2, llama3.2, qwen3's qk-norm, gemma3's
+5:1 banded-local : global pattern with sandwich norms and tied heads)
+and DeepSeek-V2's MLA attention with dense MLP or event-routed MoE
+feed-forwards.  Structure: embed -> layer groups -> final norm -> lm
+head.  The parameter tree is the JAX package's: layers are stacked over
+the repeats of each homogeneous group of `ModelConfig.scan_groups`
+(``[(0, 1), (1, 26)]`` for DeepSeek-V2-Lite, ``[(0, 48)]`` of 8 repeats
+of 5 local + 1 global layers for gemma3-12b), and the port walks the
+stack with a Python loop over views where the JAX package scans.  KV
+caches mirror the same stacking and are updated in place.
 
 Entry points, on torch tensors:
 
@@ -20,17 +23,22 @@ where its operands lie.  Parameter values differ from the JAX package's
 for the same seed; `lm_params_from_numpy` carries the JAX tree across.
 
 Modes:
-  train   - causal, no cache, logits
+  train   - causal (bidirectional for encoders), no cache, logits
   prefill - causal forward that also fills the decode cache
   decode  - tokens against the cache at ``cache_len`` (a Python int)
 
+``remat`` (the JAX default, True) recomputes each repeat of a group in
+the backward pass (`torch.utils.checkpoint`), which changes no value;
+``remat_policy`` maps the JAX package's names (`REMAT_POLICIES`).
+
 Not ported, each raising `NotImplementedError` that names its ROADMAP
-item: Mamba, RWKV, GQA attention, modality frontends, sharding (all
-item 12), and activation checkpointing (``remat``, a training option of
-the JAX package).
+item (12): the Mamba and RWKV mixers, the audio and vision frontends,
+int8 experts and sharding (``parallel/``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -58,8 +66,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         kind = cfg.layer_kind(i)
         if kind != "attn":
             _refuse(f"the {kind} mixer", cfg)
-    if cfg.mla is None:
-        _refuse("GQA attention", cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +75,8 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def _init_layer(draw: Draw, cfg: ModelConfig, idx: int) -> Params:
     p: Params = {"ln1": blocks.init_rmsnorm(draw, cfg.d_model, cfg),
-                 "mix": blocks.init_mla(draw, cfg),
+                 "mix": (blocks.init_mla(draw, cfg) if cfg.mla is not None
+                         else blocks.init_attention(draw, cfg)),
                  "ln2": blocks.init_rmsnorm(draw, cfg.d_model, cfg)}
     if cfg.layer_is_moe(idx):
         p["ffn"] = blocks.init_moe(draw, cfg)
@@ -158,25 +165,29 @@ def lm_params_from_numpy(cfg: ModelConfig, params, device=None) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _layer_cache(cfg: ModelConfig, n_rep: int, b: int, s: int, device):
+    """One body position's cache, zeros in the compute type stacked over
+    the group's repeats: the MLA latent ``{"ckv", "kr"}`` or GQA's
+    ``{"k", "v"}``, each (n_rep, B, S, ...)."""
+    cdt = blocks.dtype_of(cfg.compute_dtype)
+    if cfg.mla is not None:
+        shapes = {"ckv": (cfg.mla.kv_lora,), "kr": (cfg.mla.qk_rope_dim,)}
+    else:
+        kv = (cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": kv, "v": kv}
+    return {k: torch.zeros((n_rep, b, s) + shape, dtype=cdt, device=device)
+            for k, shape in shapes.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Stacked cache tree matching the layer groups: per group, per body
-    position, ``{"ckv": (n_rep, B, S, kv_lora), "kr": (n_rep, B, S,
-    rope_dim)}`` zeros in the compute type, on ``device`` (the CUDA
+    position, the layer's cache (`_layer_cache`) on ``device`` (the CUDA
     device when None)."""
     _check_ported(cfg)
     device = resolve_device(device)
-    cdt = blocks.dtype_of(cfg.compute_dtype)
-    m = cfg.mla
-    groups = []
-    for _, length in cfg.scan_groups():
-        n_rep = length // cfg.scan_group
-        groups.append([
-            {"ckv": torch.zeros((n_rep, batch, max_len, m.kv_lora), dtype=cdt,
-                                device=device),
-             "kr": torch.zeros((n_rep, batch, max_len, m.qk_rope_dim),
-                               dtype=cdt, device=device)}
-            for _ in range(cfg.scan_group)])
-    return groups
+    return [[_layer_cache(cfg, length // cfg.scan_group, batch, max_len,
+                          device) for _ in range(cfg.scan_group)]
+            for _, length in cfg.scan_groups()]
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +199,15 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, cache, cache_len,
                  positions, ctx: ShardCtx):
     aux = {}
     h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    o, new_cache = blocks.mla_apply(lp["mix"], h, cfg, positions=positions,
-                                    cache=cache, cache_len=cache_len, ctx=ctx)
+    if cfg.mla is not None:
+        o, new_cache = blocks.mla_apply(lp["mix"], h, cfg,
+                                        positions=positions, cache=cache,
+                                        cache_len=cache_len, ctx=ctx)
+    else:
+        o, new_cache = blocks.attention_apply(
+            lp["mix"], h, cfg, is_local=cfg.layer_is_local(idx),
+            positions=positions, cache=cache, cache_len=cache_len, ctx=ctx,
+            causal=not cfg.encoder_only)
     if cfg.post_norms:
         o = blocks.rms_norm(o, lp["post_ln1"], cfg.norm_eps)
     x = x + o
@@ -227,14 +245,78 @@ def _layer_view(tree, r: int):
     return _tree_map(lambda a: a[r], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` repeats of a stacked layer tree, as views.  One unbind a
+    leaf: under autograd its backward stacks the repeats' gradients once,
+    where a view a repeat would scatter each into a zero leaf."""
+    parts = _tree_map(lambda a: a.unbind(0), tree)
+    return [_pick(parts, r) for r in range(n)]
+
+
+def _pick(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _pick(v, r) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, r) for v in tree]
+    return tree[r]
+
+
+# the JAX package's names: what jax.checkpoint saves under each, as torch
+# ops the selective checkpoint keeps (None: recompute everything;
+# "everything": save everything, i.e. no recomputation)
+REMAT_POLICIES = {
+    None: None,
+    "none": None,
+    "dots": ("mm", "addmm"),                 # dots_with_no_batch_dims_saveable
+    "dots_batch": ("mm", "addmm", "bmm", "baddbmm"),     # dots_saveable
+    "everything": "everything",              # everything_saveable
+}
+
+
+def _remat_wrap(body, remat: bool, remat_policy):
+    """``body`` under activation checkpointing as ``remat`` and
+    ``remat_policy`` ask, when autograd records (no grad: nothing is
+    saved, so nothing is recomputed).  As in JAX, ``remat_policy`` is
+    read only with ``remat``."""
+    if not remat:
+        return body
+    if remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} has no counterpart in "
+            f"repro_torch ({ITEM_12}); it maps "
+            f"{sorted(map(str, REMAT_POLICIES))}")
+    saved = REMAT_POLICIES[remat_policy]
+    if saved == "everything" or not torch.is_grad_enabled():
+        return body
+    from torch.utils import checkpoint as ckpt
+    if saved is None:
+        return lambda x: ckpt.checkpoint(body, x, use_reentrant=False)
+    ops = {getattr(torch.ops.aten, name).default for name in saved}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda x: ckpt.checkpoint(
+        body, x, use_reentrant=False,
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy))
+
+
 def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
-            cache=None, cache_len=None, ctx: ShardCtx = LOCAL):
+            cache=None, cache_len=None, ctx: ShardCtx = LOCAL,
+            remat: bool = True, remat_policy: str | None = None):
     """Returns dict(logits, aux, cache); the cache is updated in place.
+
+    ``remat`` checkpoints each repeat of a layer group (the JAX
+    package's ``jax.checkpoint`` around its scan body) when autograd
+    records; it changes no value.
 
     Raises:
       ValueError: on an unknown ``mode``, or ``mode="decode"`` without a
         cache and ``cache_len``.
-      NotImplementedError: on what the port does not run (module doc).
+      NotImplementedError: on what the port does not run (module doc),
+        or a ``remat_policy`` with no counterpart.
       RuntimeError: on CUDA tensors while TF32 is allowed.
     """
     if mode not in MODES:
@@ -254,18 +336,26 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     new_cache_groups = [] if cache is not None else None
     for gi, (start, length) in enumerate(cfg.scan_groups()):
         g = cfg.scan_group
-        body_params = params["groups"][gi]
+        n_rep = length // g
+        body_params = [_unstack(bp, n_rep) for bp in params["groups"][gi]]
         group_aux: dict = {}
-        for r in range(length // g):
-            for pos in range(g):
-                c = (_layer_view(cache[gi][pos], r) if cache is not None
-                     else None)
-                x, _, aux = _apply_layer(
-                    _layer_view(body_params[pos], r), x, cfg, start + pos,
-                    cache=c, cache_len=cache_len, positions=positions,
-                    ctx=ctx)
-                for k_, v_ in aux.items():
-                    group_aux[k_] = group_aux.get(k_, 0.0) + v_
+        for r in range(n_rep):
+            def group_body(x_, r=r, start=start, gi=gi):
+                """One repeat of the group: its g layers in order."""
+                rep_aux: dict = {}
+                for pos in range(g):
+                    c = (_layer_view(cache[gi][pos], r) if cache is not None
+                         else None)
+                    x_, _, aux = _apply_layer(
+                        body_params[pos][r], x_, cfg, start + pos, cache=c,
+                        cache_len=cache_len, positions=positions, ctx=ctx)
+                    for k_, v_ in aux.items():
+                        rep_aux[k_] = rep_aux.get(k_, 0.0) + v_
+                return x_, rep_aux
+
+            x, rep_aux = _remat_wrap(group_body, remat, remat_policy)(x)
+            for k_, v_ in rep_aux.items():
+                group_aux[k_] = group_aux.get(k_, 0.0) + v_
         if cache is not None:
             new_cache_groups.append(cache[gi])
         for k_, v_ in group_aux.items():

@@ -1,4 +1,4 @@
-"""`repro_torch.optim` - AdamW as plain functions on dicts of tensors
+"""`repro_torch.optim` - AdamW as plain functions on trees of tensors
 (port of `repro.optim`)."""
 
 from repro_torch.optim.adamw import (  # noqa: F401

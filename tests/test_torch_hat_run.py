@@ -19,7 +19,7 @@ spike rates 0, 0.05, 0.5 and 1, B = 2 lanes x T = 3 ticks; the stream's
 edges (one event at address 0, one at n - 1, an empty core, a full
 core); the op's dispatch and errors, and the CUDA wrapper's checks, on
 the CPU; the kernel's quantities a plan binds on the card, and the
-pallas plan's refusal there of a scheme without a kernel branch.
+pallas plan's stream form there for a scheme without a kernel branch.
 """
 
 import dataclasses
@@ -180,26 +180,26 @@ class _OnTheCard:
     device = torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,refused", [(256, True), (64, False)])
+@pytest.mark.parametrize("n,stream_form", [(256, True), (64, False)])
 def test_pallas_plan_on_the_card_refuses_a_scheme_without_kernel_policy(
-        scheme_without_kernel_policy, n, refused):
-    """On the card, impl="pallas" at an n the hat_run kernel takes raises
-    when the plan is bound for a scheme without a kernel branch: no
-    plain-path fallback.  At other n, and on the CPU, the plain versions
-    run it, and the session matches impl="xla" on the same frames."""
+        scheme_without_kernel_policy, n, stream_form):
+    """On the card, impl="pallas" at an n the hat_run kernel takes no
+    longer refuses a scheme without a kernel branch: the plan binds B3's
+    stream form (the AER streams from `hat_encode_cuda`, the scheme's
+    plain latency and energy over them), as the JAX package's pallas tick
+    runs it.  At other n, and on the CPU, the plain versions run it, and
+    the session matches impl="xla" on the same frames."""
     cfg = InterfaceConfig(cores=4, neurons_per_core=n, cam_entries_per_core=16,
                           scheme=scheme_without_kernel_policy, impl="pallas")
     params = random_connectivity(torch.Generator().manual_seed(1), cfg)
     tables = tpipeline.build_tables(params, cfg)
     routing = tpipeline.build_routing_index(params, cfg)
     on_card = params._replace(weights=_OnTheCard())
-    if refused:
-        with pytest.raises(ValueError, match="registers no kernel_policy"):
-            tpipeline.make_plan(on_card, cfg, tables=tables, routing=routing)
-    else:
-        assert tpipeline.make_plan(on_card, cfg, tables=tables,
-                                   routing=routing).hat.args is None
-    assert tpipeline.make_plan(params, cfg).hat.args is None
+    hat = tpipeline.make_plan(on_card, cfg, tables=tables,
+                              routing=routing).hat
+    assert hat.args is None and hat.stream_form is stream_form
+    cpu = tpipeline.make_plan(params, cfg).hat
+    assert cpu.args is None and not cpu.stream_form
     frames = torch.from_numpy(np.random.default_rng(n).random((5, 4, n)) < 0.1)
     got = Interface(cfg).compile(params, device="cpu").run(frames)
     want = Interface(dataclasses.replace(cfg, impl="xla")).compile(
@@ -207,3 +207,41 @@ def test_pallas_plan_on_the_card_refuses_a_scheme_without_kernel_policy(
     assert torch.equal(got[0], want[0])
     for a, b in zip(got[1], want[1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scheme", ["hier_ring", "hier_tree"])
+def test_stream_form_composes_b3_streams_with_the_plain_terms(
+        monkeypatch, scheme):
+    """The stream form's composition, with `hat_encode_cuda` replaced by
+    its plain version on frames that claim the card: the latency and
+    energy of `ref.hat_run_ref` bit for bit, from one launch a run over
+    every (tick, lane, core) bitmap.  hier_ring at n = 512 has no closed
+    form (the simulator gives its latency)."""
+    n = 512
+    cfg = tarb.ArbiterConfig(scheme, n)
+    policy = that_ops.bind_run(
+        tarb.tick_latency_fn(cfg),
+        functools.partial(tarb.encode_energy_units, scheme, n), None,
+        cfg.levels, n, "cuda")
+    assert policy.stream_form and policy.args is None
+    calls = []
+
+    def plain(frames, *, row, stream):
+        from repro_torch.kernels.hat_encode import ref
+        calls.append(tuple(frames.shape))
+        ranks, count, clusters = ref.hat_encode_ref(frames, row=row)
+        return ranks, count, clusters, ref.compact_stream(ranks, count)
+
+    class Frames(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(hat_kernel, "hat_encode_cuda", plain)
+    rng = np.random.default_rng(3)
+    stream = torch.from_numpy(rng.random((LANES, TICKS, CORES, n)) < 0.2)
+    stream[0, 0, 0] = True
+    got = that_ops.hat_run(stream.as_subclass(Frames), policy, impl="pallas")
+    want = that_ops.hat_run(stream, policy)
+    assert calls == [(TICKS, LANES, CORES, n)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(
+            g.as_subclass(torch.Tensor), w)

@@ -696,14 +696,67 @@ def test_hat_run_op_on_cuda_launches_and_never_falls_back():
     want = hat_ref.hat_run_ref(stream[:, 1:], policy.latency_fn,
                                policy.encode_fn)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError, match="registers no kernel_policy"):
-        _hat_policy("hier_tree", 256, kernel_policy=None)
+    streams = _hat_policy("hier_tree", 256, kernel_policy=None)
+    assert streams.stream_form and streams.args is None
     with pytest.raises(ValueError, match="bound for the CPU"):
         hat_ops.hat_run(stream, policy._replace(args=None), impl="pallas")
     with pytest.raises(RuntimeError, match="cudaError_t"):
         hat_kernel.hat_run_cuda(stream[..., :128].contiguous(),
                                 hat_kernel.run_args(4, 128, 4))
     assert hat_kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["hier_ring", "hier_tree"])
+def test_hat_run_stream_form_matches_plain_version(scheme):
+    """A plan with no whole-run branch, bound as make_plan binds it
+    (kernel_policy None; hier_ring at n = 512 has no closed form, so its
+    latency is the simulator's): one hat_encode_cuda launch a run writes
+    the AER streams, and the terms are the plain version's bit for bit."""
+    device = _cuda()
+    stream = _hat_stream(2, 9, 16, 512, 0.05, 4, device)
+    policy = _hat_policy(scheme, 512, None)
+    assert policy.stream_form and policy.args is None
+    before = (hat_kernel.launches, hat_kernel.tick_launches)
+    got = hat_ops.hat_run(stream, policy, impl="pallas")
+    torch.cuda.synchronize()
+    assert (hat_kernel.launches, hat_kernel.tick_launches) == (
+        before[0], before[1] + 1)
+    want = hat_ref.hat_run_ref(stream, policy.latency_fn, policy.encode_fn)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_pallas_session_at_hier_ring_512_matches_xla():
+    """impl="pallas" at hier_ring, 16 x 512: B3's stream form once a run,
+    cam_search once a tick, currents bitwise the xla session's."""
+    device = _cuda()
+    cfg = InterfaceConfig(cores=16, neurons_per_core=512,
+                          cam_entries_per_core=512, scheme="hier_ring",
+                          noc=NocConfig("multicast_tree"), impl="pallas")
+    params = random_connectivity(torch.Generator().manual_seed(5),
+                                 cfg).to(device)
+    session = Interface(cfg).compile(params)
+    assert session.plan.hat.stream_form
+    xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(params)
+    stream = _hat_stream(1, 12, 16, 512, 0.05, 6, device)[0]
+    stream[5] = True
+    before = (hat_kernel.launches, hat_kernel.tick_launches)
+    cur, st = session.run(stream)
+    torch.cuda.synchronize()
+    assert (hat_kernel.launches, hat_kernel.tick_launches) == (
+        before[0], before[1] + 1)
+    want_cur, want_st = xla.run(stream)
+    assert torch.equal(cur, want_cur)
+    for name, a, b in zip(st._fields, st, want_st):
+        if name in ("events", "cam_searches", "noc_hops", "chip_hops"):
+            assert torch.equal(a, b), name
+        else:
+            assert torch.allclose(a, b, rtol=1e-6, atol=0), name
+    with pytest.raises(ValueError, match="pallas_sparse' is unsupported"):
+        Interface(dataclasses.replace(cfg, impl="pallas_sparse")).compile(
+            params)
 
 
 @pytest.mark.gpu

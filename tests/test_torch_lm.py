@@ -256,13 +256,6 @@ def test_refusals_name_their_item():
     with pytest.raises(KeyError, match="unknown arch"):
         tregistry.get_config("gpt-2")
     cfg = tdsv2.smoke_config()
-    gqa = dataclasses.replace(cfg, mla=None)
-    with pytest.raises(NotImplementedError, match="GQA attention.*item 12"):
-        tlm.init_model(torch.Generator(), gqa, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tblocks.attention_apply({}, torch.zeros(1, 1, 64), gqa)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tblocks.banded_attention(None, None, None, window=4)
     rwkv = dataclasses.replace(cfg, family="rwkv",
                                rwkv=tconfig.RWKVConfig())
     with pytest.raises(NotImplementedError, match="rwkv mixer.*item 12"):
