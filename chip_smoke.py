@@ -35,7 +35,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     two lanes of a 256-tick burst stream with the AER stream's edges
     (an event at address 0, one at n - 1, an empty and a full core);
     lif_step bitwise at (128, 4096), (8, 512) and (32, 128), with values
-    exactly at the threshold and one ulp below it; moe_dispatch exactly
+    exactly at the threshold and one ulp below it, and on bfloat16 at
+    (128, 4096) and tests/test_kernels.py's four shapes; moe_dispatch exactly
     at the JAX sweep's (M, E) = (256, 16), (2048, 160), (512, 64),
     (4096, 128), at the served streams
     (decode: 4 x 6 events padded to 256, prefill: M = 3072, E = 64) and
@@ -111,7 +112,21 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     and depth (seq_len 4096, batch 2, remat), a finite loss; its restart
     drill bitwise at a 2-layer cut and one step card against CPU at the
     2-layer float32 cut, both under deterministic algorithms; no kernel
-    launches on the dense paths;
+    launches on the dense paths; the rest of the registry (hybrid_lms):
+    rwkv6-3b, jamba-1.5-large-398b (layers 0-1: Mamba + MoE, Mamba +
+    dense), hubert-xlarge (masked frames), phi-3-vision-4.2b (with its
+    576 image patches) and deepseek-v2-236b (bfloat16 and int8 experts)
+    at full width cut to 2 layers, float32 compute, card against CPU
+    (route flips from near ties counted, every B5 launch held to its
+    plain version, int8 against bfloat16 logits within 0.15 relative);
+    one rwkv6-3b training step card against CPU at its cut; rwkv6-3b (4
+    x 128 prompt tokens, 32 new) and jamba's first four layers (B5 once
+    per MoE layer per forward, 66 a generate) served at full width;
+    phi-3-vision-4.2b served through make_prefill_step with 4 x (576
+    patches + 128 tokens) and 32 greedy make_decode_steps; hubert-xlarge
+    encoding 4 x 1024 frames and its loss on a Pipeline audio batch;
+    rwkv6-3b trained at full width and depth (seq_len 4096, batch 2,
+    remat, bfloat16 AdamW moments);
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -136,7 +151,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     dense LMs' prefill ms, decode ms a step, tokens/s, host split,
     device profile and peak memory, and the trained LM's ms a step
     (median and quartiles of 10), its forward/backward/update split,
-    profile and peak memory;
+    profile and peak memory; the same for the served rwkv6-3b, jamba cut
+    and phi-3-vision, the hubert-xlarge encoder's ms a forward, and the
+    trained rwkv6-3b (3 timed steps); lif_step on bfloat16 with L2
+    flushed, beside its bound by bytes;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
 It imports nothing of JAX or of the JAX package.
@@ -204,6 +222,21 @@ DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH = 4096, 2    # train_4k's seq_len
 DENSE_TRAIN_STEPS = 10
 DENSE_DRILL_STEPS, DENSE_DRILL_FAIL, DENSE_DRILL_EVERY = 3, 2, 2
 DENSE_DRILL_SEQ, DENSE_DRILL_BATCH = 256, 2
+# the rest of the registry: RWKV6, the Jamba hybrid, the audio and vision
+# frontends and deepseek-v2-236b with int8 experts, each at full width cut
+# to 2 layers in float32, card against CPU; rwkv6-3b served and trained,
+# jamba's first JAMBA_LAYERS layers served, phi-3-vision served after its
+# image prefix, hubert-xlarge encoding
+HYBRID_CUTS = ("rwkv6-3b", "jamba-1.5-large-398b", "hubert-xlarge",
+               "phi-3-vision-4.2b", "deepseek-v2-236b")
+JAMBA_LAYERS = 4                # Mamba + MoE, Mamba, Mamba + MoE, attention
+VISION_PROMPT = 128             # text tokens after phi-3-vision's patches
+AUDIO_BATCH, AUDIO_FRAMES = 4, 1024
+AUDIO_RUNS = 3
+RWKV_TRAIN_SEQ, RWKV_TRAIN_BATCH = 4096, 2      # train_4k's seq_len
+RWKV_TRAIN_STEPS = 3
+INT8_REL = 0.15                 # tests/test_perf_variants.py's bound
+LIF_BF16_SHAPES = ((128, 4096), (8, 512), (16, 1024), (8, 4096), (32, 128))
 SERVE_TENANTS = 8               # benchmarks/noc_bench.py --serve's default
 SERVE_FLUSH = 16
 SERVE_TICKS = 64                # tenant i submits 64 - 8 (i % 4) a round
@@ -232,6 +265,13 @@ TRAIN_SPLIT_STEPS = 10          # steps timed by stage
 # also held, element by element within 1e-6 of the leaf's largest, to
 # the CPU port's adamw.update of the card's own gradient.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# RWKV6's chunked WKV factors its decay as exp(lw_before) and
+# exp(-lw_cum), |lw_cum| up to 64: the two factors' gradients are large
+# and nearly cancel, so float32 summation order moves every gradient by
+# ~3e-4 of its norm (the CPU port against JAX at rwkv6-3b's smoke config:
+# 4.05e-4 of the leaf's largest at worst); its training step is held to
+# ten times that
+RWKV_GRAD_RTOL, RWKV_GRAD_ATOL = 1e-3, 1e-3
 # card against CPU on the same inputs, float32 softmax and sums in
 # another order: route weights, aux and z losses (an H100 read 1.9e-6),
 # and the logits of the 2-layer full-width float32 cut (an H100 read
@@ -423,6 +463,63 @@ def route_gap(card, cpu, label):
     return gap
 
 
+def routed_card_vs_cpu(label, k, card_route, cpu_route, card_logits,
+                       cpu_logits):
+    """Hold teacher-forced logits of a model with one MoE layer, card
+    against CPU from the same parameters, and that layer's routes.
+
+    The MoE layer's router sees the layers before it, which the card sums
+    in another order: a token whose top-k gates are nearly tied may choose
+    another expert there (a flip, counted), and through the shared
+    capacity a later token of that expert may be kept on one side and
+    dropped on the other.  Every other token must agree: logits within
+    LOGIT_RTOL / LOGIT_ATOL, route weights within ROUTE_RTOL /
+    ROUTE_ATOL, kept events equal.  Returns what was read, as text."""
+    (c_args, _, rc), (p_args, _, rp) = card_route, cpu_route
+    vocab = card_logits.shape[-1]
+    logit_in_gap = float((c_args[0].cpu() - p_args[0]).abs().max())
+    gates_c = torch.softmax(c_args[0].cpu().float(), -1)
+    gates_p = torch.softmax(p_args[0].float(), -1)
+    flips = (rc.expert_ids.cpu() != rp.expert_ids).any(-1)
+    cascade = ~flips & (rc.kept.cpu() != rp.kept).any(-1)
+    top = torch.sort(gates_p, -1, descending=True).values[:, :k + 1]
+    tie_gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+    drift = (gates_c - gates_p).abs().amax(-1)
+    for t in flips.nonzero()[:, 0].tolist():
+        check(float(tie_gap[t]) <= 2 * float(drift[t]) + 1e-7,
+              f"{label}: token {t} chose other experts on the card without "
+              f"a near tie: top-{k + 1} gate gap {float(tie_gap[t])}, gates "
+              f"differ by {float(drift[t])}")
+    if bool(cascade.any()):
+        check(bool(flips.any()) and int(flips.nonzero()[0]) <
+              int(cascade.nonzero()[0]), f"{label}: a kept/dropped event "
+              f"differs with no earlier flip to explain it")
+    same = ~(flips | cascade)
+    check(bool(same.any()), f"{label}: every token's route differs")
+    lc = card_logits.cpu().reshape(-1, vocab)[same]
+    lp = cpu_logits.reshape(-1, vocab)[same]
+    logit_gap = float((lc - lp).abs().max())
+    check(torch.allclose(lc, lp, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          f"{label}: logits card vs CPU beyond rtol {LOGIT_RTOL} / atol "
+          f"{LOGIT_ATOL}: max {logit_gap}")
+    weight_gap = float((rc.weights.cpu() - rp.weights)[same].abs().max())
+    check(torch.allclose(rc.weights.cpu()[same], rp.weights[same],
+                         rtol=ROUTE_RTOL, atol=ROUTE_ATOL),
+          f"{label}: route weights beyond tolerance: {weight_gap}")
+    check(torch.equal(rc.event_slot.cpu()[same] >= 0, rp.kept[same]),
+          f"{label}: kept events differ")
+    if not bool(flips.any()):
+        route_gap(rc, rp, label)
+    return (f"the MoE layer's gate logits differ by at most "
+            f"{logit_in_gap:.3e}; route flips from near ties "
+            f"{int(flips.sum())} of {flips.numel()} tokens, kept/dropped "
+            f"changes they cascade into {int(cascade.sum())}; on the "
+            f"{int(same.sum())} other tokens logits max abs diff "
+            f"{logit_gap:.3e} (within rtol {LOGIT_RTOL} / atol {LOGIT_ATOL}; "
+            f"largest logit {float(lp.abs().max()):.3f}) and route weights "
+            f"{weight_gap:.3e} (within rtol {ROUTE_RTOL} / atol {ROUTE_ATOL})")
+
+
 def served_lm(dev, tag, reset_launches, read_launches, no_launch):
     """The served DeepSeek-V2-Lite: the model cut to two layers at full
     width, card against CPU; then the full model served on the card,
@@ -440,12 +537,8 @@ def served_lm(dev, tag, reset_launches, read_launches, no_launch):
     gen = torch.Generator(dev).manual_seed(SEED + 4)
 
     # ---- the model cut to its dense layer and one MoE layer, float32,
-    # teacher-forced on the card and on the CPU from the same parameters.
-    # Layer 1's router sees layer 0's output, which the card sums in
-    # another order: a token whose top-k gates are nearly tied may choose
-    # another expert there (a flip, counted), and through the shared
-    # capacity a later token of that expert may be kept on one side and
-    # dropped on the other.  Every other token must agree.
+    # teacher-forced on the card and on the CPU from the same parameters
+    # (route flips from near ties: `routed_card_vs_cpu`)
     small = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
     params = lm.init_model(torch.Generator(dev).manual_seed(SEED), small)
     cpu_params = tree_to(params, "cpu")
@@ -456,54 +549,15 @@ def served_lm(dev, tag, reset_launches, read_launches, no_launch):
     with Capture(event_router, "hat_route") as cpu_routes:
         cpu = lm.forward(cpu_params, {"tokens": tokens.cpu()}, small)
     check(len(card_routes) == len(cpu_routes) == 1, "one MoE layer routes")
-    (c_args, _, rc), (p_args, _, rp) = card_routes[0], cpu_routes[0]
-    k = cfg.moe.top_k
-    logit_in_gap = float((c_args[0].cpu() - p_args[0]).abs().max())
-    gates_c = torch.softmax(c_args[0].cpu().float(), -1)
-    gates_p = torch.softmax(p_args[0].float(), -1)
-    flips = (rc.expert_ids.cpu() != rp.expert_ids).any(-1)
-    cascade = ~flips & (rc.kept.cpu() != rp.kept).any(-1)
-    top = torch.sort(gates_p, -1, descending=True).values[:, :k + 1]
-    tie_gap = (top[:, :-1] - top[:, 1:]).min(-1).values
-    drift = (gates_c - gates_p).abs().amax(-1)
-    for t in flips.nonzero()[:, 0].tolist():
-        check(float(tie_gap[t]) <= 2 * float(drift[t]) + 1e-7,
-              f"token {t} chose other experts on the card without a near "
-              f"tie: top-{k + 1} gate gap {float(tie_gap[t])}, gates "
-              f"differ by {float(drift[t])}")
-    if bool(cascade.any()):
-        check(bool(flips.any()) and int(flips.nonzero()[0]) <
-              int(cascade.nonzero()[0]), "a kept/dropped event differs "
-              "with no earlier flip to explain it")
-    same = ~(flips | cascade)
-    check(bool(same.any()), "every token's route differs")
-    lc = card["logits"].cpu().reshape(-1, cfg.vocab)[same]
-    lp = cpu["logits"].reshape(-1, cfg.vocab)[same]
-    logit_gap = float((lc - lp).abs().max())
     check(bool(card["logits"].isfinite().all())
           and card["logits"].shape == (LM_CHECK_BATCH, LM_CHECK_TOKENS,
                                        cfg.vocab), "reduced logits shape")
-    check(torch.allclose(lc, lp, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
-          f"reduced-depth logits card vs CPU beyond rtol {LOGIT_RTOL} / atol "
-          f"{LOGIT_ATOL}: max {logit_gap}")
-    weight_gap = float((rc.weights.cpu() - rp.weights)[same].abs().max())
-    check(torch.allclose(rc.weights.cpu()[same], rp.weights[same],
-                         rtol=ROUTE_RTOL, atol=ROUTE_ATOL),
-          f"reduced-depth route weights beyond tolerance: {weight_gap}")
-    check(torch.equal(rc.event_slot.cpu()[same] >= 0, rp.kept[same]),
-          "reduced-depth kept events differ")
-    if not bool(flips.any()):
-        route_gap(rc, rp, "reduced-depth layer 1")
+    held = routed_card_vs_cpu("reduced-depth layer 1", cfg.moe.top_k,
+                              card_routes[0], cpu_routes[0], card["logits"],
+                              cpu["logits"])
     print(f"LM card vs CPU port, full width cut to 2 layers (dense layer 0, "
           f"MoE layer 1), float32, teacher-forced on {LM_CHECK_BATCH} x "
-          f"{LM_CHECK_TOKENS} tokens: layer 1 gate logits differ by at most "
-          f"{logit_in_gap:.3e}; route flips from near ties "
-          f"{int(flips.sum())} of {flips.numel()} tokens, kept/dropped "
-          f"changes they cascade into {int(cascade.sum())}; on the "
-          f"{int(same.sum())} other tokens logits max abs diff "
-          f"{logit_gap:.3e} (within rtol {LOGIT_RTOL} / atol {LOGIT_ATOL}; "
-          f"largest logit {float(lp.abs().max()):.3f}) and route weights "
-          f"{weight_gap:.3e} (within rtol {ROUTE_RTOL} / atol {ROUTE_ATOL})")
+          f"{LM_CHECK_TOKENS} tokens: {held}")
     del params, cpu_params, card, cpu, card_routes, cpu_routes
     torch.cuda.empty_cache()
 
@@ -1195,7 +1249,6 @@ def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
     sys.path.insert(0, os.path.join(root, "examples"))
     import snn_multicore_torch as example
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.ckpt.manager import tree_leaves
     from repro_torch.configs import paper_dynaps
     from repro_torch.data.pipeline import SNNPipeline
     from repro_torch.ft import FailureInjector, run_with_restarts
@@ -1214,10 +1267,6 @@ def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
         params, topo = snn.init_snn(torch.Generator().manual_seed(0), cfg,
                                     device=device)
         return (params, adamw.init(opt_cfg, params)), topo
-
-    def bitwise(a, b):
-        return all(x.dtype == y.dtype and torch.equal(x, y)
-                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
     state0, topo = fresh(dev)
     step = functools.partial(snn.train_step, topology=topo, cfg=cfg,
@@ -1364,7 +1413,7 @@ def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
             state, _ = step(state, pipe.batch(i))
         return state
     first, second = run(DRILL_STEPS), run(DRILL_STEPS)
-    check(bitwise(first, second), f"two uninterrupted {DRILL_STEPS}-step "
+    check(tree_bitwise(first, second), f"two uninterrupted {DRILL_STEPS}-step "
           f"runs on the card differ")
     registry, logs = MetricsRegistry(), []
     with tempfile.TemporaryDirectory() as d:
@@ -1381,7 +1430,7 @@ def trained_snn(dev, tag, reset_launches, read_launches, no_launch, root):
           and len(history) == DRILL_STEPS - resumed,
           f"restart drill: {logs}")
     check(drilled[0]["w_in"].device == first[0]["w_in"].device
-          and bitwise(drilled, first),
+          and tree_bitwise(drilled, first),
           "restart drill's final state != the uninterrupted run's")
     print(f"train snn on the card: two uninterrupted {DRILL_STEPS}-step "
           f"runs bitwise equal; run_with_restarts with a failure at step "
@@ -1527,17 +1576,17 @@ def pallas_stream_form(dev, tag, reset_launches, read_launches, no_launch,
     return launches["hat_encode_one_tick"]
 
 
-def lm_tree_gap(card, cpu):
+def lm_tree_gap(card, cpu, rtol=GRAD_RTOL, atol=GRAD_ATOL):
     """The largest |card - cpu| over two trees of tensors, and whether
-    every leaf is within rtol GRAD_RTOL / atol GRAD_ATOL of the CPU
-    leaf's largest magnitude."""
+    every leaf is within ``rtol`` of each element plus ``atol`` of the
+    CPU leaf's largest magnitude."""
     gap, ok = 0.0, True
     for a, b in zip(_leaves(card), _leaves(cpu)):
         a = a.detach().cpu().float()
         b = b.detach().float()
         d = (a - b).abs()
         gap = max(gap, float(d.max()))
-        ok &= bool((d <= GRAD_RTOL * b.abs() + GRAD_ATOL
+        ok &= bool((d <= rtol * b.abs() + atol
                     * float(b.abs().max())).all())
     return gap, ok
 
@@ -1555,13 +1604,11 @@ def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
 
     from repro_torch import configs
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.ckpt.manager import tree_leaves
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.ft import FailureInjector, run_training, \
         run_with_restarts
     from repro_torch.models import blocks, lm
     from repro_torch.optim import adamw
-    from repro_torch.serve.lm_engine import ServeEngine
     from repro_torch.train import step as train_step
 
     gen = torch.Generator(dev).manual_seed(SEED + 5)
@@ -1647,86 +1694,8 @@ def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
     # ---- internlm2-1.8b trained at full width and depth --------------------
     cfg = configs.get_config("internlm2-1.8b")
     opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
-    torch.cuda.reset_peak_memory_stats()
-    state = train_step.init_state(torch.Generator(dev).manual_seed(SEED),
-                                  cfg, opt)
-    pipe = Pipeline(cfg, DataConfig(global_batch=DENSE_TRAIN_BATCH,
-                                    seq_len=DENSE_TRAIN_SEQ, seed=SEED),
-                    device=dev)
-    step = train_step.make_train_step(cfg, opt, remat=True)
-    n_params = sum(t.numel() for t in tree_leaves(state.params))
-    reset_launches()
-    state, m = step(state, pipe.batch(0))            # warm-up
-    torch.cuda.synchronize()
-    check(read_launches() == no_launch, "LM training launched a kernel")
-    check(math.isfinite(float(m["loss"])), f"LM training loss {m['loss']}")
-    step_ms, losses = [], [float(m["loss"])]
-    for i in range(1, 1 + DENSE_TRAIN_STEPS):
-        batch = pipe.batch(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
-    check(all(math.isfinite(x) for x in losses), f"LM losses {losses}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    q1, med, q3 = statistics.quantiles(step_ms, n=4)
-    tokens = DENSE_TRAIN_BATCH * DENSE_TRAIN_SEQ
-    print(f"trained LM {cfg.name} at full width and depth ({n_params} "
-          f"float32 parameters, AdamW float32 moments), seq_len "
-          f"{DENSE_TRAIN_SEQ}, batch {DENSE_TRAIN_BATCH}, remat=True: "
-          f"losses {[round(x, 4) for x in losses]}; peak "
-          f"{peak:.2f} GiB allocated")
-    print(f"{tag} trained LM {cfg.name}: median {med:.3f} ms/step "
-          f"(quartiles {q1:.3f}-{q3:.3f}; {DENSE_TRAIN_STEPS} steps after a "
-          f"warm-up, host clock, synchronized) = "
-          f"{tokens / med * 1e3:.1f} tokens/s")
-
-    # the split: each stage synchronized at its ends
-    spent = {}
-
-    def synced(label, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t
-            return out
-        return wrapper
-
-    stages = (("forward (lm.forward)", lm, "forward"),
-              ("backward (torch.autograd.grad, remat's recompute in it)",
-               torch.autograd, "grad"),
-              ("update (adamw.update)", adamw, "update"))
-    saved = [(o, a, getattr(o, a)) for _, o, a in stages]
-    batch = pipe.batch(DENSE_TRAIN_STEPS + 1)
-    for label, owner, attr in stages:
-        setattr(owner, attr, synced(label, getattr(owner, attr)))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for owner, attr, orig in saved:
-            setattr(owner, attr, orig)
-    parts = "; ".join(f"{k} {v * 1e3:.3f}" for k, v in spent.items())
-    print(f"{tag} trained LM step split (each stage synchronized): total "
-          f"{total * 1e3:.3f} ms = {parts}; the rest (loss, tree walks) "
-          f"{(total - sum(spent.values())) * 1e3:.3f}")
-    wall_us, events = device_events(lambda: step(state, batch), captures=2)
-    check(bool(events), "the profiler recorded no device op in a step")
-    busy_us = sum(e.device_time_total for e in events)
-    print(f"{tag} profile trained LM step: wall {wall_us:.1f} us (host "
-          f"clock, profiler on), device busy {busy_us:.1f} us in "
-          f"{len(events)} device ops, idle share "
-          f"{1 - busy_us / wall_us:.4f}")
-    print_top(tag, events, 10)
-    del state, step, m, batch
-    torch.cuda.empty_cache()
+    train_lm_full(dev, tag, reset_launches, read_launches, no_launch, cfg,
+                  opt, DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH, DENSE_TRAIN_STEPS)
     lap("trained internlm2-1.8b")
 
     # ---- the restart drill at a 2-layer cut (bitwise) ----------------------
@@ -1739,10 +1708,6 @@ def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
     def fresh():
         return train_step.init_state(torch.Generator(dev).manual_seed(SEED),
                                      cut, opt)
-
-    def bitwise(a, b):
-        return all(x.dtype == y.dtype and torch.equal(x, y)
-                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
     # both the drill and the card-vs-CPU step hold the card to itself
     # bitwise: the embedding's backward accumulates repeated tokens, which
@@ -1766,15 +1731,15 @@ def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
                 logger=logs.append)
         resumed = DENSE_DRILL_FAIL - DENSE_DRILL_FAIL % DENSE_DRILL_EVERY
         lap("restart drill")
-        dense_step_card_vs_cpu(dev, cut, opt, bitwise)
+        dense_step_card_vs_cpu(dev, cut, opt)
         lap("one step card vs CPU")
     finally:
         torch.use_deterministic_algorithms(False)
     check(any(f"resumed from step {resumed}" in line for line in logs)
           and len(history) == DENSE_DRILL_STEPS - resumed,
           f"LM restart drill: {logs}")
-    check(bitwise(drilled, clean), "LM restart drill's final state != the "
-          "uninterrupted run's")
+    check(tree_bitwise(drilled, clean), "LM restart drill's final state != "
+          "the uninterrupted run's")
     print(f"train LM {cut.name} cut to 2 layers at full width on the card "
           f"(deterministic algorithms on): {DENSE_DRILL_STEPS} steps at "
           f"seq_len {DENSE_DRILL_SEQ}, batch {DENSE_DRILL_BATCH}; "
@@ -1785,14 +1750,117 @@ def dense_lms(dev, tag, reset_launches, read_launches, no_launch):
     torch.cuda.empty_cache()
 
 
-def dense_step_card_vs_cpu(dev, cut, opt, bitwise):
+def train_lm_full(dev, tag, reset_launches, read_launches, no_launch, cfg,
+                  opt, seq, batch_size, steps):
+    """``cfg`` trained on the card from parameters drawn there: one
+    warm-up step and ``steps`` timed ones at ``seq`` x ``batch_size``
+    tokens, remat on; finite losses, no kernel launched; ms a step
+    (median and quartiles), tokens/s, one step split into forward,
+    backward and update (each stage synchronized), a step's device
+    profile and peak memory."""
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    state = train_step.init_state(torch.Generator(dev).manual_seed(SEED),
+                                  cfg, opt)
+    pipe = Pipeline(cfg, DataConfig(global_batch=batch_size, seq_len=seq,
+                                    seed=SEED), device=dev)
+    step = train_step.make_train_step(cfg, opt, remat=True)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    reset_launches()
+    state, m = step(state, pipe.batch(0))            # warm-up
+    torch.cuda.synchronize()
+    check(read_launches() == no_launch, f"{cfg.name} training launched a "
+          f"kernel")
+    check(math.isfinite(float(m["loss"])), f"{cfg.name} training loss "
+          f"{m['loss']}")
+    step_ms, losses = [], [float(m["loss"])]
+    for i in range(1, 1 + steps):
+        batch = pipe.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"LM losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    q1, med, q3 = statistics.quantiles(step_ms, n=4)
+    tokens = batch_size * seq
+    print(f"trained LM {cfg.name} at full width and depth ({n_params} "
+          f"{cfg.param_dtype} parameters, AdamW {opt.moment_dtype} moments), "
+          f"seq_len {seq}, batch {batch_size}, remat=True: losses "
+          f"{[round(x, 4) for x in losses]}; peak {peak:.2f} GiB allocated")
+    print(f"{tag} trained LM {cfg.name}: median {med:.3f} ms/step "
+          f"(quartiles {q1:.3f}-{q3:.3f}; {steps} steps after a warm-up, "
+          f"host clock, synchronized) = {tokens / med * 1e3:.1f} tokens/s")
+
+    # the split: each stage synchronized at its ends
+    spent = {}
+
+    def synced(label, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t
+            return out
+        return wrapper
+
+    stages = (("forward (lm.forward)", lm, "forward"),
+              ("backward (torch.autograd.grad, remat's recompute in it)",
+               torch.autograd, "grad"),
+              ("update (adamw.update)", adamw, "update"))
+    saved = [(o, a, getattr(o, a)) for _, o, a in stages]
+    batch = pipe.batch(steps + 1)
+    for label, owner, attr in stages:
+        setattr(owner, attr, synced(label, getattr(owner, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+    parts = "; ".join(f"{k} {v * 1e3:.3f}" for k, v in spent.items())
+    print(f"{tag} trained LM {cfg.name} step split (each stage synchronized):"
+          f" total {total * 1e3:.3f} ms = {parts}; the rest (loss, tree "
+          f"walks) {(total - sum(spent.values())) * 1e3:.3f}")
+    wall_us, events = device_events(lambda: step(state, batch), captures=2)
+    check(bool(events), "the profiler recorded no device op in a step")
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"{tag} profile trained LM {cfg.name} step: wall {wall_us:.1f} us "
+          f"(host clock, profiler on), device busy {busy_us:.1f} us in "
+          f"{len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}")
+    print_top(tag, events, 10)
+    del state, step, m, batch
+    torch.cuda.empty_cache()
+
+
+def tree_bitwise(a, b) -> bool:
+    """Two trees of tensors equal leaf by leaf, types and bits."""
+    from repro_torch.ckpt.manager import tree_leaves
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def dense_step_card_vs_cpu(dev, cut, opt, grad_rtol=GRAD_RTOL,
+                           grad_atol=GRAD_ATOL):
     """One training step of ``cut`` in float32 on the card and on the CPU
     port from the same parameters and batch: the loss within 1e-5
-    relative, gradients within GRAD_RTOL / GRAD_ATOL of each leaf's
-    largest, parameters within what that gap can move them (AdamW's first
-    step moves an element by about lr g / (|g| + eps), so a gap of tol by
-    at most 2 lr min(1, tol / |g|)); and the card's step bitwise
-    `adamw.update` of the card's own gradient."""
+    relative, gradients within ``grad_rtol`` of each element plus
+    ``grad_atol`` of each leaf's largest, parameters within what that gap
+    can move them (AdamW's first step moves an element by about lr g /
+    (|g| + eps), so a gap of tol by at most 2 lr min(1, tol / |g|)); and
+    the card's step bitwise `adamw.update` of the card's own gradient."""
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models import blocks
@@ -1818,16 +1886,17 @@ def dense_step_card_vs_cpu(dev, cut, opt, bitwise):
     loss_gap = abs(float(grads["card"][0]) - float(grads["cpu"][0]))
     check(math.isclose(float(grads["card"][0]), float(grads["cpu"][0]),
                        rel_tol=1e-5), f"LM step loss card vs CPU: {loss_gap}")
-    grad_gap, ok = lm_tree_gap(grads["card"][1], grads["cpu"][1])
-    check(ok, f"LM step gradients card vs CPU beyond rtol {GRAD_RTOL} / "
-          f"atol {GRAD_ATOL} of each leaf's largest: max {grad_gap}")
+    grad_gap, ok = lm_tree_gap(grads["card"][1], grads["cpu"][1], grad_rtol,
+                               grad_atol)
+    check(ok, f"LM step gradients card vs CPU beyond rtol {grad_rtol} / "
+          f"atol {grad_atol} of each leaf's largest: max {grad_gap}")
     new_card, mc = train_step.make_train_step(cut32, opt)(
         card_state, tree_to(cbatch, dev))
     own, _, _ = adamw.update(
         opt, tree_unflatten(card_state.params, grads["card"][1]),
         card_state.opt, card_state.params)
-    check(bitwise(new_card.params, own), "the card's step != adamw.update "
-          "of the card's own gradient")
+    check(tree_bitwise(new_card.params, own), "the card's step != "
+          "adamw.update of the card's own gradient")
     new_cpu, _ = train_step.make_train_step(cut32, opt)(cpu_state, cbatch)
     lr = float(mc["lr"])
     param_gap = 0.0
@@ -1835,7 +1904,7 @@ def dense_step_card_vs_cpu(dev, cut, opt, bitwise):
                        tree_leaves(new_cpu.params),
                        tree_leaves(grads["cpu"][1])):
         a, b, g = a.cpu(), b, g.abs()
-        tol = GRAD_RTOL * g + GRAD_ATOL * float(g.max())
+        tol = grad_rtol * g + grad_atol * float(g.max())
         bound = (2 * lr * torch.clamp(tol / g.clamp_min(1e-30), max=1.0)
                  + 1e-6 * float(b.abs().max()))
         param_gap = max(param_gap, float((a - b).abs().max()))
@@ -1846,11 +1915,353 @@ def dense_step_card_vs_cpu(dev, cut, opt, bitwise):
           f"vs CPU port on {LM_CHECK_BATCH} x {DENSE_CHECK_TOKENS} tokens: "
           f"loss {float(grads['cpu'][0]):.6f}, diff {loss_gap:.3e} (rtol "
           f"1e-5); gradients max abs diff {grad_gap:.3e} (within rtol "
-          f"{GRAD_RTOL} / atol {GRAD_ATOL} of each leaf's largest); "
+          f"{grad_rtol} / atol {grad_atol} of each leaf's largest); "
           f"parameters max abs diff {param_gap:.3e} (within 2 lr min(1, "
           f"gradient tolerance / |g|) + 1e-6 of each leaf's largest); the "
           f"card's step bitwise adamw.update of its own gradient")
     del card_state, cpu_state, new_card, new_cpu, own, grads
+    torch.cuda.empty_cache()
+
+
+def hybrid_lms(dev, tag, reset_launches, read_launches, no_launch):
+    """The rest of the registry on the card: each of rwkv6-3b, jamba (its
+    Mamba + MoE and Mamba + dense layers), hubert-xlarge, phi-3-vision
+    (with its image prefix) and deepseek-v2-236b (bfloat16 and int8
+    experts) at full width cut to 2 layers, float32 compute, card against
+    the CPU port (int8 against bfloat16 logits within INT8_REL); one
+    training step card against CPU at rwkv6-3b's cut; rwkv6-3b served at
+    full width and depth; jamba's first JAMBA_LAYERS layers served at
+    full width (B5 once per MoE layer per forward, every launch held to
+    its plain version); phi-3-vision served after its image prefix;
+    hubert-xlarge encoding; rwkv6-3b trained at full width and depth.
+    Returns the B5 launches of one served jamba generate."""
+    from repro_torch import configs
+    from repro_torch.core import event_router
+    from repro_torch.data.pipeline import AUDIO_MASK_RATE
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+    from repro_torch.models import blocks, lm, mamba, rwkv6
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"hybrid LM phase {what}: {now - clock[0]:.1f} s (host clock)")
+        clock[0] = now
+
+    def hold_b5(calls, label):
+        """Every captured B5 launch against its plain version on the same
+        expert ids, integer for integer."""
+        for args, _, (pos, load) in calls:
+            want_pos, want_load = moe_ref.dispatch_positions_ref(*args)
+            check(torch.equal(pos, want_pos) and torch.equal(load, want_load),
+                  f"{label}: B5 differs from its plain version at "
+                  f"{args[0].numel()} events x {args[1]} experts")
+        return len(calls)
+
+    def inputs(cfg, batch, tokens):
+        """A batch of ``cfg``'s family on the card: tokens, audio frames
+        with a mask, or tokens after the full image prefix."""
+        fe = cfg.frontend
+        if fe.kind == "audio":
+            return {"frames": torch.randn((batch, tokens, fe.d_in),
+                                          generator=gen, device=dev),
+                    "mask": torch.rand((batch, tokens), generator=gen,
+                                       device=dev) < AUDIO_MASK_RATE}
+        out = {"tokens": torch.randint(0, cfg.vocab, (batch, tokens),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)}
+        if fe.kind == "vision":
+            out["image_embeds"] = torch.randn((batch, fe.max_prefix,
+                                               fe.d_in), generator=gen,
+                                              device=dev)
+        return out
+
+    # ---- each architecture at full width cut to 2 layers, float32 -------
+    def card_vs_cpu(label, cut, batch):
+        """``cut`` drawn on the card and copied to the CPU, teacher-forced
+        on ``batch`` on both; returns the card's logits."""
+        params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cut)
+        note = param_note(params)
+        cpu_params = tree_to(params, "cpu")
+        n_moe = sum(cut.layer_is_moe(i) for i in range(cut.n_layers))
+        reset_launches()
+        with torch.no_grad():
+            with Capture(event_router, "hat_route") as card_routes, \
+                    Capture(moe_kernel, "dispatch_positions_cuda") as b5:
+                card = lm.forward(params, batch, cut)["logits"]
+            torch.cuda.synchronize()
+            launches = read_launches()
+            with Capture(event_router, "hat_route") as cpu_routes:
+                cpu = lm.forward(cpu_params, tree_to(batch, "cpu"),
+                                 cut)["logits"]
+        check(launches == {**no_launch, "moe_dispatch": n_moe},
+              f"{label} forward launched {launches}")
+        held_b5 = hold_b5(b5, label)
+        t = DENSE_CHECK_TOKENS + (cut.frontend.max_prefix
+                                  if cut.frontend.kind == "vision" else 0)
+        check(card.shape == (LM_CHECK_BATCH, t, cut.vocab)
+              and bool(card.isfinite().all()), f"{label} logits "
+              f"shape/finite")
+        if n_moe:
+            check(len(card_routes) == len(cpu_routes) == 1,
+                  f"{label}: one MoE layer routes")
+            held = routed_card_vs_cpu(label, cut.moe.top_k, card_routes[0],
+                                      cpu_routes[0], card, cpu)
+        else:
+            gap = float((card.cpu() - cpu).abs().max())
+            check(torch.allclose(card.cpu(), cpu, rtol=LOGIT_RTOL,
+                                 atol=LOGIT_ATOL),
+                  f"{label} 2-layer full-width logits card vs CPU beyond "
+                  f"rtol {LOGIT_RTOL} / atol {LOGIT_ATOL}: max {gap}")
+            held = (f"logits max abs diff {gap:.3e} (within rtol "
+                    f"{LOGIT_RTOL} / atol {LOGIT_ATOL}; largest logit "
+                    f"{float(cpu.abs().max()):.3f})")
+        print(f"LM {label} card vs CPU port, full width cut to 2 layers "
+              f"({note}), float32 compute, teacher-forced on "
+              f"{LM_CHECK_BATCH} x {t} positions: {held}; B5 launches "
+              f"{held_b5}, each == its plain version")
+        del params, cpu_params, cpu
+        torch.cuda.empty_cache()
+        return card
+
+    for arch in HYBRID_CUTS:
+        cfg = configs.get_config(arch)
+        cut = dataclasses.replace(cfg, n_layers=2,
+                                  scan_group=min(cfg.scan_group, 2),
+                                  compute_dtype="float32")
+        if cfg.family == "hybrid":      # float32 weights: no per-use casts
+            cut = dataclasses.replace(cut, param_dtype="float32")
+        batch = inputs(cut, LM_CHECK_BATCH, DENSE_CHECK_TOKENS)
+        card = card_vs_cpu(arch, cut, batch)
+        if cfg.moe is not None and cfg.family == "moe":
+            int8 = dataclasses.replace(cut, moe=dataclasses.replace(
+                cut.moe, quant_int8=True))
+            card_q = card_vs_cpu(f"{arch} int8 experts", int8, batch)
+            rel = float((card_q - card).abs().max() / card.abs().max())
+            check(0 < rel < INT8_REL, f"{arch}: int8 against bfloat16 "
+                  f"experts, relative logit gap {rel}")
+            print(f"LM {arch} int8 against bfloat16 experts on the card "
+                  f"(the same float32 draws): largest logit gap over the "
+                  f"largest logit {rel:.4f} (under {INT8_REL})")
+            del card_q
+        del card
+        torch.cuda.empty_cache()
+        lap(f"{arch} 2-layer cut card vs CPU")
+
+    rwkv = configs.get_config("rwkv6-3b")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        dense_step_card_vs_cpu(dev, dataclasses.replace(rwkv, n_layers=2),
+                               adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                                 total_steps=100),
+                               RWKV_GRAD_RTOL, RWKV_GRAD_ATOL)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lap("rwkv6-3b one step card vs CPU")
+
+    # ---- served at full width ---------------------------------------------
+    serve_dense(dev, tag, reset_launches, read_launches, no_launch, rwkv,
+                LM_BATCH, LM_PROMPT, gen, stages=(
+                    ("time mix (time_mix_apply)", rwkv6, "time_mix_apply"),
+                    ("  of it wkv_chunked", rwkv6, "wkv_chunked"),
+                    ("  of it wkv_recurrent", rwkv6, "wkv_recurrent"),
+                    ("channel mix (channel_mix_apply)", rwkv6,
+                     "channel_mix_apply"),
+                    ("final norm and head (_head)", lm, "_head")))
+    lap("served rwkv6-3b")
+
+    jamba = configs.get_config("jamba-1.5-large-398b")
+    jcut = dataclasses.replace(jamba, n_layers=JAMBA_LAYERS,
+                               scan_group=JAMBA_LAYERS)
+    pattern = [(jcut.layer_kind(i), jcut.layer_is_moe(i))
+               for i in range(JAMBA_LAYERS)]
+    check(pattern == [("mamba", True), ("mamba", False), ("mamba", True),
+                      ("attn", False)], f"jamba's first block: {pattern}")
+    n_moe = sum(moe for _, moe in pattern)
+    want = {**no_launch, "moe_dispatch": n_moe * (1 + DENSE_NEW_TOKENS)}
+    launches, b5 = serve_dense(
+        dev, tag, reset_launches, read_launches, no_launch, jcut, LM_BATCH,
+        LM_PROMPT, gen, want_launches=want, stages=(
+            ("Mamba (mamba_apply)", mamba, "mamba_apply"),
+            ("  of it _ssm_scan_chunked", mamba, "_ssm_scan_chunked"),
+            ("attention (attention_apply)", blocks, "attention_apply"),
+            ("MoE (moe_apply)", blocks, "moe_apply"),
+            ("  of it hat_route", event_router, "hat_route"),
+            ("  of it _expert_ffn", blocks, "_expert_ffn"),
+            ("dense MLP (mlp_apply)", blocks, "mlp_apply"),
+            ("final norm and head (_head)", lm, "_head")))
+    held = hold_b5(b5, "served jamba")
+    print(f"served jamba-1.5-large-398b cut to its first {JAMBA_LAYERS} layers "
+          f"({pattern}): B5 {launches['moe_dispatch']} launches a generate "
+          f"({n_moe} MoE layers x {1 + DENSE_NEW_TOKENS} forwards, "
+          f"{jcut.moe.num_experts} experts, top-{jcut.moe.top_k}), each of "
+          f"the {held} == its plain version")
+    lap("served jamba 4-layer cut")
+
+    serve_vision(dev, tag, reset_launches, read_launches, no_launch,
+                 configs.get_config("phi-3-vision-4.2b"), gen, inputs)
+    lap("served phi-3-vision-4.2b")
+    encode_audio(dev, tag, reset_launches, read_launches, no_launch,
+                 configs.get_config("hubert-xlarge"), inputs)
+    lap("hubert-xlarge encoding")
+
+    # ---- rwkv6-3b trained at full width and depth ---------------------------
+    # bfloat16 moments, the registry's override for jamba and
+    # deepseek-v2-236b: the functional AdamW update holds the old and the
+    # new trees at once, and seven float32 trees of 12.4 GB are more than
+    # the card holds
+    train_lm_full(dev, tag, reset_launches, read_launches, no_launch, rwkv,
+                  adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100,
+                                    moment_dtype="bfloat16"),
+                  RWKV_TRAIN_SEQ, RWKV_TRAIN_BATCH, RWKV_TRAIN_STEPS)
+    lap("trained rwkv6-3b")
+    return launches["moe_dispatch"]
+
+
+def serve_vision(dev, tag, reset_launches, read_launches, no_launch, cfg,
+                 gen, inputs):
+    """``cfg`` (a vision LM) at full width and depth drawn on the card:
+    `make_prefill_step` on LM_BATCH x (the image prefix + VISION_PROMPT
+    tokens), then DENSE_NEW_TOKENS greedy `make_decode_step`s from
+    cache_len = prefix + prompt; every step's logits finite, two runs
+    equal; prefill ms, decode ms a step, tokens/s, the device profile and
+    peak memory."""
+    from repro_torch.models import lm
+    from repro_torch.serve.lm_engine import make_decode_step, \
+        make_prefill_step
+
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cfg)
+    prefix, steps = cfg.frontend.max_prefix, DENSE_NEW_TOKENS
+    batch = inputs(cfg, LM_BATCH, VISION_PROMPT)
+    start = prefix + VISION_PROMPT
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    @torch.no_grad()
+    def run(n, times=None):
+        cache = lm.init_cache(cfg, LM_BATCH, start + steps)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        spent = [(time.perf_counter() - t) * 1e3]
+        finite, out = [bool(logits.isfinite().all())], []
+        for i in range(n):
+            t = time.perf_counter()
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            out.append(nxt)
+            logits, cache = decode(params, cache, nxt, start + i)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t) * 1e3)
+            finite.append(bool(logits.isfinite().all()))
+        return torch.cat(out, 1), spent, finite
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, _, finite = run(steps)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == no_launch, f"served {cfg.name} launched {launches}")
+    again, spent, finite2 = run(steps)
+    check(all(finite + finite2), f"served {cfg.name}: a step's logits are "
+          f"not finite")
+    check(torch.equal(again, out) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab, f"served {cfg.name}: two greedy "
+          f"runs differ or a token is out of range")
+    dq1, dmed, dq3 = statistics.quantiles(spent[1:], n=4)
+    total_s = sum(spent) / 1e3
+    print(f"main path make_prefill_step + make_decode_step {cfg.name}: "
+          f"{param_note(params)}; {LM_BATCH} requests x ({prefix} image "
+          f"patches of {cfg.frontend.d_in} + {VISION_PROMPT} prompt tokens), "
+          f"{steps} new tokens greedy from cache_len {start}; every step's "
+          f"logits finite, two runs equal; launches {launches}; peak "
+          f"{peak:.2f} GiB allocated")
+    print(f"{tag} served LM {cfg.name}, {LM_BATCH} requests: prefill "
+          f"{spent[0]:.3f} ms ({LM_BATCH} x {start} positions); decode "
+          f"median {dmed:.3f} ms/step (quartiles {dq1:.3f}-{dq3:.3f}, "
+          f"{steps} steps); {total_s * 1e3:.3f} ms in all = "
+          f"{LM_BATCH * steps / total_s:.3f} new tokens/s (host clock, each "
+          f"step synchronized); peak {peak:.2f} GiB")
+    wall_us, events = device_events(lambda: run(DENSE_PROFILE_STEPS),
+                                    captures=2)
+    check(bool(events), f"the profiler recorded no device op in "
+          f"{cfg.name}'s run")
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"{tag} profile serve {cfg.name} (prefill and "
+          f"{DENSE_PROFILE_STEPS} decode steps): wall {wall_us:.1f} us (host "
+          f"clock, profiler on), device busy {busy_us:.1f} us in "
+          f"{len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}")
+    print_top(tag, events, 8)
+    del params
+    torch.cuda.empty_cache()
+
+
+def encode_audio(dev, tag, reset_launches, read_launches, no_launch, cfg,
+                 inputs):
+    """``cfg`` (an audio encoder) at full width and depth drawn on the
+    card: forwards on AUDIO_BATCH x AUDIO_FRAMES masked frames, logits
+    finite over its units; ms a forward (median of AUDIO_RUNS), the device
+    profile and peak memory; `loss_fn` on a `Pipeline` audio batch,
+    finite."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import lm
+    from repro_torch.train import step as train_step
+
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cfg)
+    batch = inputs(cfg, AUDIO_BATCH, AUDIO_FRAMES)
+
+    @torch.no_grad()
+    def encode():
+        return lm.forward(params, batch, cfg)["logits"]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits = encode()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == no_launch, f"{cfg.name} launched {launches}")
+    check(logits.shape == (AUDIO_BATCH, AUDIO_FRAMES, cfg.vocab)
+          and bool(logits.isfinite().all()), f"{cfg.name} logits "
+          f"shape/finite")
+    spent = []
+    for _ in range(AUDIO_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t) * 1e3)
+    pipe = Pipeline(cfg, DataConfig(global_batch=AUDIO_BATCH,
+                                    seq_len=AUDIO_FRAMES, seed=SEED),
+                    device=dev)
+    with torch.no_grad():
+        loss, _ = train_step.loss_fn(params, pipe.batch(0), cfg)
+    check(math.isfinite(float(loss)), f"{cfg.name} loss {loss}")
+    print(f"main path lm.forward {cfg.name} (encoder only, no decode): "
+          f"{param_note(params)}, {cfg.compute_dtype} compute; "
+          f"{AUDIO_BATCH} x {AUDIO_FRAMES} frames of {cfg.frontend.d_in} "
+          f"features, {int(batch['mask'].sum())} masked; logits finite over "
+          f"{cfg.vocab} units; launches {launches}; loss_fn on a Pipeline "
+          f"audio batch {float(loss):.4f}; peak {peak:.2f} GiB allocated")
+    med = statistics.median(spent)
+    print(f"{tag} encode {cfg.name}: median {med:.3f} ms a forward of "
+          f"{AUDIO_BATCH} x {AUDIO_FRAMES} frames (runs "
+          f"{', '.join(f'{x:.3f}' for x in spent)}; host clock, "
+          f"synchronized) = {AUDIO_BATCH * AUDIO_FRAMES / med * 1e3:.1f} "
+          f"frames/s; peak {peak:.2f} GiB")
+    wall_us, events = device_events(encode, captures=2)
+    check(bool(events), f"the profiler recorded no device op in "
+          f"{cfg.name}'s forward")
+    busy_us = sum(e.device_time_total for e in events)
+    print(f"{tag} profile encode {cfg.name}: wall {wall_us:.1f} us (host "
+          f"clock, profiler on), device busy {busy_us:.1f} us in "
+          f"{len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}")
+    print_top(tag, events, 8)
+    del params, logits
     torch.cuda.empty_cache()
 
 
@@ -1864,26 +2275,49 @@ def print_top(tag, events, count):
         print(f"{tag}   {us:10.1f} us  x{n:5d}  {key[:90]}")
 
 
+def param_note(params) -> str:
+    """The parameter count and bytes of a tree, by type."""
+    by_type = {}
+    for t in _leaves(params):
+        n, b = by_type.get(t.dtype, (0, 0))
+        by_type[t.dtype] = (n + t.numel(), b + t.numel() * t.element_size())
+    count = sum(n for n, _ in by_type.values())
+    return f"{count} parameters (" + ", ".join(
+        f"{b / 1e9:.2f} GB {str(d).split('.')[-1]}"
+        for d, (_, b) in by_type.items()) + ")"
+
+
 def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
-                batch, prompt, gen):
-    """``cfg`` at full width and depth drawn on the card, served greedy:
-    ``batch`` requests of ``prompt`` tokens, DENSE_NEW_TOKENS new ones;
-    every step's logits finite, two generates equal; prefill ms, decode
-    ms a step, tokens/s, the host split, the device profile and peak
-    memory."""
+                batch, prompt, gen, stages=None, want_launches=None):
+    """``cfg`` at full width drawn on the card, served greedy: ``batch``
+    requests of ``prompt`` tokens, DENSE_NEW_TOKENS new ones; every
+    step's logits finite, two generates equal, the launches of the first
+    ``want_launches`` (none when None); prefill ms, decode ms a step,
+    tokens/s, the host split over ``stages`` (``(label, owner,
+    attribute)``; the GQA attention and MLP when None), the device profile
+    and peak memory.  Returns the launches of one generate and the B5
+    calls it made (``Capture`` records)."""
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
     from repro_torch.models import blocks, lm
     from repro_torch.serve.lm_engine import ServeEngine
 
+    want_launches = no_launch if want_launches is None else want_launches
+    if stages is None:
+        stages = (("attention (attention_apply)", blocks, "attention_apply"),
+                  ("  of it banded_attention", blocks, "banded_attention"),
+                  ("  of it flash_attention", blocks, "flash_attention"),
+                  ("  of it decode_attention", blocks, "decode_attention"),
+                  ("MLP (mlp_apply)", blocks, "mlp_apply"),
+                  ("final norm and head (_head)", lm, "_head"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = lm.init_model(torch.Generator(dev).manual_seed(SEED), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"served LM {cfg.name}: {n_params} parameters ({n_params * 4 / 1e9:.2f}"
-          f" GB float32, {cfg.compute_dtype} compute) drawn on the card in "
-          f"{init_s:.3f} s; groups {cfg.scan_groups()}; "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    print(f"served LM {cfg.name}: {param_note(params)}, {cfg.compute_dtype} "
+          f"compute, drawn on the card in {init_s:.3f} s; groups "
+          f"{cfg.scan_groups()}; {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB allocated")
     prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
                             device=dev, dtype=torch.int32)
     steps = DENSE_NEW_TOKENS
@@ -1904,11 +2338,13 @@ def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    out = engine.generate(prompts, steps)
+    with Capture(moe_kernel, "dispatch_positions_cuda") as b5_calls:
+        out = engine.generate(prompts, steps)
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(launches == no_launch, f"served {cfg.name} launched {launches}")
+    check(launches == want_launches, f"served {cfg.name} launched "
+          f"{launches}, want {want_launches}")
     check(out.shape == (batch, steps) and out.dtype == torch.int32
           and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
           f"served {cfg.name} tokens shape/range")
@@ -1935,13 +2371,8 @@ def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
           f"{steps} steps); generate {gen_s * 1e3:.3f} ms (that run, each "
           f"step synchronized) = {batch * steps / gen_s:.3f} new tokens/s "
           f"(host clock); peak {peak:.2f} GiB")
-    total, spent = host_breakdown(lambda: engine.generate(prompts, steps), (
-        ("attention (attention_apply)", blocks, "attention_apply"),
-        ("  of it banded_attention", blocks, "banded_attention"),
-        ("  of it flash_attention", blocks, "flash_attention"),
-        ("  of it decode_attention", blocks, "decode_attention"),
-        ("MLP (mlp_apply)", blocks, "mlp_apply"),
-        ("final norm and head (_head)", lm, "_head")))
+    total, spent = host_breakdown(lambda: engine.generate(prompts, steps),
+                                  stages)
     top = sum(v for k_, v in spent.items() if not k_.startswith(" "))
     parts = "; ".join(f"{k_.strip()} {v * 1e3:.3f}" for k_, v in spent.items())
     print(f"{tag} host ms per generate {cfg.name} ({1 + steps} forwards): "
@@ -1962,6 +2393,7 @@ def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
     print_top(tag, events, 8)
     del params, engine
     torch.cuda.empty_cache()
+    return launches, b5_calls
 
 
 def _leaves(tree):
@@ -1976,6 +2408,12 @@ def _leaves(tree):
 
 
 def main() -> int:
+    # the phases draw and free models of 5-65 GB one after the other: let
+    # the allocator grow and shrink its segments instead of keeping blocks
+    # that a later phase's tensors cannot reuse (rwkv6-3b's training step,
+    # 65 GiB at its peak, ran out of memory behind 15 GiB of such blocks);
+    # read when CUDA is first initialised
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2480,6 +2918,33 @@ def main() -> int:
               f"{int(at.sum())} values at the threshold and {int(under.sum())}"
               f" an ulp below (v_next and spikes bitwise)")
 
+    # lif_step on bfloat16, bitwise, at the SNN's shape and the JAX test's
+    # (tests/test_kernels.py::test_lif_step_sweep), with values exactly at
+    # the threshold: the kernel rounds the product and then the float32 sum
+    # to bfloat16, as the plain version and JAX do
+    for shape in LIF_BF16_SHAPES:
+        v = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        i = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        at = torch.rand(shape, generator=gen, device=dev) < 1 / 64
+        v[at], i[at] = 0.0, snn_cfg.threshold
+        got = lif_kernel.lif_step_cuda(v, i, snn_cfg.decay,
+                                       snn_cfg.threshold, 0.0)
+        want = lif_ref.lif_step_ref(v, i, **lif_args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("v_next", "spikes"), got, want):
+            check(g.dtype == torch.bfloat16 and torch.equal(
+                g.view(torch.int16), w.view(torch.int16)),
+                f"lif_step bfloat16 {name} differ at {shape}")
+        check(bool(got[1][at].eq(1).all())
+              and 0 < int(got[1].float().sum()) < got[1].numel(),
+              f"lif_step bfloat16 at {shape}: threshold values must fire")
+        print(f"kernel == plain: lif_step {shape} bfloat16, decay "
+              f"{snn_cfg.decay} (bfloat16 {lif_ref.as_bfloat16(snn_cfg.decay)})"
+              f", {int(at.sum())} values at the threshold (v_next and spikes "
+              f"bitwise)")
+
     # moe_dispatch: the JAX sweep's shapes and the served streams, each
     # uniform, on one expert, and with the router's pad id E and stray ids
     moe_cases = [(f"{m}x{e}", torch.randint(0, e, (m,), generator=gen,
@@ -2870,6 +3335,11 @@ def main() -> int:
     # kernel on these paths), after the DeepSeek phase freed its 62.8 GB
     dense_lms(dev, tag, reset_launches, read_launches, no_launch)
 
+    # the rest of the registry: RWKV6, the Jamba hybrid (B5 on its two MoE
+    # layers), the audio and vision frontends, deepseek-v2-236b's cut with
+    # bfloat16 and int8 experts (B5 at 160 experts); rwkv6-3b trained
+    jamba_b5 = hybrid_lms(dev, tag, reset_launches, read_launches, no_launch)
+
     # the fabric serving tier: its checks, launches per flush and times
     serve_per_flush = served_fabric(dev, tag, reset_launches, read_launches,
                                     no_launch)
@@ -3166,6 +3636,20 @@ def main() -> int:
            nbytes(v, i, *lif_outs), 3 * v.numel(), FP32_OPS_PER_S,
            "fp32 ops at 67 TFLOP/s", 2000, cold=True)
     rows[-1].update(train_eval_launches=train_launches["lif_step"])
+    # the same state in bfloat16: 8 bytes an element, the bound by bytes;
+    # cold as the float32 row, beside the plain version
+    vb, ib = v.to(torch.bfloat16), i.to(torch.bfloat16)
+    bf16_outs = lif_kernel.lif_step_cuda(vb, ib, snn_cfg.decay,
+                                         snn_cfg.threshold, 0.0)
+    bf16_ms, bf16_bound = report(
+        "lif_step",
+        lambda: lif_kernel.lif_step_cuda(vb, ib, snn_cfg.decay,
+                                         snn_cfg.threshold, 0.0),
+        "lif_step", lambda: lif_ref.lif_step_ref(vb, ib, **lif_args), None,
+        nbytes(vb, ib, *bf16_outs), 3 * vb.numel(), FP32_OPS_PER_S,
+        "fp32 ops at 67 TFLOP/s: product, sum, compare",
+        2000, cold=True, row=False, label="bfloat16")
+    rows[-1].update(bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound)
 
     # B5 on the path: the first MoE layer's prefill stream (4 x 128 tokens x
     # top-6 = 3072 events, E = 64; the kernels-line row), then a decode
@@ -3189,6 +3673,8 @@ def main() -> int:
                nbytes(ids, *moe_outs), 2 * ids.numel(), INT32_OPS_PER_S,
                "int32 ops at 33.5 TOP/s", 2000, label=label,
                row=label.endswith("prefill stream"))
+    next(r for r in rows if r["name"] == "moe_dispatch").update(
+        jamba_launches_per_generate=jamba_b5)
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """Input data of the port: SNN rasters and LM token batches.
 
 Port of `repro.data.pipeline`: `snn_batch` (rate-coded class rasters)
-and the token family of `Pipeline` (`DataConfig`, `synth_tokens`).  They
+and `Pipeline` (`DataConfig`, `synth_tokens`) for the token, audio and
+vision families.  They
 draw from a `torch.Generator`, so their numbers differ from
 `jax.random`'s for the same seed; the batches have the same shapes and
 statistics.  Give both packages one batch as numpy arrays where bits
@@ -108,14 +109,25 @@ def synth_tokens(generator: torch.Generator, batch: int, seq: int,
     return torch.where(copy_mask, shifted, base).to(torch.int32)
 
 
+AUDIO_MASK_RATE = 0.08      # HuBERT: frames masked, and scored, at 8%
+
+
 class Pipeline:
-    """step -> LM batch ``{"tokens", "labels"}`` (each (global_batch,
-    seq_len) int32; labels the next token, -100 at the last position),
-    a pure function of (seed, step): drawn from a CPU generator seeded by
-    both and placed on ``device`` (the CUDA device when None;
-    ``device="cpu"`` for the CPU), so any step's batch can be regenerated
-    after a restart.  Audio and vision batches raise
-    `NotImplementedError`."""
+    """step -> the LM batch of the model's family, a pure function of
+    (seed, step): drawn from a CPU generator seeded by both and placed on
+    ``device`` (the CUDA device when None; ``device="cpu"`` for the CPU),
+    so any step's batch can be regenerated after a restart.
+
+    - tokens: ``{"tokens", "labels"}``, each (global_batch, seq_len)
+      int32, labels the next token and -100 at the last position;
+    - audio: ``{"frames"}`` (B, S, d_in) float32 N(0, 1), ``{"mask"}``
+      (B, S) bool at rate `AUDIO_MASK_RATE`, ``{"labels"}`` int32 units
+      uniform in [0, vocab) where masked and -100 elsewhere (HuBERT
+      scores the masked frames only);
+    - vision: the token batch plus ``{"image_embeds"}`` (B, max(
+      max_prefix, 1), d_in) float32 N(0, 1).
+
+    The JAX package's distributions, not its numbers."""
 
     def __init__(self, model_cfg, data_cfg: DataConfig, device=None):
         self.mc = model_cfg
@@ -124,19 +136,26 @@ class Pipeline:
 
     def batch(self, step: int) -> dict:
         mc, dc = self.mc, self.dc
-        kind = mc.frontend.kind
-        if kind != "none":
-            raise NotImplementedError(
-                f"{kind} batches are not ported to repro_torch (ROADMAP "
-                f"queue A item 12: the {kind} frontend); use the JAX "
-                f"package `repro`")
+        b, s = dc.global_batch, dc.seq_len
         seed = np.random.SeedSequence([dc.seed, step]).generate_state(1)
         gen = torch.Generator().manual_seed(int(seed[0]))
-        toks = synth_tokens(gen, dc.global_batch, dc.seq_len, mc.vocab, dc)
-        labels = torch.cat([toks[:, 1:], torch.full(
-            (dc.global_batch, 1), -100, dtype=torch.int32)], dim=1)
-        return {"tokens": toks.to(self.device),
-                "labels": labels.to(self.device)}
+        if mc.frontend.kind == "audio":
+            frames = torch.randn((b, s, mc.frontend.d_in), generator=gen)
+            mask = torch.rand((b, s), generator=gen) < AUDIO_MASK_RATE
+            units = torch.randint(0, mc.vocab, (b, s), generator=gen,
+                                  dtype=torch.int32)
+            out = {"frames": frames, "mask": mask,
+                   "labels": torch.where(mask, units, -100).to(torch.int32)}
+        else:
+            toks = synth_tokens(gen, b, s, mc.vocab, dc)
+            out = {"tokens": toks, "labels": torch.cat(
+                [toks[:, 1:], torch.full((b, 1), -100, dtype=torch.int32)],
+                dim=1)}
+            if mc.frontend.kind == "vision":
+                out["image_embeds"] = torch.randn(
+                    (b, max(mc.frontend.max_prefix, 1), mc.frontend.d_in),
+                    generator=gen)
+        return {k: v.to(self.device) for k, v in out.items()}
 
     def __iter__(self):
         step = 0

@@ -9,8 +9,9 @@ the TPU kernel's block rule and raises its `ValueError`, so the same
 calls fail in both packages, and refuses operands that require grad
 (the JAX package runs the kernel for inference only).
 
-Only float32 is ported: the SNN path is float32 throughout, and bfloat16
-(which the JAX op accepts) raises `NotImplementedError`.
+Both impls take float32 and bfloat16, as the JAX op does, each rounding
+as JAX rounds on that type (`ref`); ``v`` and ``current`` must share
+it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.kernels.lif_step import ref
 DEFAULT_BLOCK_B = 8
 DEFAULT_BLOCK_N = 512
 IMPLS = ("xla", "pallas")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_blocks(v) -> None:
@@ -35,22 +37,24 @@ def _check_blocks(v) -> None:
 
 def lif_step(v, current, *, decay: float, threshold: float,
              v_reset: float = 0.0, impl: str = "xla"):
-    """(B, N) float32 membrane update; returns (v_next, spikes).
+    """(B, N) float32 or bfloat16 membrane update; returns (v_next,
+    spikes) in the operands' type.
 
     Raises:
       ValueError: on an unknown ``impl``, or ``impl="pallas"`` with a
         shape that does not divide the TPU kernel's (8, 512) blocks.
-      NotImplementedError: on a dtype other than float32.
+      NotImplementedError: on operands of two types, or of a type other
+        than float32 and bfloat16.
       RuntimeError: ``impl="pallas"`` on an operand that requires grad
         while grad mode is on.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    if v.dtype != torch.float32 or current.dtype != torch.float32:
+    if v.dtype != current.dtype or v.dtype not in DTYPES:
         raise NotImplementedError(
-            f"lif_step on {v.dtype} is not ported to repro_torch (ROADMAP "
-            f"'Surfaces the port refuses': bfloat16 lif_step); the SNN path "
-            f"is float32 - use the JAX package `repro` for other types")
+            f"lif_step on {v.dtype} and {current.dtype} is not ported to "
+            f"repro_torch: v and current must both be float32 or both "
+            f"bfloat16 - use the JAX package `repro` for other types")
     if impl == "xla":
         return ref.lif_step_ref(v, current, decay=decay, threshold=threshold,
                                 v_reset=v_reset)

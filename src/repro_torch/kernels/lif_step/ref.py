@@ -1,13 +1,20 @@
 """Plain torch oracle for the lif_step kernel.
 
-Port of `repro.kernels.lif_step.ref`.  The JAX reference computes
-``v * decay + current`` with one rounding: XLA contracts the multiply
-and the add into a fused multiply-add, in its jitted ``impl="xla"`` path
-as in the Pallas kernel, and the CUDA kernel spells out ``__fmaf_rn``.
-Eager torch rounds the product and then the sum, which differs in about
-a fifth of the membrane values, so this module computes the fused form
-itself (`mul_add_once`): exact in float64, independent of the device
-and of how torch's own kernels were compiled.
+Port of `repro.kernels.lif_step.ref`.  On float32 the JAX reference
+computes ``v * decay + current`` with one rounding: XLA contracts the
+multiply and the add into a fused multiply-add, in its jitted
+``impl="xla"`` path as in the Pallas kernel, and the CUDA kernel spells
+out ``__fmaf_rn``.  Eager torch rounds the product and then the sum,
+which differs in about a fifth of the membrane values, so this module
+computes the fused form itself (`mul_add_once`): exact in float64,
+independent of the device and of how torch's own kernels were compiled.
+
+On bfloat16 JAX rounds twice, under both impls: the three scalars are
+rounded to bfloat16 first (the Pallas kernel's parameter array has the
+operand's type, the ``xla`` reference multiplies by a weakly typed
+float), the product ``v * decay`` (exact in float32) is rounded to
+bfloat16, and the sum is a float32 addition of the two bfloat16 values
+rounded to bfloat16 (`mul_add_bf16`).
 """
 
 from __future__ import annotations
@@ -62,16 +69,33 @@ def mul_add_once(v: torch.Tensor, decay: float, current: torch.Tensor):
     return _MulAddOnce.apply(v, current, as_float32(decay))
 
 
+def as_bfloat16(x: float) -> float:
+    """``x`` rounded to bfloat16 (to nearest, ties to even)."""
+    return torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).item()
+
+
+def mul_add_bf16(v: torch.Tensor, decay: float, current: torch.Tensor):
+    """bfloat16 ``v * decay + current`` rounded as JAX rounds it: the
+    product (exact in float32) to bfloat16, then the float32 sum of the
+    two bfloat16 values to bfloat16.  ``decay`` is rounded to bfloat16
+    first."""
+    prod = (v.float() * as_bfloat16(decay)).to(torch.bfloat16)
+    return (prod.float() + current.float()).to(torch.bfloat16)
+
+
 def lif_step_ref(v: torch.Tensor, current: torch.Tensor, *, decay: float,
                  threshold: float, v_reset: float = 0.0):
     """One leaky-integrate-and-fire update.
 
-    v, current: (..., N) float32
-    returns (v_next, spikes {0,1} float32); ``decay``, ``threshold`` and
-    ``v_reset`` are rounded to float32 first, as the TPU kernel's
+    v, current: (..., N), both float32 or both bfloat16
+    returns (v_next, spikes {0,1}) in that type; ``decay``, ``threshold``
+    and ``v_reset`` are rounded to it first, as the TPU kernel's
     parameter array is.
     """
-    v_new = mul_add_once(v, decay, current)
-    spikes = (v_new >= as_float32(threshold)).to(v.dtype)
-    v_next = torch.where(spikes > 0, as_float32(v_reset), v_new)
+    if v.dtype == torch.bfloat16:
+        v_new, rounded = mul_add_bf16(v, decay, current), as_bfloat16
+    else:
+        v_new, rounded = mul_add_once(v, decay, current), as_float32
+    spikes = (v_new.float() >= rounded(threshold)).to(v.dtype)
+    v_next = torch.where(spikes > 0, rounded(v_reset), v_new)
     return v_next, spikes

@@ -1,11 +1,11 @@
-"""Transformer building blocks of the dense GQA and MLA + MoE paths.
+"""Transformer building blocks of the port's language models.
 
-Port of the parts of `repro.models.blocks` that a dense GQA model
-(with gemma3's banded local layers) or an MLA + MoE model (DeepSeek-V2)
-runs on one device: RMS norm, activations, rotary embeddings, the exact
-chunked attention, banded sliding-window attention, GQA attention with
-its cache decode, MLA attention with its absorbed decode, the SwiGLU MLP
-and the event-routed MoE layer.  Attention stays plain torch, as it is
+Port of `repro.models.blocks` on one device: RMS norm, activations,
+rotary embeddings, the exact chunked attention, banded sliding-window
+attention, GQA attention with its cache decode, MLA attention with its
+absorbed decode, the SwiGLU MLP and the event-routed MoE layer, with
+weight-only int8 experts (``MoEConfig.quant_int8``) dequantized at each
+use as the JAX package does.  Attention stays plain torch, as it is
 plain jnp in the JAX package: the same chunked online softmax, not a
 library attention.
 
@@ -20,9 +20,9 @@ Conventions, as in the JAX package:
   (``preferred_element_type``) are float32 products of the same values
   here, and the expert FFN's products round once to ``compute_dtype``.
 
-Only the single-device path (`LOCAL`) is ported.  A `ShardCtx` with
-``enabled`` (``parallel/``) and int8 experts raise `NotImplementedError`
-naming their ROADMAP item.  On the card,
+Only the single-device path (`LOCAL`) is ported: a `ShardCtx` with
+``enabled`` (``parallel/``) raises `NotImplementedError` naming its
+ROADMAP item.  On the card,
 float32 products must stay full float32: `check_matmul_precision`
 refuses TF32.
 """
@@ -105,6 +105,11 @@ class Draw:
     def zeros(self, shape, dtype=None) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=dtype or self.dtype,
                            device=self.device)
+
+    def const(self, value: torch.Tensor, dtype=None) -> torch.Tensor:
+        """``value`` (a CPU tensor) repeated over the leading axes."""
+        value = value.to(self.device, dtype or self.dtype)
+        return value.expand(self.lead + tuple(value.shape)).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -523,16 +528,25 @@ def mlp_apply(p, x, cfg: ModelConfig):
     return (g * u) @ p["w_down"].to(dt)
 
 
-def _refuse_int8():
-    raise NotImplementedError(
-        f"weight-only int8 experts (MoEConfig.quant_int8) are not ported to "
-        f"repro_torch ({ITEM_12}); use the JAX package `repro`")
+def quantize_int8(w: torch.Tensor):
+    """Weight-only int8 with per-(expert, out-channel) scales, as the JAX
+    package's `init_moe` quantizes: ``scale = max |w| over d_in / 127``
+    (d_in the second-last axis), ``round(w / max(scale, 1e-12))``
+    clipped to +-127.  ``w`` float32 -> (int8 weights, float32 scales
+    with d_in kept as 1).
+
+    The division by 127 is a product with float32(1 / 127), as XLA
+    compiles it under ``jax.jit`` (eager JAX divides, which differs in the
+    last bit of some scales)."""
+    scale = torch.amax(torch.abs(w), dim=-2, keepdim=True) * (
+        torch.tensor(1.0 / 127.0, dtype=torch.float32).item())
+    q = torch.clamp(torch.round(w / torch.clamp_min(scale, 1e-12)),
+                    -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
 
 
 def init_moe(draw: Draw, cfg: ModelConfig) -> Params:
     mo = cfg.moe
-    if mo.quant_int8:
-        _refuse_int8()
     d = cfg.d_model
     pdt = dtype_of(cfg.param_dtype)
     e = mo.num_experts
@@ -540,8 +554,13 @@ def init_moe(draw: Draw, cfg: ModelConfig) -> Params:
     for name, shape in (("w_gate", (e, d, mo.d_expert)),
                         ("w_up", (e, d, mo.d_expert)),
                         ("w_down", (e, mo.d_expert, d))):
-        # the JAX package's fan-in is shape[0], the expert count
-        p[name] = _dense_init(draw, shape, pdt)
+        # drawn in float32, then quantized or cast, as the JAX package
+        # does; its fan-in is shape[0], the expert count
+        w = _dense_init(draw, shape, torch.float32)
+        if mo.quant_int8:
+            p[name], p[name + "_scale"] = quantize_int8(w)
+        else:
+            p[name] = w.to(pdt)
     if mo.num_shared:
         p["shared"] = init_mlp(draw, d, mo.d_expert * mo.num_shared, cfg)
     return p
@@ -549,7 +568,8 @@ def init_moe(draw: Draw, cfg: ModelConfig) -> Params:
 
 def _moe_weight(p, name, dt):
     if name + "_scale" in p:
-        _refuse_int8()
+        # dequantize at each use, in the compute type
+        return p[name].to(dt) * p[name + "_scale"].to(dt)
     return p[name].to(dt)
 
 

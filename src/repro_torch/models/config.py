@@ -4,10 +4,8 @@ A copy of `repro.models.config` (the port imports nothing of the JAX
 package): one dataclass describes every architecture family the JAX
 package builds, and `layer_kind`, `layer_is_local`, `layer_is_moe` and
 `scan_groups` resolve the per-layer pattern the same way, so the port's
-parameter tree stacks layers in the same groups.  Which families the
-port runs is up to `repro_torch.models.lm`: MLA + MoE (DeepSeek-V2) and
-dense GQA with banded local layers; the others raise
-`NotImplementedError` there.
+parameter tree stacks layers in the same groups; `repro_torch.models.lm`
+runs every family.
 """
 
 from __future__ import annotations

@@ -82,9 +82,13 @@ def value_and_grad(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg,
                             ctx, remat, remat_policy)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not read (the token embedding of the audio
+    # frontend, whose head is untied) gets a zero gradient, as in JAX
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            list(grads))
+            grads)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

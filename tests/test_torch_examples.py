@@ -93,3 +93,26 @@ def test_lm_example_runs_end_to_end_on_the_cpu(script, tmp_path):
     proc = _run(code=code, env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "LOADED []" in proc.stdout, proc.stdout[-500:]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b",
+                                  "hubert-xlarge", "phi-3-vision-4.2b",
+                                  "deepseek-v2-236b"])
+def test_lm_examples_take_every_registry_arch(arch, tmp_path):
+    """train_lm_torch.py trains each family's smoke config on its own
+    batches; serve_lm_torch.py serves it, and refuses an encoder-only
+    arch with the JAX example's message."""
+    train = _run("--device", "cpu", "--arch", arch, "--steps", "2",
+                 "--batch", "2", "--seq", "32", "--ckpt-dir",
+                 str(tmp_path / "ckpt"),
+                 script=os.path.join(REPO, "examples", "train_lm_torch.py"))
+    assert train.returncode == 0, train.stderr[-2000:]
+    assert f"[train_lm] {arch}-smoke" in train.stdout
+    serve = _run("--device", "cpu", "--arch", arch, "--steps", "3",
+                 script=os.path.join(REPO, "examples", "serve_lm_torch.py"))
+    if arch == "hubert-xlarge":
+        assert serve.returncode != 0
+        assert f"{arch} is encoder-only - no decode" in serve.stderr
+    else:
+        assert serve.returncode == 0, serve.stderr[-2000:]
+        assert f"[serve] {arch}" in serve.stdout and "lane 3:" in serve.stdout

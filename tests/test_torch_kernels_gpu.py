@@ -834,6 +834,34 @@ def test_lif_step_kernel_matches_plain_version(shape, decay, threshold,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 4096), (8, 512), (16, 1024),
+                                   (8, 4096), (32, 128), (3, 5), (1, 4099)])
+@pytest.mark.parametrize("decay,threshold,v_reset", [(0.9, 1.0, 0.0),
+                                                     (0.7, 0.3, -0.25)])
+def test_lif_step_bfloat16_kernel_matches_plain_version(shape, decay,
+                                                        threshold, v_reset):
+    device = _cuda()
+    v, i = (x.to(torch.bfloat16) for x in _lif_state(shape, sum(shape),
+                                                      threshold, device))
+    before = lif_kernel.launches
+    got = lif_kernel.lif_step_cuda(v, i, decay, threshold, v_reset)
+    torch.cuda.synchronize()
+    assert lif_kernel.launches == before + 1
+    want = lif_ref.lif_step_ref(v, i, decay=decay, threshold=threshold,
+                                v_reset=v_reset)
+    for g, w in zip(got, want):                    # bitwise
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    # the unaligned scalar path: a view one value past a 16-byte boundary
+    flat_v, flat_i = v.reshape(-1)[1:], i.reshape(-1)[1:]
+    got = lif_kernel.lif_step_cuda(flat_v, flat_i, decay, threshold, v_reset)
+    want = lif_ref.lif_step_ref(flat_v, flat_i, decay=decay,
+                                threshold=threshold, v_reset=v_reset)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.gpu
 def test_lif_ops_on_cuda_launch_and_keep_the_block_rule():
     device = _cuda()
     v, i = _lif_state((16, 1024), 3, 1.0, device)

@@ -10,8 +10,16 @@ tolerance 0.  Covered: the JAX test's shapes plus the SNN path's
 (128, 4096), values exactly at and just below the threshold, a
 membrane value where rounding through float64 would round twice, the
 JAX semantics case, the gradient of the ``impl="xla"`` update, and the
-errors: block rule, unknown impl, bfloat16, grad on the kernel path, a
-CPU tensor handed to the CUDA wrapper.
+errors: block rule, unknown impl, mixed and other types, grad on the
+kernel path, a CPU tensor handed to the CUDA wrapper.
+
+On bfloat16 JAX rounds twice, under both impls: the product ``v * decay``
+(exact in float32, ``decay`` rounded to bfloat16 first) to bfloat16,
+then the float32 sum of the two bfloat16 values to bfloat16.  One
+rounding of a float32 fused multiply-add would differ from JAX in about
+a fifth of the membrane values at these shapes; the two roundings give
+JAX's bits, so the bfloat16 test is bitwise too (the JAX test's own
+tolerance is 1e-2).
 """
 
 import jax
@@ -154,11 +162,42 @@ def test_unknown_impl_raises_like_jax():
     assert str(terr.value) == str(jerr.value) == "unknown impl 'triton'"
 
 
+BF16_SHAPES = [(8, 512), (16, 1024), (8, 4096), (32, 128)]   # test_kernels
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_bfloat16_is_refused_by_name(impl):
-    v = torch.zeros((8, 512), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16 lif_step"):
-        tlif_ops.lif_step(v, v, decay=0.9, threshold=1.0, impl=impl)
+def test_bfloat16_matches_jax(shape, impl):
+    v, i = _state(shape, seed=shape[0] + shape[1])
+    jv_, ji_ = (jnp.asarray(x).astype(jnp.bfloat16) for x in (v, i))
+    jv, js = jlif_ops.lif_step(jv_, ji_, decay=0.9, threshold=1.0,
+                               impl=impl, interpret=True)
+    tv, ts = tlif_ops.lif_step(
+        *(torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+            torch.bfloat16) for x in (jv_, ji_)),
+        decay=0.9, threshold=1.0, impl=impl)
+    assert tv.dtype == ts.dtype == torch.bfloat16
+    want_v = np.asarray(jv.astype(jnp.float32))
+    want_s = np.asarray(js.astype(jnp.float32))
+    np.testing.assert_array_equal(tv.float().numpy(), want_v)
+    np.testing.assert_array_equal(ts.float().numpy(), want_s)
+    assert want_s.sum() > 0 and (want_s == 0).any()
+    # one rounding of the float32 multiply-add would not give JAX's bits
+    once = (np.asarray(jv_.astype(jnp.float32)).astype(np.float64)
+            * tlif_ref.as_bfloat16(0.9)
+            + np.asarray(ji_.astype(jnp.float32))).astype(np.float32)
+    once = torch.from_numpy(once).to(torch.bfloat16).float().numpy()
+    fired = want_s > 0
+    assert (once[~fired] != want_v[~fired]).any()
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_mixed_and_other_types_are_refused(impl):
+    f32 = torch.zeros((8, 512))
+    for v, i in ((f32, f32.to(torch.bfloat16)), (f32.to(torch.bfloat16), f32),
+                 (f32.half(), f32.half()), (f32.double(), f32.double())):
+        with pytest.raises(NotImplementedError, match="float32 or both bfloat16"):
+            tlif_ops.lif_step(v, i, decay=0.9, threshold=1.0, impl=impl)
 
 
 def test_kernel_path_refuses_grad():

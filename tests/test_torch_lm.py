@@ -243,35 +243,10 @@ def test_eos_stops_a_lane(model):
 # ---- refusals ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", sorted(set(tregistry.ARCHS)
-                                        - set(tregistry.PORTED)))
-def test_unported_archs_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tregistry.get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tregistry.get_smoke_config(arch)
-
-
 def test_refusals_name_their_item():
     with pytest.raises(KeyError, match="unknown arch"):
         tregistry.get_config("gpt-2")
     cfg = tdsv2.smoke_config()
-    rwkv = dataclasses.replace(cfg, family="rwkv",
-                               rwkv=tconfig.RWKVConfig())
-    with pytest.raises(NotImplementedError, match="rwkv mixer.*item 12"):
-        tlm.init_cache(rwkv, 1, 8, device="cpu")
-    hybrid = dataclasses.replace(cfg, family="hybrid", attn_layer_period=2,
-                                 mamba=tconfig.MambaConfig())
-    with pytest.raises(NotImplementedError, match="mamba mixer.*item 12"):
-        tlm.init_model(torch.Generator(), hybrid, device="cpu")
-    vision = dataclasses.replace(cfg, frontend=tconfig.FrontendConfig(
-        kind="vision", d_in=8))
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        tlm.init_model(torch.Generator(), vision, device="cpu")
-    int8 = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, quant_int8=True))
-    with pytest.raises(NotImplementedError, match="int8 experts.*item 12"):
-        tlm.init_model(torch.Generator(), int8, device="cpu")
     params = tlm.init_model(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}

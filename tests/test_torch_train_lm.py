@@ -21,8 +21,6 @@ they are used:
 - checkpoints and restarts: bitwise.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +35,6 @@ from repro.train import step as jstep
 from repro_torch.ckpt import manager as tckpt
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.ft import runner as trunner
-from repro_torch.models import config as tconfig
 from repro_torch.models import lm as tlm
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import step as tstep
@@ -356,15 +353,35 @@ def test_synth_tokens_have_the_zipf_and_copy_statistics():
     assert abs(copies(got) - copies(want)) < 0.02
 
 
-def test_pipeline_refuses_the_frontends():
-    base = port_config(jregistry.get_smoke_config("internlm2-1.8b"))
-    for kind in ("audio", "vision"):
-        cfg = dataclasses.replace(base, frontend=tconfig.FrontendConfig(
-            kind=kind, d_in=8))
-        pipe = tpipeline.Pipeline(cfg, tpipeline.DataConfig(2, 8),
-                                  device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            pipe.batch(0)
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "phi-3-vision-4.2b"])
+def test_pipeline_draws_the_frontend_batches(arch):
+    """The audio and vision batches: the JAX stream's keys, shapes and
+    dtypes, its label rule, and (seed, step) purity."""
+    jcfg = jregistry.get_smoke_config(arch)
+    cfg = port_config(jcfg)
+    dc = tpipeline.DataConfig(global_batch=3, seq_len=32, seed=4)
+    pipe = tpipeline.Pipeline(cfg, dc, device="cpu")
+    b0 = pipe.batch(0)
+    jb = jpipeline.Pipeline(jcfg, jpipeline.DataConfig(3, 32, seed=4)).batch(0)
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in b0.items()} == {
+        k: (v.shape, "bool" if v.dtype == bool else str(v.dtype))
+        for k, v in jb.items()}
+    if cfg.frontend.kind == "audio":
+        assert set(b0) == {"frames", "mask", "labels"}
+        assert bool((b0["labels"][~b0["mask"]] == -100).all())
+        assert bool((b0["labels"][b0["mask"]] >= 0).all())
+    else:
+        assert set(b0) == {"tokens", "image_embeds", "labels"}
+        assert b0["image_embeds"].shape == (3, cfg.frontend.max_prefix,
+                                            cfg.frontend.d_in)
+        assert torch.equal(b0["labels"][:, :-1], b0["tokens"][:, 1:])
+        assert bool((b0["labels"][:, -1] == -100).all())
+    again = tpipeline.Pipeline(cfg, dc, device="cpu").batch(0)
+    one = pipe.batch(1)
+    for k in b0:
+        assert torch.equal(again[k], b0[k]), k
+    assert not torch.equal(one["labels"], b0["labels"])
 
 
 # ---- the restart drill -----------------------------------------------------------
