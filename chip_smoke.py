@@ -126,7 +126,23 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     patches + 128 tokens) and 32 greedy make_decode_steps; hubert-xlarge
     encoding 4 x 1024 frames and its loss on a Pipeline audio batch;
     rwkv6-3b trained at full width and depth (seq_len 4096, batch 2,
-    remat, bfloat16 AdamW moments);
+    remat, bfloat16 AdamW moments); the mesh (sharded): 4 gloo ranks
+    sharing the card (NCCL refuses two ranks on one device), B5 built
+    before they start - gloo's collectives on CUDA tensors and the
+    functional ones through the port's host staging, exact;
+    run(shard="chips") at chips=4 over the multi-chip fabric, each rank
+    its own chip, currents bitwise the chips=1 xla session on both
+    streams, stats bitwise the one-process sharded body; internlm2-1.8b
+    at full width and depth (float32 compute, serve_tp_only) served on a
+    2 x 2 mesh, 4 x 128 prompt tokens and 8 new, greedy tokens equal to
+    the one-device generate; llama3.2-3b (sequence-parallel) and
+    deepseek-v2-lite-16b (MLA, expert parallelism: B5 once a rank a MoE
+    layer a forward, each launch held to its plain version) at full
+    width cut to 2 layers, float32, against the one-device run, each rank
+    its own block; one internlm2-1.8b training step at its 2-layer cut
+    (batch 4, seq 512, FSDP x TP): loss and gradients against one device;
+    NCCL on one rank (a 1 x 1 mesh); the dry run's per-device bytes of
+    all 80 cells (no FLOP count);
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -146,7 +162,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     beside the launch floor: an empty kernel's time; the multi-chip
     sessions' host ms per tick beside their chips=1 twins, "cores"
     telemetry beside "off", faulted runs beside clean ones, the oracle's
-    ms a tick, and B1 with and without the chip tier; the hier_ring
+    ms a tick, and B1 with and without the chip tier; the mesh's host
+    ms a tick by rank beside the one-process sharded twin, generate
+    seconds and peak memory by rank beside one device's, the parameter
+    bytes a rank holds; the hier_ring
     pallas and xla sessions' ms a tick and the stream form's launch; the
     dense LMs' prefill ms, decode ms a step, tokens/s, host split,
     device profile and peak memory, and the trained LM's ms a step
@@ -2396,6 +2415,591 @@ def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
     return launches, b5_calls
 
 
+# ---- the mesh (the sharded phase) ----------------------------------------
+
+SHARD_RANKS = 4                 # a 2 x 2 (data, model) mesh, gloo, one card
+SHARD_MESH = (2, 2)
+SHARD_SERVE = ("internlm2-1.8b", 4, 128, 8)   # arch, batch, prompt, new
+SHARD_CUT_TOKENS = 128          # the 2-layer float32 cuts: 4 x 128 tokens
+SHARD_MLA_STEPS = 2             # deepseek's cut: decode steps after prefill
+SHARD_TRAIN = (4, 512)          # internlm2-1.8b's 2-layer cut: batch, seq
+# where the ranks run and at which size: the card and the registry's
+# configs; a CPU rehearsal sets {"device": "cpu", "smoke": True} (the
+# ranks receive it from the parent)
+SHARD_OPTS = {"device": "cuda", "smoke": False}
+
+
+def _dev() -> torch.device:
+    return torch.device(SHARD_OPTS["device"], 0) if SHARD_OPTS[
+        "device"] == "cuda" else torch.device("cpu")
+
+
+def _sync():
+    if _dev().type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset() -> int:
+    """Empty the cache, reset the peak; the bytes allocated now."""
+    if _dev().type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak() -> int:
+    if _dev().type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _rank_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_mesh():
+    from repro_torch.launch import mesh as M
+    from repro_torch.parallel import sharding as shd
+    mesh = M.make_host_mesh(*SHARD_MESH, device=_dev().type)
+    return mesh, shd.make_shard_ctx(mesh)
+
+
+def _local_bytes(tree) -> tuple:
+    """(this rank's bytes of a DTensor tree, the tree's full bytes)."""
+    loc = full = 0
+    for t in _leaves(tree):
+        loc += t.to_local().numel() * t.element_size()
+        full += t.numel() * t.element_size()
+    return loc, full
+
+
+def _rank_probe(rank, world):
+    """gloo collectives on CUDA tensors of this rank, each direct c10d op
+    (gloo stages them through the host itself), then the functional ops
+    DTensor uses, through the port's host staging (`launch/staging.py`),
+    counted.  Returns {op: "ok" | error} and the staged counts."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.launch import mesh as M, staging
+    dev = _dev()
+    out = {}
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    want_sum = sum(torch.arange(8.0) + r for r in range(world))
+    ops = {
+        "all_reduce": lambda: (dist.all_reduce(y := x.clone()), y)[1],
+        "all_gather_into_tensor": lambda: (dist.all_gather_into_tensor(
+            y := torch.empty(8 * world, device=dev), x), y)[1],
+        "reduce_scatter_tensor": lambda: (dist.reduce_scatter_tensor(
+            y := torch.empty(8 // world, device=dev), x), y)[1],
+        "all_gather": lambda: (dist.all_gather(
+            y := [torch.empty(8, device=dev) for _ in range(world)], x),
+            torch.cat(y))[1],
+        "all_to_all_single": lambda: (dist.all_to_all_single(
+            y := torch.empty(8, device=dev), x), y)[1],
+    }
+    wants = {"all_reduce": want_sum,
+             "all_gather_into_tensor": torch.cat(
+                 [torch.arange(8.0) + r for r in range(world)]),
+             "reduce_scatter_tensor": want_sum[rank * 2:rank * 2 + 2],
+             "all_to_all_single": torch.cat(
+                 [torch.arange(8.0)[rank * 2:rank * 2 + 2] + r
+                  for r in range(world)])}
+    wants["all_gather"] = wants["all_gather_into_tensor"]
+    for name, fn in ops.items():
+        try:
+            got = fn().cpu()
+            _sync()
+            out[name] = "ok" if torch.equal(got, wants[name]) else "wrong"
+        except Exception as e:  # noqa: BLE001 - the probe reports refusals
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    mesh, _ = _rank_mesh()
+    if dev.type == "cpu":               # the rehearsal runs the same code
+        staging.install("CPU")
+    staging.COUNTS.clear()
+    d = DTensor.from_local(x[None], mesh, [Shard(0), Shard(0)],
+                           run_check=False)
+    full = d.full_tensor()                           # all_gather_into_tensor
+    part = DTensor.from_local(x, mesh, [Partial(), Partial()],
+                              run_check=False)
+    summed = part.redistribute(mesh, [Replicate(), Replicate()])  # all_reduce
+    scat = DTensor.from_local(x, mesh, [Partial(), Replicate()],
+                              run_check=False).redistribute(
+        mesh, [Shard(0), Replicate()])                # reduce_scatter_tensor
+    _sync()
+    want_full = torch.stack([torch.arange(8.0) + r for r in range(world)])
+    out["staged_gather"] = torch.equal(full.cpu(), want_full)
+    out["staged_all_reduce"] = torch.equal(summed.to_local().cpu(), want_sum)
+    # the partial sum over data of ranks (data, model): rank r = 2 data +
+    # model holds arange(8) + r; this rank keeps its data row's half
+    data, model = divmod(rank, SHARD_MESH[1])
+    pair = sum(torch.arange(8.0) + d * SHARD_MESH[1] + model
+               for d in range(SHARD_MESH[0]))
+    out["staged_reduce_scatter"] = torch.equal(
+        scat.to_local().cpu(), pair[data * 4:(data + 1) * 4])
+    out["staged"] = dict(staging.COUNTS)
+    return out
+
+
+def _rank_chips(rank, world, cfg, params, streams):
+    """``run(shard="chips")`` of each stream at chips=world on this rank's
+    chip: currents, stats, which body ran and host ms a tick (the run
+    timed after one warm-up run)."""
+    from repro_torch.interface import Interface
+    from repro_torch.interface.types import InterfaceParams
+    from repro_torch.launch import staging
+    dev = _dev()
+    session = Interface(cfg).compile(
+        InterfaceParams(*(t.to(dev) for t in params)), device=dev)
+    out = {}
+    for name, spikes in streams.items():
+        spikes = spikes.to(dev)
+        session.run(spikes, shard="chips")
+        _sync()
+        before = sum(staging.COUNTS.values())
+        t0 = time.perf_counter()
+        cur, st = session.run(spikes, shard="chips")
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3 / spikes.shape[0]
+        out[name] = (cur.cpu(), {k: v.cpu() for k, v in st._asdict().items()},
+                     session.last_shard_body, ms,
+                     sum(staging.COUNTS.values()) - before)
+    return out
+
+
+def _draw(arch, seed, layers=None, f32=False, **over):
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = (configs.get_smoke_config(arch) if SHARD_OPTS["smoke"]
+           else configs.get_config(arch))
+    if layers is not None and not SHARD_OPTS["smoke"]:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, **over)
+    return cfg, lm.init_model(torch.Generator(_dev()).manual_seed(seed), cfg,
+                              device=_dev())
+
+
+def _rank_serve(rank, world, seed, prompts):
+    """internlm2-1.8b at full width and depth, float32 compute, on the
+    2 x 2 mesh with the JAX package's serving placement (``serve_tp_only``:
+    weights split over ``model`` only, so no step gathers weights):
+    ``ServeEngine(..., ctx=ctx).generate`` (timed), then one prefill for
+    its logits (rank 0 returns them); peak memory and this rank's
+    parameter bytes."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import regions as R, sharding as shd
+    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    _rank_setup()
+    arch, batch, prompt, new = SHARD_SERVE
+    cfg, full = _draw(arch, seed, f32=True, serve_tp_only=True)
+    mesh, _ = _rank_mesh()
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
+    del full
+    base = _peak_reset()
+    prompts = prompts.to(_dev())
+    t0 = time.perf_counter()
+    tokens = ServeEngine(cfg, params, max_len=prompt + new,
+                         ctx=ctx).generate(prompts, new)
+    _sync()
+    secs = time.perf_counter() - t0
+    peak = _peak() - base
+    cache = lm.init_cache(cfg, batch, prompt + new, device=_dev())
+    cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
+    logits, _ = make_prefill_step(cfg, ctx)(params, {"tokens": prompts},
+                                            cache)
+    logits = R.full(logits)
+    return {"tokens": tokens.cpu(), "prefill": (logits.float().cpu()
+                                                if rank == 0 else None),
+            "peak": peak, "s": secs, "param_bytes": _local_bytes(params)}
+
+
+def _gap_local(got, want_full, spec, mesh):
+    """|this rank's block of ``got`` - the same block of the one-device
+    ``want_full``|: largest, and ``want_full``'s largest."""
+    from repro_torch.parallel import sharding as shd
+    want = shd.local_slice(want_full, spec, mesh)
+    return (float((got.to_local().float() - want.float()).abs().max()),
+            float(want_full.float().abs().max()))
+
+
+def _rank_cuts(rank, world, seed):
+    """The 2-layer float32 cuts at full width on the 2 x 2 mesh against
+    the one-device run on the card (each rank computes it for its own
+    block): llama3.2-3b's sequence-parallel forward, deepseek-v2-lite's
+    MLA prefill + decode with expert parallelism (each data shard routed
+    alone, as on the mesh; B5 counted and every launch held to its plain
+    version), and one internlm2-1.8b training step (batch 4, seq 512)
+    with FSDP x TP placement: loss and gradient gaps, peak memory beside
+    the one-device step's, this rank's parameter bytes."""
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+    from repro_torch.models import lm
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.models.blocks import LOCAL, _bspec_for
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
+    from repro_torch.train import step as ts
+    _rank_setup()
+    mesh, _ = _rank_mesh()
+    data = mesh.get_local_rank("data")
+    out = {}
+    g = torch.Generator(_dev()).manual_seed(seed + 1)
+
+    # llama3.2-3b: sequence-parallel attention
+    cfg, full = _draw("llama3.2-3b", seed, layers=2, f32=True)
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    toks = torch.randint(0, cfg.vocab, (SHARD_TRAIN[0], SHARD_CUT_TOKENS),
+                         generator=g, device=_dev(), dtype=torch.int32)
+    with torch.no_grad():
+        want = lm.forward(full, {"tokens": toks}, cfg, remat=False)["logits"]
+        params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
+        del full
+        got = lm.forward(params, {"tokens": toks}, cfg, ctx=ctx,
+                         remat=False)["logits"]
+    bspec = _bspec_for(ctx, toks.shape[0])
+    out["llama_sp"] = _gap_local(got, want, (bspec, None, "model"), mesh)
+    del params, got, want
+    _peak_reset()
+
+    # deepseek-v2-lite-16b: MLA and expert parallelism
+    cfg, full = _draw("deepseek-v2-lite-16b", seed, layers=2, f32=True)
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    toks = torch.randint(0, cfg.vocab, (SHARD_TRAIN[0], SHARD_CUT_TOKENS),
+                         generator=g, device=_dev(), dtype=torch.int32)
+    n = toks.shape[0] // SHARD_MESH[0]
+    mine = toks[data * n:(data + 1) * n]
+    max_len = SHARD_CUT_TOKENS + SHARD_MLA_STEPS
+
+    def serve(params, tokens, ctx_, cache):
+        steps = []
+        logits, _ = make_prefill_step(cfg, ctx_)(params, {"tokens": tokens},
+                                                  cache)
+        steps.append(logits)
+        decode = make_decode_step(cfg, ctx_)
+        nxt = toks[:, :1] if ctx_.enabled else tokens[:, :1]
+        for i in range(SHARD_MLA_STEPS):
+            logits, _ = decode(params, cache, nxt, SHARD_CUT_TOKENS + i)
+            steps.append(logits)
+        return steps
+
+    with torch.no_grad():
+        want = serve(full, mine, LOCAL,
+                     lm.init_cache(cfg, n, max_len, device=_dev()))
+        params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
+        del full
+        cache = lm.init_cache(cfg, toks.shape[0], max_len, device=_dev())
+        cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
+        moe_kernel.launches = 0
+        with Capture(moe_kernel, "dispatch_positions_cuda") as b5:
+            got = serve(params, toks, ctx, cache)
+        launches = moe_kernel.launches
+    held = all(torch.equal(pos, moe_ref.dispatch_positions_ref(*args)[0])
+               and torch.equal(load, moe_ref.dispatch_positions_ref(*args)[1])
+               for args, _, (pos, load) in b5)
+    gaps = []
+    for gl, wl in zip(got, want):
+        block = gl.to_local().float()
+        v = block.shape[-1]
+        cols = slice(mesh.get_local_rank("model") * v,
+                     (mesh.get_local_rank("model") + 1) * v)
+        gaps.append(float((block - wl[..., cols].float()).abs().max()))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    out["deepseek_ep"] = {"gap": max(gaps),
+                          "scale": max(float(w.abs().max()) for w in want),
+                          "b5_launches": launches, "b5_calls": len(b5),
+                          "b5_held": held,
+                          "b5_want": n_moe * (1 + SHARD_MLA_STEPS)}
+    del params, cache, got, want, b5
+    _peak_reset()
+
+    # internlm2-1.8b: one training step's loss and gradients
+    cfg, full = _draw("internlm2-1.8b", seed, layers=2, f32=True)
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    b, t = SHARD_TRAIN
+    tt = torch.randint(0, cfg.vocab, (b, t + 1), generator=g, device=_dev(),
+                       dtype=torch.int32)
+    batch = {"tokens": tt[:, :-1], "labels": tt[:, 1:]}
+    base = _peak_reset()
+    loss_ref, _, grads_ref = ts.value_and_grad(full, batch, cfg)
+    peak_single = _peak() - base
+    specs = shd.params_pspecs(full, cfg, ctx)
+    params = shd.shard_tree(full, specs, mesh)
+    sbatch = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+    full_leaves = list(_leaves(full))
+    del full
+    base = _peak_reset()
+    t0 = time.perf_counter()
+    loss, _, grads = ts.value_and_grad(params, sbatch, cfg, ctx)
+    _sync()
+    step_s = time.perf_counter() - t0
+    peak_mesh = _peak() - base
+    # the specs in the gradients' order (tree_leaves: keys sorted)
+    order = tree_leaves(shd.map_with_path(lambda _, sp: _Spec(sp), specs))
+    worst = 0.0
+    for got, want, sp in zip(grads, grads_ref, order):
+        gap, top = _gap_local(got, want, sp.spec, mesh)
+        worst = max(worst, gap / max(top, 1e-30))
+    out["train"] = {"loss": float(loss.full_tensor()),
+                    "loss_ref": float(loss_ref), "grad_rel_gap": worst,
+                    "peak_mesh": peak_mesh, "peak_single": peak_single,
+                    "step_s": step_s,
+                    "param_bytes": _local_bytes(params),
+                    "full_bytes": sum(x.numel() * x.element_size()
+                                      for x in full_leaves)}
+    return out
+
+
+class _Spec:
+    """A spec as one leaf of `tree_leaves` (which opens tuples)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _rank_nccl(rank, world, opts, seed):
+    """NCCL on one rank: the 2-layer float32 internlm2 cut's forward on a
+    1 x 1 mesh against the one-device forward."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M, staging
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    SHARD_OPTS.update(opts)
+    _rank_setup()
+    mesh = M.make_host_mesh(1, 1, device=_dev().type)
+    cfg, full = _draw("internlm2-1.8b", seed, layers=2, f32=True)
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=_dev(),
+                         generator=torch.Generator(_dev()).manual_seed(seed),
+                         dtype=torch.int32)
+    with torch.no_grad():
+        want = lm.forward(full, {"tokens": toks}, cfg, remat=False)["logits"]
+        params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
+        got = lm.forward(params, {"tokens": toks}, cfg, ctx=ctx,
+                         remat=False)["logits"].full_tensor()
+    _sync()
+    return {"backend": dist.get_backend(), "staged": staging.installed(),
+            "gap": float((got - want).abs().max())}
+
+
+def sharded(dev, tag, flat_xla, chip_xla, streams):
+    """The mesh on the one card, as SHARD_RANKS gloo ranks (NCCL refuses
+    two ranks on one device): the collective probe; ``run(shard="chips")``
+    at chips=SHARD_RANKS over the phase-4 fabric and both streams, each
+    rank its own chip, bitwise the chips=1 xla session (``flat_xla``),
+    host ms a tick beside the one-process sharded twin (``chip_xla``);
+    internlm2-1.8b served at full width and depth on the 2 x 2 mesh,
+    greedy tokens equal to the one-device generate; the float32 2-layer
+    cuts (llama3.2-3b sequence-parallel, deepseek-v2-lite's MLA and expert
+    parallelism with B5 once a rank a MoE layer a forward, internlm2's
+    training step); NCCL on one rank; the dry run's summary.  Returns B5's
+    launches a rank on the mesh path."""
+    from repro_torch import configs
+    from repro_torch.interface.types import InterfaceParams
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.spawn import spawn
+    from repro_torch.models import lm
+    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+
+    t_phase = time.perf_counter()
+    # build B5 here: four ranks would race four nvcc runs
+    build.ensure_built("moe_dispatch")
+    mib = 2 ** 20
+
+    # the one-device references the ranks do not compute themselves
+    arch, batch, prompt, new = SHARD_SERVE
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              compute_dtype="float32")
+    params = lm.init_model(torch.Generator(dev).manual_seed(SEED + 9), cfg)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
+                            generator=torch.Generator(dev).manual_seed(SEED),
+                            dtype=torch.int32)
+    engine = ServeEngine(cfg, params, max_len=prompt + new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    want_tokens = engine.generate(prompts, new).cpu()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_peak = torch.cuda.max_memory_allocated() - base
+    cache = lm.init_cache(cfg, batch, prompt + new)
+    with torch.no_grad():
+        logits, _ = make_prefill_step(cfg)(params, {"tokens": prompts}, cache)
+    want_prefill = logits.float().cpu()
+    del params, engine, cache, logits
+    torch.cuda.empty_cache()
+
+    fabric = {k: v.cpu() for k, v in streams.items()}
+    fparams = InterfaceParams(*(t.cpu() for t in flat_xla.params))
+    chips_cfg = dataclasses.replace(flat_xla.config, chips=SHARD_RANKS)
+    twin_ms = {}
+    for name, spikes in streams.items():
+        chip_xla.run(spikes, shard="chips")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chip_xla.run(spikes, shard="chips")
+        torch.cuda.synchronize()
+        twin_ms[name] = (time.perf_counter() - t0) * 1e3 / spikes.shape[0]
+        check(chip_xla.last_shard_body == "single",
+              "the one-process twin did not run the single-device body")
+
+    t0 = time.perf_counter()
+    on_card = SHARD_OPTS["device"] == "cuda"
+    results = spawn(_rank_all, SHARD_RANKS, device_id=0 if on_card else None,
+                    timeout=900, args=(SHARD_OPTS, chips_cfg, tuple(fparams),
+                                       fabric, SEED, prompts.cpu()))
+    spawn_s = time.perf_counter() - t0
+
+    # ---- the probe
+    probe = results[0]["probe"]
+    for r, res in enumerate(results):
+        p = res["probe"]
+        for op in ("all_reduce", "all_gather_into_tensor",
+                   "reduce_scatter_tensor", "all_gather", "all_to_all_single"):
+            check(p[op] == "ok", f"rank {r}: gloo {op} on CUDA: {p[op]}")
+        for op in ("staged_gather", "staged_all_reduce",
+                   "staged_reduce_scatter"):
+            check(p[op] is True, f"rank {r}: {op} wrong")
+    print(f"{tag} sharded probe: gloo on CUDA tensors across {SHARD_RANKS} "
+          f"ranks on cuda:0, direct c10d ops: " + ", ".join(
+              f"{k} {v}" for k, v in probe.items()
+              if not k.startswith("staged")) +
+          f"; the functional ops DTensor calls go through host staging "
+          f"(launch/staging.py; all_gather_into_tensor through gloo's "
+          f"coalesced entry ended the ranks on torch 2.11): staged calls "
+          f"{probe['staged']} for one gather, one all-reduce and one "
+          f"reduce-scatter, each exact")
+
+    # ---- shard="chips" across ranks
+    for name, spikes in streams.items():
+        want_cur, want_st = flat_xla.run(spikes)
+        one_cur, one_st = chip_xla.run(spikes, shard="chips")
+        for r, res in enumerate(results):
+            cur, st, body, ms, staged = res["chips"][name]
+            check(body == "mesh", f"rank {r}: shard=chips ran {body}")
+            check(torch.equal(cur, want_cur.cpu()),
+                  f"rank {r} {name}: mesh currents differ from chips=1 xla")
+            for f, v in st.items():
+                check(torch.equal(v, getattr(one_st, f).cpu()),
+                      f"rank {r} {name}: {f} differs from the sharded twin")
+            for f in MC_INVARIANT_FIELDS:
+                check_field(f"rank {r} {name} vs chips=1", f, st[f],
+                            getattr(want_st, f))
+        ms = [res["chips"][name][3] for res in results]
+        print(f"{tag} sharded shard=chips {name}: {SHARD_RANKS} ranks x 1 "
+              f"chip, currents bitwise the chips=1 xla session, stats bitwise"
+              f" the one-process sharded body; host ms/tick by rank "
+              f"{', '.join(f'{m:.4f}' for m in ms)} (one gather of the run, "
+              f"{results[0]['chips'][name][4]} staged collective(s)) beside "
+              f"the one-process sharded twin {twin_ms[name]:.4f}; 4 ranks "
+              f"share one H100")
+
+    # ---- internlm2-1.8b served on the 2 x 2 mesh
+    same = [int((res["serve"]["tokens"] == want_tokens).sum())
+            for res in results]
+    gap = float((results[0]["serve"]["prefill"] - want_prefill).abs().max())
+    loc, full = results[0]["serve"]["param_bytes"]
+    print(f"{tag} sharded serve {arch} (full width and depth, "
+          f"serve_tp_only: weights split over model only) on a 2 x 2 mesh, "
+          f"{batch} x {prompt} prompt tokens + {new} new, greedy, against "
+          f"the one-device generate on the card (ServeEngine, ctx=): "
+          f"prefill logit gap "
+          f"{gap:.4e} (float32 compute: in bfloat16 the split products "
+          f"round otherwise and flip near-tied tokens); generate {max(res['serve']['s'] for res in results):.2f} s "
+          f"on the mesh against {single_s:.2f} s on one device; peak "
+          f"memory by rank "
+          f"{', '.join(str(res['serve']['peak'] // mib) for res in results)}"
+          f" MiB against {single_peak // mib} MiB (one device, cache and "
+          f"activations); parameter bytes a rank {loc // mib} of "
+          f"{full // mib} MiB; tokens equal by rank {same} of "
+          f"{want_tokens.numel()}")
+    for r, res in enumerate(results):
+        check(torch.equal(res["serve"]["tokens"], want_tokens),
+              f"rank {r}: mesh greedy tokens differ from one device")
+
+    # ---- the float32 cuts
+    c0 = results[0]["cuts"]
+    tr = c0["train"]
+    print(f"{tag} sharded cuts (2 layers, full width, float32, 2 x 2 mesh "
+          f"against one device on the card, each rank its own block): "
+          f"llama3.2-3b sequence-parallel logits gap "
+          f"{max(res['cuts']['llama_sp'][0] for res in results):.3e}; "
+          f"deepseek-v2-lite MLA + expert parallel, prefill + "
+          f"{SHARD_MLA_STEPS} decode steps, logits gap "
+          f"{max(res['cuts']['deepseek_ep']['gap'] for res in results):.3e}"
+          f", B5 {c0['deepseek_ep']['b5_launches']} launches a rank (one a "
+          f"rank a MoE layer a forward), each == its plain version; "
+          f"internlm2-1.8b train step (batch {SHARD_TRAIN[0]}, seq "
+          f"{SHARD_TRAIN[1]}, FSDP x TP) loss {tr['loss']:.6f} vs "
+          f"{tr['loss_ref']:.6f}, largest gradient gap "
+          f"{max(res['cuts']['train']['grad_rel_gap'] for res in results):.3e}"
+          f" of its leaf's largest, {tr['step_s']:.2f} s; peak memory by rank "
+          f"{', '.join(str(res['cuts']['train']['peak_mesh'] // mib) for res in results)}"
+          f" MiB against {tr['peak_single'] // mib} MiB on one device; "
+          f"parameter bytes a rank {tr['param_bytes'][0] // mib} of "
+          f"{tr['param_bytes'][1] // mib} MiB "
+          f"({tr['param_bytes'][0] / tr['param_bytes'][1]:.3f})")
+
+    for r, res in enumerate(results):
+        g, top = res["cuts"]["llama_sp"]
+        check(g <= LOGIT_ATOL + LOGIT_RTOL * top,
+              f"rank {r}: llama3.2-3b SP logits gap {g}")
+        ep = res["cuts"]["deepseek_ep"]
+        check(ep["gap"] <= LOGIT_ATOL + LOGIT_RTOL * ep["scale"],
+              f"rank {r}: deepseek EP logits gap {ep['gap']}")
+        check(ep["b5_launches"] == ep["b5_want"] == ep["b5_calls"],
+              f"rank {r}: B5 launches {ep['b5_launches']}, calls "
+              f"{ep['b5_calls']}, want {ep['b5_want']}")
+        check(ep["b5_held"], f"rank {r}: a B5 launch differs from plain")
+        tr = res["cuts"]["train"]
+        check(abs(tr["loss"] - tr["loss_ref"]) <= 1e-4 * abs(tr["loss_ref"]),
+              f"rank {r}: train loss {tr['loss']} vs {tr['loss_ref']}")
+        check(tr["grad_rel_gap"] <= GRAD_RTOL,
+              f"rank {r}: gradient gap {tr['grad_rel_gap']}")
+
+    # ---- NCCL, one rank
+    nccl = spawn(_rank_nccl, 1, backend="nccl" if on_card else "gloo",
+                 device_id=0 if on_card else None, timeout=300,
+                 args=(SHARD_OPTS, SEED))[0]
+    check(nccl["backend"] == ("nccl" if on_card else "gloo")
+          and not nccl["staged"], f"the NCCL rank ran {nccl}")
+    check(nccl["gap"] <= 1e-4, f"NCCL 1 x 1 mesh logits gap {nccl['gap']}")
+    print(f"{tag} sharded nccl: one rank, backend nccl, 1 x 1 mesh, "
+          f"internlm2-1.8b 2-layer float32 forward gap {nccl['gap']:.3e} "
+          f"against one device; no host staging")
+
+    # ---- the dry run (bytes; FLOPs are counted by --all off the card)
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(a, sh, mp, os.path.join("build", "dryrun_torch"),
+                            count=False, verbose=False)
+            for a in configs.ARCHS for sh in configs.SHAPES
+            for mp in (False, True)]
+    summary = dryrun.summarize(recs)
+    check(summary["error"] == 0, f"dry run errors: {summary}")
+    print(f"{tag} sharded dry run (per-device bytes by the port's specs, no "
+          f"FLOP count, {time.perf_counter() - t0:.1f} s): {summary}")
+    print(f"{tag} sharded phase: {time.perf_counter() - t_phase:.1f} s "
+          f"(ranks {spawn_s:.1f} s)")
+    return c0["deepseek_ep"]["b5_launches"]
+
+
+def _rank_all(rank, world, opts, chips_cfg, fparams, streams, seed, prompts):
+    """Every job of the sharded phase on one rank, in one spawn."""
+    SHARD_OPTS.update(opts)
+    return {"probe": _rank_probe(rank, world),
+            "chips": _rank_chips(rank, world, chips_cfg, fparams, streams),
+            "serve": _rank_serve(rank, world, seed + 9, prompts),
+            "cuts": _rank_cuts(rank, world, seed)}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3350,6 +3954,10 @@ def main() -> int:
         dev, tag, reset_launches, read_launches, no_launch, params,
         {label: s for label, s in sessions}, streams)
 
+    # the mesh: 4 gloo ranks on the card (probe, shard="chips", the LM
+    # paths with B5 a rank, a train step), NCCL on one rank, the dry run
+    mesh_b5 = sharded(dev, tag, xla_session, chip_sessions["xla"], streams)
+
     rows = []
 
     # the launch floor: an empty sm_90a kernel, one block of 32 threads
@@ -3674,7 +4282,8 @@ def main() -> int:
                "int32 ops at 33.5 TOP/s", 2000, label=label,
                row=label.endswith("prefill stream"))
     next(r for r in rows if r["name"] == "moe_dispatch").update(
-        jamba_launches_per_generate=jamba_b5)
+        jamba_launches_per_generate=jamba_b5,
+        mesh_launches_per_rank=mesh_b5)
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -25,10 +25,15 @@ with its slice.
 
 Chip sharding: ``run(spikes, shard="chips")`` runs the per-chip slice of
 every tick - the CAM match and scatter, the per-core arbiter latency and
-the AER encode stage - as one body over a leading chips axis on the
-session's one device, the JAX package's single-device fallback (its
-``vmap`` over chips); no device mesh is made, since the port runs on one
-card.  The body is the ``xla`` form under every impl (as in the JAX
+the AER encode stage.  When the caller runs a process group of at least
+``chips`` ranks, the per-chip constants are placed once on a
+``("chips",)`` mesh (`repro_torch.launch.mesh.make_chip_mesh`,
+`repro_torch.parallel.sharding.leading_axis_specs`) and each rank steps
+its own chip, the results gathered in chip order (`_mesh_loop`);
+otherwise one body runs over a leading chips axis on the session's one
+device, the JAX package's single-device fallback (its ``vmap`` over
+chips).  ``session.last_shard_body`` says which ran (``"mesh"`` or
+``"single"``).  The body is the ``xla`` form under every impl (as in the JAX
 package), so it launches no kernel; the per-core vectors are
 reassembled in fabric order and go through `pipeline.accounting_stats`,
 so currents and stats are the unsharded session's bits.
@@ -142,6 +147,8 @@ class InterfaceSession:
                                        self.arb_plan,
                                        cam_cycle_ns=self.cam_cycle_ns)
         self.routing = self.plan.routing
+        self._chip_shard = None
+        self.last_shard_body = None       # "mesh" | "single" after shard=
 
     # ---- introspection ---------------------------------------------------
 
@@ -231,6 +238,8 @@ class InterfaceSession:
         elif stats0 is not None:
             raise ValueError("stats0 is only meaningful with mask")
         if sharded:
+            if self._mesh_ranks():
+                return self._mesh_loop(spikes, acc0)
             return self._sharded_loop(spikes, acc0)
         return self._loop(spikes, acc0, telemetry)
 
@@ -368,8 +377,97 @@ class InterfaceSession:
             self.cam_cycle_ns)
         return cur.reshape(spikes.shape), stats
 
+    def _mesh_ranks(self) -> bool:
+        """Is there a process group of at least ``chips`` ranks?  Then
+        ``shard="chips"`` runs over a ``("chips",)`` mesh of its first
+        ``chips`` ranks, as the JAX package maps the body over a device
+        mesh when there are enough devices."""
+        import torch.distributed as dist
+        return (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() >= self.config.chips)
+
+    def _chip_constants(self):
+        """This rank's chip of the per-chip constants, placed once: the
+        (chips, cores_per_chip, entries) weights, source indices, live
+        mask and targets as DTensors split over the chip mesh by
+        `leading_axis_specs`, and the chip's own target CSR."""
+        if self._chip_shard is not None:
+            return self._chip_shard
+        from repro_torch.launch.mesh import make_chip_mesh
+        from repro_torch.parallel import sharding as shd
+        cfg = self.config
+        mesh = make_chip_mesh(cfg.chips, device=self.device.type)
+        stack = (lambda x: x.reshape((cfg.chips, cfg.cores_per_chip)
+                                     + x.shape[1:]))
+        per_chip = {"weights": stack(self.params.weights),
+                    "targets": stack(self.params.targets),
+                    "src_idx": stack(self.routing.src_idx),
+                    "active": stack(self.routing.active)}
+        placed = (shd.shard_tree(per_chip,
+                                 shd.leading_axis_specs(per_chip, "chips"),
+                                 mesh)
+                  if mesh.get_coordinate() is not None else None)
+        local = ({k: v.to_local()[0] for k, v in placed.items()}
+                 if placed is not None else None)
+        csr = (sparse_ref.build_target_csr(local["targets"], local["active"],
+                                           cfg.neurons_per_core)
+               if local is not None else None)
+        self._chip_shard = (mesh, placed, local, csr)
+        return self._chip_shard
+
+    def _mesh_loop(self, stream: torch.Tensor, acc0=None):
+        """The sharded run over the chip mesh: this rank steps its own
+        chip through every tick (`_chip_body`'s work on one chip, the
+        whole fabric's spikes replicated), the per-chip results of the
+        whole run are gathered once in chip order (copies, never sums),
+        and every rank runs the accounting tail on them tick by tick."""
+        from torch.distributed.tensor import DTensor, Shard
+        cfg = self.config
+        mesh, _, local, csr = self._chip_constants()
+        if local is None:                 # a rank beyond the chip mesh
+            self.last_shard_body = "single"
+            return self._sharded_loop(stream, acc0)
+        chip = mesh.get_local_rank("chips")
+        lanes, ticks = stream.shape[:2]
+        cpc, n = cfg.cores_per_chip, cfg.neurons_per_core
+        rows = []
+        for t in range(ticks):
+            spikes = stream[:, t]
+            frames = spikes.reshape(lanes, cfg.chips, cpc, n)[:, chip]
+            drive = sparse_ref.entry_drive(
+                spikes.reshape(lanes, -1), local["src_idx"],
+                local["active"]).to(torch.float32)        # (B, cpc, E)
+            cur = sparse_ref.scatter_currents(drive * local["weights"], csr,
+                                              n)
+            lat, enc = pipeline.plain_terms(self.plan, frames[:, None])
+            hits = drive.sum((-2, -1))
+            rows.append(torch.cat([cur.reshape(lanes, -1), lat[:, 0],
+                                   enc[:, 0], hits[:, None]], dim=-1))
+        mine = (torch.stack(rows, dim=1) if rows else torch.zeros(
+            (lanes, 0, cpc * n + 2 * cpc + 1), device=self.device))
+        packed = DTensor.from_local(mine[:, :, None], mesh, [Shard(2)],
+                                    run_check=False).full_tensor()
+        cur_all = packed[..., :cpc * n].reshape(lanes, ticks, cfg.cores, n)
+        lat_all = packed[..., cpc * n:cpc * n + cpc].reshape(
+            lanes, ticks, cfg.cores)
+        enc_all = packed[..., cpc * n + cpc:-1].reshape(lanes, ticks,
+                                                         cfg.cores)
+        hits_all = packed[..., -1].sum(-1)
+        acc = acc0 if acc0 is not None else torch.zeros(
+            (len(StepStats._fields), lanes), dtype=torch.float32,
+            device=self.device)
+        for t in range(ticks):
+            stats = pipeline.accounting_stats(
+                cfg, self.tables, stream[:, t], lat_all[:, t],
+                enc_all[:, t], hits_all[:, t], self.params.valid,
+                self.cam_cycle_ns)
+            acc = acc + torch.stack(tuple(stats))
+        self.last_shard_body = "mesh"
+        return cur_all, StepStats(*acc.unbind(0))
+
     def _sharded_loop(self, stream: torch.Tensor, acc0=None):
         """`_loop` over the per-chip sharded tick."""
+        self.last_shard_body = "single"
         lanes, ticks = stream.shape[:2]
         stream = stream.transpose(0, 1).contiguous()
         acc = acc0 if acc0 is not None else torch.zeros(

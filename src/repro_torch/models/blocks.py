@@ -20,9 +20,16 @@ Conventions, as in the JAX package:
   (``preferred_element_type``) are float32 products of the same values
   here, and the expert FFN's products round once to ``compute_dtype``.
 
-Only the single-device path (`LOCAL`) is ported: a `ShardCtx` with
-``enabled`` (``parallel/``) raises `NotImplementedError` naming its
-ROADMAP item.  On the card,
+Distribution: blocks are sharding-agnostic except for an optional
+`ShardCtx` whose ``enabled`` paths are the JAX package's ``shard_map``
+bodies as ``local_map`` regions on its `DeviceMesh`
+(`repro_torch.parallel.regions`): the sequence-sharded decode with its
+log-sum-exp combine and cache write, head-TP and sequence-parallel
+prefill, the sharded MLA decode and expert-parallel MoE.  Activations
+and parameters are then DTensors; a sharded parameter is gathered whole
+at its use (`_use`), and the rest of a layer runs on each rank's batch
+shard.  With `LOCAL` everything is plain tensors on one device.  On the
+card,
 float32 products must stay full float32: `check_matmul_precision`
 refuses TF32.
 """
@@ -30,6 +37,7 @@ refuses TF32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -45,21 +53,126 @@ ITEM_12 = "ROADMAP queue A item 12"
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Whether the JAX package's shard_map paths are on; only the
-    disabled (single-device) context is ported, so the mesh axes the JAX
-    context names have no fields here."""
+    """Names of mesh axes, and the `DeviceMesh` the ``local_map`` regions
+    run on; ``enabled=False`` (`LOCAL`) is the single-device path."""
+    data_axes: tuple = ("data",)     # batch axes ("pod","data") when multi-pod
+    model_axis: str = "model"
+    model_size: int = 1
     enabled: bool = False
+    axis_sizes: tuple = ()           # ((axis, size), ...) for spec sanitizing
+    mesh: object = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def batch_spec(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
 
 
 LOCAL = ShardCtx(enabled=False)
 
 
-def refuse_sharded(ctx: ShardCtx) -> None:
-    if ctx.enabled:
-        raise NotImplementedError(
-            f"sharded execution (ShardCtx.enabled) is not ported to "
-            f"repro_torch ({ITEM_12}: parallel/); the port runs on one "
-            f"device - use the JAX package `repro` for a mesh")
+def _bspec_for(ctx: ShardCtx, batch: int):
+    """Batch spec, or None (replicate) when batch doesn't divide the DP
+    extent (e.g. long_500k's single sequence)."""
+    dp = 1
+    for a, sz in ctx.axis_sizes:
+        if a in ctx.data_axes:
+            dp *= sz
+    return ctx.batch_spec if batch % max(dp, 1) == 0 else None
+
+
+def _regions():
+    from repro_torch.parallel import regions
+    return regions
+
+
+def _use(w, dt):
+    """A parameter at its use, in ``dt``: a sharded one (a DTensor) is
+    gathered whole first, the use-site all-gather of FSDP / TP."""
+    return _regions().replicate(w).to(dt)
+
+
+def _linear(x, w, dt):
+    """``x @ w`` in ``dt``; on DTensors the product GSPMD makes of the
+    operands' placements, mesh dim by mesh dim:
+
+    * ``x`` split by rows there (the batch, the sequence): the weight is
+      gathered there (FSDP's use-site all-gather), the product is local;
+    * ``x`` whole there and ``w`` split by columns: column-parallel, the
+      result split along its last dim;
+    * ``x`` whole (or split along its features) and ``w`` split by rows:
+      row-parallel, ``x`` taken along its features and the result a
+      `Partial` sum, reduced where it is next read;
+    * both whole: the same product on every rank.
+
+    No dim of ``x`` is reshaped, and each operand's gradient comes back
+    in the placements the rule gives it."""
+    if not _is_dtensor(x):
+        return x @ w.to(dt)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = x.ndim - 1
+    x_in, w_in, out, x_grad, w_grad = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if a.is_shard() and a.dim != last:         # rows split here
+            row = (a, Replicate(), a, a, Partial())
+        elif b.is_shard(1):                        # column-parallel
+            row = (Replicate(), b, Shard(last), Partial(), b)
+        elif b.is_shard(0):                        # row-parallel
+            row = (Shard(last), b, Partial(), Shard(last), b)
+        else:
+            row = (Replicate(),) * 5
+        for dst, v in zip((x_in, w_in, out, x_grad, w_grad), row):
+            dst.append(v)
+    return local_map(torch.matmul, out_placements=out,
+                     in_placements=(tuple(x_in), tuple(w_in)),
+                     in_grad_placements=(tuple(x_grad), tuple(w_grad)),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w.to(dt))
+
+
+def _split_last(x, *shape):
+    """``x.reshape(*shape)`` where the last dim splits into
+    ``shape[k:]``: a DTensor split along its last dim keeps the split on
+    the first new dim when that dim divides it, and is gathered there
+    first otherwise."""
+    if _is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        lead = shape[x.ndim - 1]
+        pl = [Replicate() if (p.is_shard(x.ndim - 1)
+                              and lead % x.device_mesh.size(i))
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*shape)
+
+
+def _mesh_entry(fn):
+    """Under an enabled ``ctx``, run ``fn`` with plain tensors (rope
+    tables, positions, masks) taken as replicated DTensors."""
+    @functools.wraps(fn)
+    def run(*args, ctx: ShardCtx = LOCAL, **kw):
+        if not ctx.enabled:
+            return fn(*args, ctx=ctx, **kw)
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            return fn(*args, ctx=ctx, **kw)
+    return run
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _batch_local(fn, ctx: ShardCtx, args, ndims, out_ndim):
+    """``fn(*args)`` on each rank's batch shard: every operand (of ndim
+    ``ndims[i]``) and the result (of ndim ``out_ndim``) split over the
+    data axes on dim 0 (replicated when the batch does not divide them)
+    and replicated over the model axis."""
+    bspec = _bspec_for(ctx, args[0].shape[0])
+    spec = (lambda n: (bspec,) + (None,) * (n - 1))
+    return _regions().region(fn, ctx, [spec(n) for n in ndims],
+                             spec(out_ndim))(*args)
 
 
 def check_matmul_precision(x: torch.Tensor) -> None:
@@ -305,28 +418,69 @@ def banded_attention(q, k, v, *, window: int, causal=True):
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      ctx: ShardCtx = LOCAL):
-    """Tokens against a KV cache (the JAX package's single-device branch).
+    """Tokens against a KV cache, optionally sequence-sharded.
 
     q: (B, Tq, KH, R, D); caches (B, S, KH, D).  ``cache_len``: the number
     of valid cache positions; with ``window`` only the last ``window`` of
-    them are seen.
+    them are seen.  Under an enabled ``ctx`` the caches are DTensors
+    sharded over the model axis along S: each rank scores its block at
+    ``shard_idx * s_loc`` and the partials combine by log-sum-exp
+    (``pmax``, then two ``psum``), as in the JAX package.
     """
-    refuse_sharded(ctx)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    pos = torch.arange(k_cache.shape[1], device=q.device)
-    valid = pos < cache_len
-    if window:
-        valid &= pos >= cache_len - window
-    s = _f32_einsum("bqhrd,bkhd->bhrqk", q, k_cache) * scale
-    s = torch.where(valid, s, -torch.inf)
-    m = torch.amax(s, dim=-1)
-    m_safe = torch.where(torch.isfinite(m), m, -1e30)
-    p = torch.exp(s - m_safe[..., None])
-    p = torch.where(valid, p, 0.0)
-    l = torch.sum(p, dim=-1)
-    acc = _f32_einsum("bhrqk,bkhd->bqhrd", p.to(v_cache.dtype), v_cache)
-    out = acc / torch.clamp_min(_blh(l)[..., 0], 1e-30)[..., None]
-    return out.to(q.dtype)
+
+    def local(q_, k_, v_, shard_idx):
+        s_loc = k_.shape[1]
+        pos = shard_idx * s_loc + torch.arange(s_loc, device=q_.device)
+        valid = pos < cache_len
+        if window:
+            valid &= pos >= cache_len - window
+        s = _f32_einsum("bqhrd,bkhd->bhrqk", q_, k_) * scale
+        s = torch.where(valid, s, -torch.inf)
+        m = torch.amax(s, dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, -1e30)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(valid, p, 0.0)
+        l = torch.sum(p, dim=-1)
+        acc = _f32_einsum("bhrqk,bkhd->bqhrd", p.to(v_.dtype), v_)
+        return m_safe, l, acc
+
+    if not ctx.enabled:
+        _, l, acc = local(q, k_cache, v_cache, 0)
+        out = acc / torch.clamp_min(_blh(l)[..., 0], 1e-30)[..., None]
+        return out.to(q.dtype)
+
+    R = _regions()
+
+    def sharded(q_, k_, v_):
+        m, l, acc = local(q_, k_, v_, R.model_index(ctx))
+        # distributed LSE combine across sequence shards
+        m_g = R.all_reduce(m, "max", ctx)
+        w = torch.exp(m - m_g)
+        l_g = R.all_reduce(l * w, "sum", ctx)
+        acc_g = R.all_reduce(acc * _blh(w), "sum", ctx)
+        out = acc_g / torch.clamp_min(_blh(l_g)[..., 0], 1e-30)[..., None]
+        return out.to(q_.dtype)
+
+    bspec = _bspec_for(ctx, q.shape[0])
+    mx = ctx.model_axis
+    return R.region(sharded, ctx,
+                    [(bspec, None, None, None, None), (bspec, mx, None, None),
+                     (bspec, mx, None, None)],
+                    (bspec, None, None, None, None))(q, k_cache, v_cache)
+
+
+def _cached_attention(q, k_cache, v_cache, cache_len, window, ctx):
+    """`decode_attention` over a cache as it is placed: split over the
+    model axis along S, or (an S the axis does not divide) replicated
+    there and attended on each rank's batch shard."""
+    if not ctx.enabled or _seq_sharded(k_cache, ctx):
+        return decode_attention(q, k_cache, v_cache, cache_len,
+                                window=window, ctx=ctx)
+    return _batch_local(
+        lambda q_, k_, v_: decode_attention(q_, k_, v_, cache_len,
+                                            window=window),
+        ctx, (q, k_cache, v_cache), (5, 4, 4), 5)
 
 
 # ---------------------------------------------------------------------------
@@ -347,21 +501,23 @@ def init_attention(draw: Draw, cfg: ModelConfig) -> Params:
     return p
 
 
+@_mesh_entry
 def attention_apply(p, x, cfg: ModelConfig, *, is_local: bool,
                     positions=None, cache=None, cache_len=None,
                     ctx: ShardCtx = LOCAL, causal=True):
     """x (B, T, d) -> ((B, T, d), cache).  The cache ({"k", "v"}, each
     (B, S, KH, Dh)) is written in place: from 0 at prefill, at
     ``cache_len`` (a Python int; clamped as `cache_write` does) at
-    decode; the dict it returns holds the same tensors."""
-    refuse_sharded(ctx)
+    decode; the dict it returns holds the same tensors.  Under an
+    enabled ``ctx``, ``x`` and ``p`` are DTensors and the caches are
+    sequence-sharded over the model axis."""
     b, t, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = h // kh
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, t, kh, rep, dh)
-    k = (x @ p["wk"].to(dt)).reshape(b, t, kh, dh)
-    v = (x @ p["wv"].to(dt)).reshape(b, t, kh, dh)
+    q = _split_last(_linear(x, p["wq"], dt), b, t, kh, rep, dh)
+    k = _split_last(_linear(x, p["wk"], dt), b, t, kh, dh)
+    v = _split_last(_linear(x, p["wv"], dt), b, t, kh, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -377,24 +533,115 @@ def attention_apply(p, x, cfg: ModelConfig, *, is_local: bool,
     new_cache = None
     if cache is not None and cache_len is not None:
         # decode: append k/v at cache_len, attend over the cache
-        new_cache = {"k": cache_write(cache["k"], k, cache_len),
-                     "v": cache_write(cache["v"], v, cache_len)}
-        o = decode_attention(q, new_cache["k"], new_cache["v"],
-                             cache_len + t, window=window)
+        new_cache = {"k": cache_update(cache["k"], k, cache_len, ctx),
+                     "v": cache_update(cache["v"], v, cache_len, ctx)}
+        o = _cached_attention(q, new_cache["k"], new_cache["v"],
+                              cache_len + t, window, ctx)
     else:
         if cache is not None:
             # prefill: fill the cache, attend over this call's k/v
-            new_cache = {"k": cache_write(cache["k"], k, 0),
-                         "v": cache_write(cache["v"], v, 0)}
-        o = _prefill_attention(q, k, v, window, causal)
-    out = o.reshape(b, t, h * dh) @ p["wo"].to(dt)
+            new_cache = {"k": cache_update(cache["k"], k, 0, ctx),
+                         "v": cache_update(cache["v"], v, 0, ctx)}
+        o = _prefill_attention(q, k, v, cfg, window, causal, ctx)
+    out = _linear(o.reshape(b, t, h * dh), p["wo"], dt)
     return out, new_cache
 
 
-def _prefill_attention(q, k, v, window, causal):
-    if window:
-        return banded_attention(q, k, v, window=window, causal=causal)
-    return flash_attention(q, k, v, causal=causal)
+def _seq_sharded(cache, ctx: ShardCtx) -> bool:
+    """Is a DTensor cache split over the model axis along S?"""
+    from torch.distributed.tensor import Shard
+    i = list(ctx.mesh.mesh_dim_names).index(ctx.model_axis)
+    return cache.placements[i] == Shard(1)
+
+
+def cache_update(cache, kv, start: int, ctx: ShardCtx = LOCAL):
+    """`cache_write` of ``kv`` (B, t, ...) at ``start``; under an enabled
+    ``ctx`` on a DTensor cache: each rank writes the part of the clamped
+    range [start, start + t) that falls in its own S block, in place
+    (the JAX package's ``_sharded_cache_update``)."""
+    if not ctx.enabled:
+        return cache_write(cache, kv, start)
+    R = _regions()
+    s_full, t = cache.shape[1], kv.shape[1]
+    start = min(max(int(start), 0), s_full - t)
+    bspec = _bspec_for(ctx, cache.shape[0])
+    rest = (None,) * (cache.ndim - 2)
+    sharded = _seq_sharded(cache, ctx)
+
+    def upd(c, kv_):
+        s_loc = c.shape[1]
+        lo = (R.model_index(ctx) * s_loc) if sharded else 0
+        a, z = max(start, lo), min(start + t, lo + s_loc)
+        if a < z:
+            c[:, a - lo:z - lo] = kv_[:, a - start:z - start].to(c.dtype)
+        return c
+
+    cspec = (bspec, ctx.model_axis if sharded else None) + rest
+    R.region(upd, ctx, [cspec, (bspec, None) + rest], cspec)(cache, kv)
+    return cache
+
+
+def _prefill_attention(q, k, v, cfg: ModelConfig, window, causal,
+                       ctx: ShardCtx = LOCAL):
+    if not ctx.enabled:
+        if window:
+            return banded_attention(q, k, v, window=window, causal=causal)
+        return flash_attention(q, k, v, causal=causal)
+    R = _regions()
+    b, t, kh, rep, d = q.shape
+    h = kh * rep
+    bspec = _bspec_for(ctx, b)
+    mx = ctx.model_axis
+
+    def attend(q_, k_, v_, q_offset=0):
+        if window:
+            return banded_attention(q_, k_, v_, window=window, causal=causal)
+        return flash_attention(q_, k_, v_, causal=causal, q_offset=q_offset)
+
+    if cfg.attn_shard == "heads" and kh % ctx.model_size == 0:
+        # head-TP: the column-parallel projections leave q, k and v split
+        # over `model` by kv head, with each kv head's GQA reps beside it:
+        # each rank attends its own heads (the JAX package's flat-head
+        # split), and the output stays split for the row-parallel wo
+        return R.region(attend, ctx,
+                        [(bspec, None, mx, None, None),
+                         (bspec, None, mx, None), (bspec, None, mx, None)],
+                        (bspec, None, mx, None, None))(q, k, v)
+    if cfg.attn_shard == "heads" and h % ctx.model_size == 0:
+        # head-TP over fewer kv heads than ranks: fold GQA reps into flat
+        # heads and shard H over `model`; kv is replicated, and each rank
+        # repeats only its own H/model slice.  Each rank's gradient
+        # reaches only its heads, so the replicated operands get partial
+        # gradients.
+        def heads(q_, k_, v_):
+            h_loc = h // ctx.model_size
+            first = R.model_index(ctx) * h_loc
+            qf = q_.reshape(q_.shape[0], t, h, 1, d)[:, :, first:first + h_loc]
+            kv_of = torch.arange(first, first + h_loc, device=q_.device) // rep
+            return attend(qf, k_[:, :, kv_of], v_[:, :, kv_of])
+
+        spec5 = (bspec, None, None, None, None)
+        spec4 = (bspec, None, None, None)
+        o = R.region(heads, ctx, [spec5, spec4, spec4],
+                     (bspec, None, mx, None, None),
+                     in_grad=[R.partial_on_model(spec5, ctx),
+                              R.partial_on_model(spec4, ctx),
+                              R.partial_on_model(spec4, ctx)])(q, k, v)
+        o = R.constrain(o, spec5, ctx)
+        return o.reshape(b, t, kh, rep, o.shape[-1])
+    if (not window and cfg.attn_shard == "sequence"
+            and t % ctx.model_size == 0):
+        # sequence-parallel attention: q sharded over T, KV all-gathered
+        def sp(q_, k_, v_):
+            kg = R.all_gather(k_, 1, ctx)
+            vg = R.all_gather(v_, 1, ctx)
+            return attend(q_, kg, vg,
+                          q_offset=R.model_index(ctx) * q_.shape[1])
+        spec4 = (bspec, mx, None, None)
+        return R.region(sp, ctx, [(bspec, mx, None, None, None), spec4,
+                                  spec4],
+                        (bspec, mx, None, None, None))(q, k, v)
+    return _batch_local(attend, ctx, (q, k, v), (5, 4, 4), 5)
 
 
 # ---------------------------------------------------------------------------
@@ -432,25 +679,27 @@ def cache_write(cache: torch.Tensor, update: torch.Tensor, start: int):
     return cache
 
 
+@_mesh_entry
 def mla_apply(p, x, cfg: ModelConfig, *, positions=None, cache=None,
               cache_len=None, ctx: ShardCtx = LOCAL):
     """MLA attention.  The cache stores the latent (c_kv, k_rope) only and
     is updated in place (the JAX package returns a new one); the dict it
-    returns holds the same tensors."""
-    refuse_sharded(ctx)
+    returns holds the same tensors.  Under an enabled ``ctx`` the latent
+    cache is sequence-sharded over the model axis and the decode combines
+    the ranks' partials by log-sum-exp (`_mla_decode`)."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.n_heads
     dt = x.dtype
     if m.q_lora:
-        q = rms_norm(x @ p["wq_a"].to(dt), p["q_norm"], cfg.norm_eps)
-        q = q @ p["wq_b"].to(dt)
+        q = rms_norm(_linear(x, p["wq_a"], dt), p["q_norm"], cfg.norm_eps)
+        q = _linear(q, p["wq_b"], dt)
     else:
-        q = x @ p["wq"].to(dt)
-    q = q.reshape(b, t, h, m.qk_nope_dim + m.qk_rope_dim)
+        q = _linear(x, p["wq"], dt)
+    q = _split_last(q, b, t, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
 
-    kv_a = x @ p["wkv_a"].to(dt)
+    kv_a = _linear(x, p["wkv_a"], dt)
     c_kv = rms_norm(kv_a[..., :m.kv_lora], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., m.kv_lora:]                       # (B, T, rope_dim)
 
@@ -463,38 +712,67 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions=None, cache=None,
     new_cache = None
     if cache is not None and cache_len is not None:
         # --- absorbed decode: score in latent space ------------------------
-        new_cache = {"ckv": cache_write(cache["ckv"], c_kv, cache_len),
-                     "kr": cache_write(cache["kr"], k_rope, cache_len)}
-        wk_b = p["wk_b"].to(dt).reshape(m.kv_lora, h, m.qk_nope_dim)
-        q_eff = torch.einsum("bthd,lhd->bthl", q_nope, wk_b)
+        new_cache = {"ckv": cache_update(cache["ckv"], c_kv, cache_len, ctx),
+                     "kr": cache_update(cache["kr"], k_rope, cache_len, ctx)}
         scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-        o_lat = _mla_decode(q_eff, q_rope, new_cache["ckv"], new_cache["kr"],
-                            cache_len + t, scale)        # (B,T,H,kv_lora)
-        wv_b = p["wv_b"].to(dt).reshape(m.kv_lora, h, m.v_head_dim)
-        o = torch.einsum("bthl,lhd->bthd", o_lat, wv_b)
+        wk_b = _use(p["wk_b"], dt)
+        wv_b = _use(p["wv_b"], dt)
+
+        def absorbed(q_nope_, q_rope_, ckv_, kr_, wk_b_, wv_b_, ctx_):
+            q_eff = torch.einsum("bthd,lhd->bthl", q_nope_,
+                                 wk_b_.reshape(m.kv_lora, h, m.qk_nope_dim))
+            o_lat = _mla_decode(q_eff, q_rope_, ckv_, kr_, cache_len + t,
+                                scale, ctx_)             # (B,T,H,kv_lora)
+            return torch.einsum("bthl,lhd->bthd", o_lat,
+                                wv_b_.reshape(m.kv_lora, h, m.v_head_dim))
+
+        if not ctx.enabled:
+            o = absorbed(q_nope, q_rope, new_cache["ckv"], new_cache["kr"],
+                         wk_b, wv_b, LOCAL)
+        else:
+            sharded = _seq_sharded(new_cache["ckv"], ctx)
+            bspec = _bspec_for(ctx, b)
+            mx = ctx.model_axis if sharded else None
+            o = _regions().region(
+                lambda *a: absorbed(*a, ctx if sharded else LOCAL), ctx,
+                [(bspec, None, None, None), (bspec, None, None, None),
+                 (bspec, mx, None), (bspec, mx, None), (None, None),
+                 (None, None)],
+                (bspec, None, None, None))(
+                    q_nope, q_rope, new_cache["ckv"], new_cache["kr"],
+                    wk_b, wv_b)
     else:
         # --- train/prefill: materialize per-head k, v ----------------------
-        k_nope = (c_kv @ p["wk_b"].to(dt)).reshape(b, t, h, m.qk_nope_dim)
-        val = (c_kv @ p["wv_b"].to(dt)).reshape(b, t, h, m.v_head_dim)
+        k_nope = _split_last(_linear(c_kv, p["wk_b"], dt), b, t, h,
+                             m.qk_nope_dim)
+        val = _split_last(_linear(c_kv, p["wv_b"], dt), b, t, h,
+                          m.v_head_dim)
         k_full = torch.cat(
             [k_nope, k_rope[:, :, None, :].expand(b, t, h, m.qk_rope_dim)],
             dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         # GQA layout with KH=H, rep=1
-        o = flash_attention(q_full[:, :, :, None, :], k_full, val, causal=True)
+        attend = (lambda q_, k_, v_: flash_attention(
+            q_[:, :, :, None, :], k_, v_, causal=True))
+        o = (attend(q_full, k_full, val) if not ctx.enabled else
+             _batch_local(attend, ctx, (q_full, k_full, val), (4, 4, 4), 5))
         o = o.reshape(b, t, h, m.v_head_dim)
         if cache is not None:
-            new_cache = {"ckv": cache_write(cache["ckv"], c_kv, 0),
-                         "kr": cache_write(cache["kr"], k_rope, 0)}
+            new_cache = {"ckv": cache_update(cache["ckv"], c_kv, 0, ctx),
+                         "kr": cache_update(cache["kr"], k_rope, 0, ctx)}
 
-    out = o.reshape(b, t, h * m.v_head_dim) @ p["wo"].to(dt)
+    out = _linear(o.reshape(b, t, h * m.v_head_dim), p["wo"], dt)
     return out, new_cache
 
 
-def _mla_decode(q_eff, q_rope, ckv, kr, cache_len, scale):
+def _mla_decode(q_eff, q_rope, ckv, kr, cache_len, scale,
+                ctx: ShardCtx = LOCAL):
     """Latent-space decode attention over the first ``cache_len`` cache
-    positions."""
-    pos = torch.arange(ckv.shape[1], device=ckv.device)
+    positions; inside a region of an enabled ``ctx`` the caches are this
+    rank's S block and the partials combine over the model axis."""
+    shard_idx = _regions().model_index(ctx) if ctx.enabled else 0
+    s_loc = ckv.shape[1]
+    pos = shard_idx * s_loc + torch.arange(s_loc, device=ckv.device)
     valid = pos < cache_len
     s = (_f32_einsum("bthl,bsl->bhts", q_eff, ckv)
          + _f32_einsum("bthr,bsr->bhts", q_rope, kr)) * scale
@@ -505,6 +783,12 @@ def _mla_decode(q_eff, q_rope, ckv, kr, cache_len, scale):
     pr = torch.where(valid, pr, 0.0)
     l = torch.sum(pr, dim=-1)
     acc = _f32_einsum("bhts,bsl->bthl", pr.to(ckv.dtype), ckv)
+    if ctx.enabled:
+        R = _regions()
+        m_g = R.all_reduce(m_safe, "max", ctx)
+        w = torch.exp(m_safe - m_g)
+        l = R.all_reduce(l * w, "sum", ctx)
+        acc = R.all_reduce(acc * w.permute(0, 2, 1)[..., None], "sum", ctx)
     lt = l.permute(0, 2, 1)[..., None]
     return (acc / torch.clamp_min(lt, 1e-30)).to(q_eff.dtype)
 
@@ -523,9 +807,9 @@ def init_mlp(draw: Draw, d: int, d_ff: int, cfg: ModelConfig) -> Params:
 
 def mlp_apply(p, x, cfg: ModelConfig):
     dt = x.dtype
-    g = act_fn(cfg.act)(x @ p["w_gate"].to(dt))
-    u = x @ p["w_up"].to(dt)
-    return (g * u) @ p["w_down"].to(dt)
+    g = act_fn(cfg.act)(_linear(x, p["w_gate"], dt))
+    u = _linear(x, p["w_up"], dt)
+    return _linear(g * u, p["w_down"], dt)
 
 
 def quantize_int8(w: torch.Tensor):
@@ -594,27 +878,102 @@ def route_tokens(xf, router_w, cfg: ModelConfig):
 
 
 def moe_apply(p, x, cfg: ModelConfig, ctx: ShardCtx = LOCAL):
-    """Event-routed MoE layer on one device.  Returns (y, aux_metrics)."""
-    refuse_sharded(ctx)
+    """Event-routed MoE layer.  Returns (y, aux_metrics).
+
+    Distributed path (an enabled ``ctx``), as in the JAX package: the
+    layer runs as one region - tokens stay on their data shard (routing
+    is per shard: `hat_route`, B5 on the card, once a rank), experts are
+    sharded over the model axis (rank i runs experts [i e_loc,
+    (i+1) e_loc), int8 ones stay int8 until inside the region), and the
+    expert outputs combine with one sum over the model axis; the aux
+    losses are averaged over the data axes.
+    """
     mo = cfg.moe
     b, t, d = x.shape
     dt = x.dtype
     act = act_fn(cfg.act)
+
+    def local_moe(xf, router_w, ws, first, e_loc):
+        route = route_tokens(xf, router_w, cfg)
+        # local slice of the (global) buffer: experts [first, first+e_loc)
+        buf = route.buffer_rows[first:first + e_loc]
+        xe = torch.where((buf >= 0)[..., None],
+                         xf[torch.clamp_min(buf, 0).long()], 0.0)
+        # dequantize (if int8) after any resharding, so wires carry int8
+        wg = _moe_weight(ws, "w_gate", dt)
+        wu = _moe_weight(ws, "w_up", dt)
+        wd = _moe_weight(ws, "w_down", dt)
+        ye = _expert_ffn(xe, wg, wu, wd, act)            # (E_loc, C, d)
+        ids = route.expert_ids.long()
+        mine = (ids >= first) & (ids < first + e_loc) & route.kept
+        ev = ye[torch.clamp(ids - first, 0, e_loc - 1),
+                torch.clamp_min(route.event_slot, 0).long()]  # (T, k, d)
+        wgt = (route.weights * mine.to(route.weights.dtype)).to(ev.dtype)
+        y = torch.einsum("tkd,tk->td", ev, wgt)
+        return y, route.aux_loss, route.z_loss
+
+    if ctx.enabled:        # the tokens' flatten needs T whole
+        x = _regions().constrain(x, (_bspec_for(ctx, b), None, None), ctx)
     xf = x.reshape(b * t, d)
-    route = route_tokens(xf, p["router"].to(dt), cfg)
-    buf = route.buffer_rows
-    xe = torch.where((buf >= 0)[..., None], xf[torch.clamp_min(buf, 0).long()],
-                     0.0)
-    wg = _moe_weight(p, "w_gate", dt)
-    wu = _moe_weight(p, "w_up", dt)
-    wd = _moe_weight(p, "w_down", dt)
-    ye = _expert_ffn(xe, wg, wu, wd, act)                # (E, C, d)
-    ev = ye[route.expert_ids.long(),
-            torch.clamp_min(route.event_slot, 0).long()]  # (T, k, d)
-    wgt = (route.weights * route.kept.to(route.weights.dtype)).to(ev.dtype)
-    y = torch.einsum("tkd,tk->td", ev, wgt)
+    ws = {k_: v_ for k_, v_ in p.items()
+          if k_.startswith(("w_gate", "w_up", "w_down"))}
+    if not ctx.enabled:
+        y, aux_l, z_l = local_moe(xf, p["router"].to(dt), ws, 0,
+                                  mo.num_experts)
+    else:
+        y, aux_l, z_l = _moe_sharded(local_moe, xf, _use(p["router"], dt),
+                                     ws, cfg, ctx)
     if mo.num_shared:
         y = y + mlp_apply(p["shared"], xf, cfg)
-    aux = {"moe_aux": route.aux_loss * mo.aux_loss_weight,
-           "moe_z": route.z_loss * mo.z_loss_weight}
+    aux = {"moe_aux": aux_l * mo.aux_loss_weight,
+           "moe_z": z_l * mo.z_loss_weight}
     return y.reshape(b, t, d), aux
+
+
+def _moe_sharded(local_moe, xf, router_w, ws, cfg: ModelConfig,
+                 ctx: ShardCtx):
+    """The expert-parallel region of `moe_apply`.
+
+    Its results are `Partial` sums, so that every gradient that flows
+    back is a sum over ranks as well: ``y`` over the model axis (each
+    rank's experts; the one all-reduce happens where ``y`` is next
+    read), and the aux losses over every axis, each rank adding
+    1/(model x data) of its shard's value (the JAX package's ``pmean``
+    over the data axes).  Where the tokens do not divide the data axes
+    every data rank routes them all, and ``y`` is summed over the data
+    axes too, each adding 1/data of it."""
+    from torch.distributed.tensor import Partial
+    R = _regions()
+    mo = cfg.moe
+    e_loc = mo.num_experts // ctx.model_size
+    # tokens shard over data axes only when they divide; tiny decode
+    # batches (long_500k: 1 token) replicate instead
+    bspec = _bspec_for(ctx, xf.shape[0])
+    dp = 1
+    for _, n in R.data_coords(ctx):
+        dp *= n
+    y_share = 1.0 if bspec is not None else 1.0 / dp
+    aux_share = 1.0 / (dp * ctx.model_size)
+    keys = sorted(ws)
+
+    def body(xf_, router_w_, *wl):
+        y, aux, z = local_moe(xf_, router_w_, dict(zip(keys, wl)),
+                              R.model_index(ctx) * e_loc, e_loc)
+        return y * y_share, aux * aux_share, z * aux_share
+
+    every = tuple([Partial()] * ctx.mesh.ndim)
+    x_spec = (bspec, None)
+    x_pl = R.partial_on_model(x_spec, ctx, data_partial=bspec is None)
+    w_specs = [(ctx.model_axis,) + (None,) * (ws[k_].ndim - 1) for k_ in keys]
+    names = list(ctx.mesh.mesh_dim_names)
+    w_grads = []
+    for sp in w_specs:                 # data: partial; model: EP shard
+        pl = list(R.partial_on_model(sp, ctx, data_partial=True))
+        pl[names.index(ctx.model_axis)] = R.placements(sp, ctx)[
+            names.index(ctx.model_axis)]
+        w_grads.append(tuple(pl))
+    y, aux, z = R.region(
+        body, ctx, [x_spec, (None, None)] + w_specs, [x_pl, every, every],
+        in_grad=[x_pl, every] + w_grads)(xf, router_w,
+                                         *[ws[k_] for k_ in keys])
+    return y, aux, z

@@ -38,8 +38,16 @@ Modes:
 the backward pass (`torch.utils.checkpoint`), which changes no value;
 ``remat_policy`` maps the JAX package's names (`REMAT_POLICIES`).
 
-Only sharding is not ported: ``ShardCtx(enabled=True)`` raises
-`NotImplementedError` naming its ROADMAP item (12: ``parallel/``).
+Sharding: with ``ctx = parallel.sharding.make_shard_ctx(mesh, cfg)`` on
+a `DeviceMesh` (`repro_torch.launch.mesh`) and the parameters, batch and
+caches placed as DTensors by the port's specs (`sharding.shard_tree`),
+`forward` runs every family on the mesh: the embedding and the
+recurrent mixers on each rank's batch shard, the activations between
+layer groups constrained to the JAX package's specs (the sequence over
+the model axis under ``attn_shard="sequence"``), the logits split over
+the vocab, and the ``shard_map`` regions of `models.blocks` as
+``local_map`` regions.  A mesh run computes the single-device values
+(each data shard routes its own MoE tokens, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ import functools
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.interface.session import resolve_device
 from repro_torch.models import blocks, mamba, rwkv6
 from repro_torch.models.blocks import ITEM_12, LOCAL, Draw, ShardCtx
@@ -234,16 +246,19 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
                 positions=positions, cache=cache, cache_len=cache_len,
                 ctx=ctx, causal=not cfg.encoder_only)
     elif kind == "mamba":
-        o, state = mamba.mamba_apply(lp["mix"], h, cfg, state=cache)
+        o, state = _mixer(lambda p_, h_, s_: mamba.mamba_apply(
+            p_, h_, cfg, state=s_), lp["mix"], h, cache, ctx)
     else:
-        o, state = rwkv6.time_mix_apply(lp["mix"], h, cfg, state=cache,
-                                        chunked=(mode != "decode"))
+        o, state = _mixer(lambda p_, h_, s_: rwkv6.time_mix_apply(
+            p_, h_, cfg, state=s_, chunked=(mode != "decode")),
+            lp["mix"], h, cache, ctx)
     if cfg.post_norms:
         o = blocks.rms_norm(o, lp["post_ln1"], cfg.norm_eps)
     x = x + o
     h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind == "rwkv":
-        o, state2 = rwkv6.channel_mix_apply(lp["ffn"], h, cfg, state=state)
+        o, state2 = _mixer(lambda p_, h_, s_: rwkv6.channel_mix_apply(
+            p_, h_, cfg, state=s_), lp["ffn"], h, state, ctx)
         state = state2 if state2 is not None else state
     elif cfg.layer_is_moe(idx):
         o, aux = blocks.moe_apply(lp["ffn"], h, cfg, ctx=ctx)
@@ -254,8 +269,116 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
     x = x + o
     if state is not None:
         for k_, v_ in state.items():
-            cache[k_].copy_(v_)
+            _write_state(cache[k_], v_)
     return x, aux
+
+
+def _write_state(dst, new):
+    """``dst.copy_(new)``; a DTensor cache leaf takes its own block of
+    ``new`` (replicated over the model axis), in place."""
+    if isinstance(dst, DTensor):
+        dst.to_local().copy_(new.redistribute(dst.device_mesh,
+                                              dst.placements).to_local())
+    else:
+        dst.copy_(new)
+
+
+def _mixer(fn, p, h, state, ctx: ShardCtx):
+    """``fn(p, h, state) -> (out, new_state)`` for a recurrent mixer
+    (Mamba, RWKV time / channel mix).  Under an enabled ``ctx`` it runs
+    on each rank's batch shard with its parameters gathered and its
+    state gathered over the model axis; the new state comes back
+    replicated there (`_write_state` keeps each rank's block)."""
+    if not ctx.enabled:
+        return fn(p, h, state)
+    from repro_torch.parallel import regions as R
+    leaves = tree_leaves(p)
+    keys = sorted(state) if state is not None else []
+    bspec = blocks._bspec_for(ctx, h.shape[0])
+    bsp = (lambda t: (bspec,) + (None,) * (t.ndim - 1))
+
+    def body(h_, *rest):
+        p_ = tree_unflatten(p, list(rest[:len(leaves)]))
+        s_ = (dict(zip(keys, rest[len(leaves):])) if state is not None
+              else None)
+        out, ns = fn(p_, h_, s_)
+        return (out,) + tuple(ns[k] for k in keys)
+
+    w_specs = [(None,) * w.ndim for w in leaves]
+    outs = R.region(
+        body, ctx,
+        [bsp(h)] + w_specs + [bsp(state[k]) for k in keys],
+        [bsp(h)] + [bsp(state[k]) for k in keys],
+        in_grad=[None] + [R.grad_of_replicated(sp, ctx, bspec is not None)
+                          for sp in w_specs] + [None] * len(keys))(
+            h, *leaves,
+            *[state[k] for k in keys])
+    return outs[0], (dict(zip(keys, outs[1:])) if state is not None
+                     else None)
+
+
+def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
+    """`_embed` on a mesh.  Tokens are looked up vocab-parallel: each
+    rank reads the rows of its own vocab slice (zeros elsewhere) and the
+    slices sum over the model axis, exactly, since one rank holds each
+    row.  The audio frontend runs on each rank's batch shard with its
+    projection gathered."""
+    from repro_torch.parallel import regions as R
+    cdt = blocks.dtype_of(cfg.compute_dtype)
+    keys = sorted(batch)
+    bspec = blocks._bspec_for(ctx, batch[keys[0]].shape[0])
+    batch = {k: _as_dtensor(v, bspec, ctx) for k, v in batch.items()}
+    split = (lambda t: (bspec,) + (None,) * (t.ndim - 1))
+    if cfg.frontend.kind == "audio":
+        names = [k for k in ("frontend_proj", "mask_embed") if k in params]
+
+        def body(*args):
+            return _embed(dict(zip(names, args[:len(names)])),
+                          dict(zip(keys, args[len(names):])), cfg)
+
+        w_specs = [(None,) * params[k].ndim for k in names]
+        return R.region(
+            body, ctx, w_specs + [split(batch[k]) for k in keys],
+            (bspec, None, None),
+            in_grad=[R.grad_of_replicated(sp, ctx, bspec is not None)
+                     for sp in w_specs] + [None] * len(keys))(
+                *[params[k] for k in names], *[batch[k] for k in keys])
+
+    vocab_split = cfg.vocab % ctx.model_size == 0
+    e_spec = (ctx.model_axis if vocab_split else None, None)
+
+    def lookup(e, tok):
+        v_loc = e.shape[0]
+        idx = tok.long() - (R.model_index(ctx) * v_loc if vocab_split else 0)
+        mine = (idx >= 0) & (idx < v_loc)
+        rows = e[idx.clamp(0, v_loc - 1)]
+        return torch.where(mine[..., None], rows, 0.0).to(cdt)
+
+    out = (R.partial_on_model((bspec, None, None), ctx) if vocab_split
+           else (bspec, None, None))
+    tok = R.region(lookup, ctx, [e_spec, (bspec, None)], out,
+                   in_grad=[R.grad_of_replicated(e_spec, ctx,
+                                                 bspec is not None), None])(
+        params["embed"], batch["tokens"])
+    tok = R.constrain(tok, (bspec, None, None), ctx)
+    if cfg.frontend.kind == "vision" and "image_embeds" in batch:
+        img = blocks._linear(batch["image_embeds"].to(cdt),
+                             params["frontend_proj"], cdt)
+        return torch.cat([img, tok], dim=1)
+    if cfg.family != "rwkv":
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model),
+                                        dtype=torch.float32)).to(cdt)
+        return tok * scale.to(tok.device)
+    return tok
+
+
+def _as_dtensor(t, bspec, ctx: ShardCtx):
+    """A batch leaf as a DTensor: as it is, or (the same full tensor on
+    every rank) placed with its batch dim over the data axes."""
+    if isinstance(t, DTensor):
+        return t
+    from repro_torch.parallel import sharding
+    return sharding.place(t, (bspec,) + (None,) * (t.ndim - 1), ctx.mesh)
 
 
 def _embed(params, batch, cfg: ModelConfig):
@@ -278,12 +401,33 @@ def _embed(params, batch, cfg: ModelConfig):
     return tok
 
 
-def _head(params, x, cfg: ModelConfig):
-    """Final norm and the lm head: (B, T, d) -> (B, T, vocab) logits."""
+def _head(params, x, cfg: ModelConfig, ctx: ShardCtx = LOCAL):
+    """Final norm and the lm head: (B, T, d) -> (B, T, vocab) logits;
+    under an enabled ``ctx`` split over the model axis along the vocab
+    when it divides (the JAX package's constraint)."""
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"]).to(x.dtype)
-    return x @ head
+    if cfg.tie_embeddings:
+        logits = blocks._linear(x, params["embed"].T, x.dtype)
+    else:
+        logits = blocks._linear(x, params["lm_head"], x.dtype)
+    if ctx.enabled:
+        from repro_torch.parallel import regions as R
+        bspec = blocks._bspec_for(ctx, logits.shape[0])
+        vspec = ctx.model_axis if cfg.vocab % ctx.model_size == 0 else None
+        logits = R.constrain(logits, (bspec, None, vspec), ctx)
+    return logits
+
+
+def _constrain_acts(x, cfg: ModelConfig, ctx: ShardCtx):
+    """Activations between layer groups: the batch over the data axes,
+    and under ``attn_shard="sequence"`` the tokens over the model axis
+    when they divide it."""
+    from repro_torch.parallel import regions as R
+    bspec = blocks._bspec_for(ctx, x.shape[0])
+    if (cfg.attn_shard == "sequence" and x.shape[1] > 1
+            and x.shape[1] % ctx.model_size == 0):
+        return R.constrain(x, (bspec, ctx.model_axis, None), ctx)
+    return R.constrain(x, (bspec, None, None), ctx)
 
 
 def _layer_view(tree, r: int):
@@ -349,6 +493,14 @@ def _remat_wrap(body, remat: bool, remat_policy):
             ckpt.create_selective_checkpoint_contexts, policy))
 
 
+def _replicating(fn):
+    """``fn`` with plain tensors taken as replicated DTensors."""
+    def run(x):
+        with implicit_replication():
+            return fn(x)
+    return run
+
+
 def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             cache=None, cache_len=None, ctx: ShardCtx = LOCAL,
             remat: bool = True, remat_policy: str | None = None):
@@ -359,18 +511,34 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     records; it changes no value.
 
     Raises:
-      ValueError: on an unknown ``mode``, or ``mode="decode"`` without a
-        cache and ``cache_len``.
-      NotImplementedError: on ``ShardCtx(enabled=True)``, or a
-        ``remat_policy`` with no counterpart.
+      ValueError: on an unknown ``mode``, ``mode="decode"`` without a
+        cache and ``cache_len``, or an enabled ``ctx`` without a mesh.
+      NotImplementedError: on a ``remat_policy`` with no counterpart.
       RuntimeError: on CUDA tensors while TF32 is allowed.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
     if mode == "decode" and (cache is None or cache_len is None):
         raise ValueError("mode='decode' needs a cache and cache_len")
-    blocks.refuse_sharded(ctx)
-    x = _embed(params, batch, cfg)
+    if ctx.enabled:
+        if ctx.mesh is None:
+            raise ValueError(
+                "ShardCtx(enabled=True) needs its DeviceMesh: build it with "
+                "repro_torch.parallel.sharding.make_shard_ctx(mesh)")
+        with implicit_replication():
+            return _forward(params, batch, cfg, mode, cache, cache_len, ctx,
+                            remat, remat_policy)
+    return _forward(params, batch, cfg, mode, cache, cache_len, ctx, remat,
+                    remat_policy)
+
+
+def _forward(params, batch, cfg: ModelConfig, mode, cache, cache_len,
+             ctx: ShardCtx, remat, remat_policy):
+    if ctx.enabled:
+        x = _constrain_acts(_embed_sharded(params, batch, cfg, ctx), cfg,
+                            ctx)
+    else:
+        x = _embed(params, batch, cfg)
     blocks.check_matmul_precision(x)
     _, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
@@ -400,8 +568,12 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
                         ctx=ctx)
                     for k_, v_ in aux.items():
                         rep_aux[k_] = rep_aux.get(k_, 0.0) + v_
+                if ctx.enabled:
+                    x_ = _constrain_acts(x_, cfg, ctx)
                 return x_, rep_aux
 
+            if ctx.enabled:      # remat runs it again, outside forward
+                group_body = _replicating(group_body)
             x, rep_aux = _remat_wrap(group_body, remat, remat_policy)(x)
             for k_, v_ in rep_aux.items():
                 group_aux[k_] = group_aux.get(k_, 0.0) + v_
@@ -410,5 +582,5 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         for k_, v_ in group_aux.items():
             aux_total[k_] = aux_total.get(k_, 0.0) + v_
 
-    logits = _head(params, x, cfg)
+    logits = _head(params, x, cfg, ctx)
     return {"logits": logits, "aux": aux_total, "cache": new_cache_groups}

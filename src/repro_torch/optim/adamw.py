@@ -61,14 +61,14 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: AdamWConfig, params) -> AdamWState:
-    """Zero moments in ``moment_dtype`` on each parameter's device."""
+    """Zero moments in ``moment_dtype`` on each parameter's device (and
+    in its placements, on a mesh: ZeRO falls out of the specs)."""
     mdt = getattr(torch, cfg.moment_dtype)
     leaves = tree_leaves(params)
 
     def zeros():
-        return tree_unflatten(params, [
-            torch.zeros(p.shape, dtype=mdt, device=p.device)
-            for p in leaves])
+        return tree_unflatten(params, [torch.zeros_like(p, dtype=mdt)
+                                       for p in leaves])
 
     step = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
     return AdamWState(step=step, mu=zeros(), nu=zeros())
@@ -83,9 +83,22 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):
-    """Returns (new_params, new_state, metrics)."""
+    """Returns (new_params, new_state, metrics).  On DTensor trees (a
+    mesh) every leaf stays in its placements and the scalars of the rule
+    are plain tensors, replicated."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if isinstance(tree_leaves(params)[0], DTensor):
+        with implicit_replication():
+            return _update(cfg, grads, state, params)
+    return _update(cfg, grads, state, params)
+
+
+def _update(cfg: AdamWConfig, grads, state: AdamWState, params):
     grads = [g.detach() for g in tree_leaves(grads)]
     gnorm = global_norm(grads)
+    if hasattr(gnorm, "full_tensor"):
+        gnorm = gnorm.full_tensor()
     scale = torch.minimum(_f32(1.0, gnorm), cfg.clip_norm / torch.maximum(
         gnorm, _f32(1e-9, gnorm)))
     step = state.step + 1

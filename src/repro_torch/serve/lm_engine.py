@@ -9,7 +9,8 @@ with per-lane stop handling.
     tokens = ServeEngine(cfg, params).generate(prompts, num_steps=32)
 
 The engine runs where ``prompts`` lie (the parameters must be there
-too).  Greedy decoding is the JAX package's token for token.  Sampling
+too), or on a mesh: ``ServeEngine(cfg, params, ctx=ctx)`` with the
+parameters placed as DTensors by `parallel.sharding`.  Greedy decoding is the JAX package's token for token.  Sampling
 (``temperature > 0`` with a ``generator``) draws Gumbel noise from that
 `torch.Generator`: the same distribution as ``jax.random.categorical``,
 not its numbers.  As in the JAX package, ``temperature > 0`` without a
@@ -57,16 +58,20 @@ def sample_categorical(generator: torch.Generator, logits: torch.Tensor):
 
 @dataclasses.dataclass
 class ServeEngine:
-    """Minimal batched-serving loop (single device, greedy or sampled)."""
+    """Minimal batched-serving loop (greedy or sampled).  With an enabled
+    ``ctx`` (`parallel.sharding.make_shard_ctx`) the parameters are
+    DTensors on its mesh, the cache is placed by `cache_pspecs`, and
+    every rank draws the same tokens from the gathered logits."""
 
     cfg: ModelConfig
     params: dict
     max_len: int = 256
     temperature: float = 0.0
+    ctx: ShardCtx = LOCAL
 
     def __post_init__(self):
-        self._prefill = make_prefill_step(self.cfg)
-        self._decode = make_decode_step(self.cfg)
+        self._prefill = make_prefill_step(self.cfg, self.ctx)
+        self._decode = make_decode_step(self.cfg, self.ctx)
 
     @torch.no_grad()
     def generate(self, prompts: torch.Tensor, num_steps: int,
@@ -75,7 +80,16 @@ class ServeEngine:
         """prompts (B, Tp) int -> (B, num_steps) int32 generated tokens."""
         b, tp = prompts.shape
         cache = lm.init_cache(self.cfg, b, self.max_len, device=prompts.device)
+        if self.ctx.enabled:
+            from repro_torch.parallel import regions, sharding
+            cache = sharding.shard_tree(
+                cache, sharding.cache_pspecs(cache, self.cfg, self.ctx),
+                self.ctx.mesh)
+            full = regions.full
+        else:
+            full = (lambda t: t)
         logits, cache = self._prefill(self.params, {"tokens": prompts}, cache)
+        logits = full(logits)
         cache_len = tp
         toks = []
         done = torch.zeros((b,), dtype=torch.bool, device=prompts.device)
@@ -89,5 +103,6 @@ class ServeEngine:
             toks.append(nxt)
             logits, cache = self._decode(self.params, cache, nxt[:, None],
                                          cache_len)
+            logits = full(logits)
             cache_len += 1
         return torch.stack(toks, dim=1)

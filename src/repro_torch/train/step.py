@@ -59,6 +59,33 @@ def cross_entropy(logits, labels, mask=None):
     return nll.sum() / denom
 
 
+def _cross_entropy_sharded(logits, labels, mask, ctx: ShardCtx):
+    """`cross_entropy` of DTensor logits: each rank sums the NLL and
+    counts the valid positions of its batch shard (the vocab gathered),
+    and the two sums over the data axes make the mean."""
+    from repro_torch.models.blocks import _bspec_for
+    from repro_torch.parallel import regions as R
+    bspec = _bspec_for(ctx, logits.shape[0])
+    part = R.grad_of_replicated((None,), ctx, bspec is not None)
+    ops = [logits, labels] + ([mask] if mask is not None else [])
+
+    def body(logits_, labels_, *mask_):
+        logits_ = logits_.float()
+        lse = torch.logsumexp(logits_, dim=-1)
+        gold = torch.gather(logits_, -1,
+                            labels_.clamp_min(0).long()[..., None])[..., 0]
+        valid = labels_ >= 0
+        if mask_:
+            valid = valid & (mask_[0] > 0)
+        nll = torch.where(valid, lse - gold, 0.0)
+        return nll.sum()[None], valid.sum(dtype=torch.float32)[None]
+
+    specs = [(bspec, None, None), (bspec, None)] + (
+        [(bspec, None)] if mask is not None else [])
+    nll, count = R.region(body, ctx, specs, [part, part])(*ops)
+    return (nll / count.clamp_min(1.0))[0]
+
+
 def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
             remat=True, remat_policy: str | None = None):
     """(loss + the aux losses, metrics {"ce_loss", aux...})."""
@@ -69,7 +96,9 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
     if logits.shape[1] != labels.shape[1]:
         # vision prefix: logits cover [image; text] - score text only
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    loss = cross_entropy(logits, labels, batch.get("loss_mask"))
+    loss = (_cross_entropy_sharded(logits, labels, batch.get("loss_mask"),
+                                   ctx) if ctx.enabled
+            else cross_entropy(logits, labels, batch.get("loss_mask")))
     aux_sum = sum(out["aux"].values()) if out["aux"] else 0.0
     metrics = {"ce_loss": loss, **out["aux"]}
     return loss + aux_sum, metrics
@@ -84,9 +113,18 @@ def value_and_grad(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
                             ctx, remat, remat_policy)
     # a leaf the loss does not read (the token embedding of the audio
     # frontend, whose head is untied) gets a zero gradient, as in JAX
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    if ctx.enabled:       # the backward mixes DTensors and plain tensors
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        with implicit_replication():
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    else:
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
+    if ctx.enabled:       # partial sums reduced: each in its leaf's placement
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 

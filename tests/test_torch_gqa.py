@@ -21,7 +21,9 @@ import torch
 
 from repro.models import blocks as jblocks
 from repro.models.config import ModelConfig
+from repro_torch.launch.spawn import spawn
 from repro_torch.models import blocks as tblocks
+import torch_mesh_ranks as ranks
 from tests.test_torch_lm import port_config
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -173,12 +175,32 @@ def test_attention_apply_prefill_and_decode_match_jax(is_local):
         _close(tcache[name], jcache[name], f"cache {name}")
 
 
-def test_gqa_refuses_a_sharded_context():
-    cfg = port_config(_cfg())
-    with pytest.raises(NotImplementedError, match="ShardCtx.enabled"):
-        tblocks.attention_apply({}, torch.zeros(1, 1, 48), cfg,
-                                is_local=False,
-                                ctx=tblocks.ShardCtx(enabled=True))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tblocks.decode_attention(*_t(*_qkv(1, 0)), 1,
-                                 ctx=tblocks.ShardCtx(enabled=True))
+def test_gqa_runs_a_sharded_context():
+    """On a 1 x 2 mesh of gloo CPU ranks: `decode_attention` over a cache
+    split along S (with a window too) and `attention_apply`'s head-TP
+    prefill, cache fill and sequence-sharded decode, against the JAX
+    package's single device."""
+    jcfg = _cfg()
+    jp = jblocks.init_attention(jax.random.PRNGKey(3), jcfg)
+    x = np.random.default_rng(4).standard_normal((B, 9, 48)).astype(
+        np.float32)
+    q, k, v = _qkv(1, 5, s=16)
+    want_dec = [np.asarray(jblocks.decode_attention(
+        *map(jnp.asarray, (q, k, v)), jnp.int32(11), window=w))
+        for w in (0, WINDOW)]
+    jcache = {n: jnp.zeros((B, 10, KH, D)) for n in ("k", "v")}
+    want_pre, jcache = jblocks.attention_apply(
+        jp, jnp.asarray(x[:, :8]), jcfg, is_local=False, cache=jcache)
+    want_dec1, _ = jblocks.attention_apply(
+        jp, jnp.asarray(x[:, 8:9]), jcfg, is_local=False,
+        positions=jnp.array([[8]]), cache=jcache, cache_len=jnp.int32(8))
+    results = spawn(ranks.gqa_1x2, 2, args=(
+        port_config(jcfg), jax.tree.map(np.asarray, jp), x, (q, k, v)),
+        timeout=300)
+    for out in results:
+        for got, want in zip(out["decode"], want_dec):
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(out["prefill"], np.asarray(want_pre),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(out["decode_step"], np.asarray(want_dec1),
+                                   rtol=RTOL, atol=ATOL)

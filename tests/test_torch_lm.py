@@ -250,7 +250,7 @@ def test_refusals_name_their_item():
     params = tlm.init_model(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ShardCtx.enabled"):
+    with pytest.raises(ValueError, match="needs its DeviceMesh"):
         tlm.forward(params, batch, cfg, ctx=tblocks.ShardCtx(enabled=True))
     with pytest.raises(ValueError, match="unknown mode"):
         tlm.forward(params, batch, cfg, mode="score")

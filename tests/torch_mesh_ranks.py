@@ -1,0 +1,487 @@
+"""Rank bodies of the port's mesh tests (`tests/test_torch_mesh_*.py`,
+`tests/test_torch_sharding.py`), run by `repro_torch.launch.spawn` on
+gloo CPU ranks.
+
+This module imports torch and the port only: every rank is a fresh
+process, and the JAX references are computed in the test process.  Each
+body takes numpy inputs and returns numpy results (or plain values).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _mesh_ctx(data, model, cfg=None):
+    from repro_torch.launch import mesh as M
+    from repro_torch.parallel import sharding as shd
+    mesh = M.make_host_mesh(data, model, device="cpu")
+    return mesh, shd.make_shard_ctx(mesh, cfg)
+
+
+def _np(x):
+    from repro_torch.parallel import regions as R
+    return R.full(x).detach().float().numpy()
+
+
+# ---- the JAX package's three mesh tests, at its 2 x 4 mesh ----------------
+
+
+def jax_mesh_tests(rank, world, train, sp, dec):
+    """``train``: (cfg, opt_cfg, params, batch); ``sp``: (cfg, params,
+    tokens); ``dec``: (q, k, v, cache_len).  Returns the sharded train
+    loss, the SP logits, the sequence-sharded decode output and each
+    rank's local parameter shapes against their specs' shapes."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    from repro_torch.optim import adamw
+    out = {}
+    cfg, opt_cfg, params_np, batch_np = train
+    mesh, ctx = _mesh_ctx(2, 4, cfg)
+    params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+    specs = shd.params_pspecs(params, cfg, ctx)
+    sp_params = shd.shard_tree(params, specs, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+    state = ts.TrainState(params=sp_params, opt=adamw.init(opt_cfg, sp_params),
+                          step=torch.zeros((), dtype=torch.int32))
+    _, metrics = ts.make_train_step(cfg, opt_cfg, ctx=ctx)(state, batch)
+    out["train_loss"] = float(_np(metrics["loss"]))
+    out["local_shapes"] = _local_vs_spec(sp_params, specs, mesh)
+
+    cfg, params_np, toks = sp
+    _, ctx = _mesh_ctx(2, 4, cfg)
+    params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+    sp_params = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx),
+                               ctx.mesh)
+    logits = lm.forward(sp_params, {"tokens": torch.from_numpy(toks)}, cfg,
+                        mode="train", ctx=ctx, remat=False)["logits"]
+    out["sp_logits"] = _np(logits)
+
+    q, k, v, clen = dec
+    ctx = dataclasses.replace(ctx, model_size=4)
+    spec = ("data", "model", None, None)
+    ks = shd.place(torch.from_numpy(k), spec, ctx.mesh)
+    vs = shd.place(torch.from_numpy(v), spec, ctx.mesh)
+    qs = shd.place(torch.from_numpy(q), ("data", None, None, None, None),
+                   ctx.mesh)
+    out["decode"] = _np(blocks.decode_attention(qs, ks, vs, clen, ctx=ctx))
+    return out
+
+
+def _local_vs_spec(tree, specs, mesh):
+    """(path, local shape, the shape the spec gives) per leaf."""
+    from repro_torch.parallel import sharding as shd
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec_of = {}
+    shd.map_with_path(lambda p, s: spec_of.__setitem__(p, s), specs)
+    rows = []
+
+    def one(path, leaf):
+        want = list(leaf.shape)
+        for d, entry in enumerate(spec_of[path]):
+            for a in shd._axes(entry):
+                want[d] //= sizes[a]
+        rows.append((path, tuple(leaf.to_local().shape), tuple(want)))
+    shd.map_with_path(one, tree)
+    return rows
+
+
+# ---- the LM paths on a 2 x 2 mesh, against the port's single device ------
+
+
+SERVE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "gemma3-12b", "rwkv6-3b",
+               "jamba-1.5-large-398b", "deepseek-v2-lite-16b",
+               "deepseek-v2-lite-16b+int8", "phi-3-vision-4.2b")
+ENGINE_ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b")
+PROMPT, STEPS, BATCH = 16, 4, 4
+
+
+def _record_routes(log):
+    """Wrap `blocks.route_tokens` so each call's routes land in ``log``."""
+    from repro_torch.models import blocks
+    inner = blocks.route_tokens
+
+    def route_tokens(xf, router_w, cfg):
+        r = inner(xf, router_w, cfg)
+        log.append(tuple(np.asarray(getattr(r, f).detach().cpu())
+                         for f in ("expert_ids", "event_slot", "kept")))
+        return r
+    blocks.route_tokens = route_tokens
+    return inner
+
+
+def _serve(cfg, params, batch, ctx=None):
+    """Prefill then STEPS greedy decode steps: (tokens, logits of every
+    step)."""
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import LOCAL
+    from repro_torch.parallel import regions as R, sharding as shd
+    from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
+    ctx = ctx or LOCAL
+    b = batch["tokens"].shape[0]
+    prefix = cfg.frontend.max_prefix if "image_embeds" in batch else 0
+    cache = lm.init_cache(cfg, b, prefix + PROMPT + STEPS + 4, device="cpu")
+    if ctx.enabled:
+        cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx),
+                               ctx.mesh)
+    logits, _ = make_prefill_step(cfg, ctx)(params, batch, cache)
+    decode = make_decode_step(cfg, ctx)
+    toks, steps = [], [R.full(logits)]
+    clen = prefix + PROMPT
+    for i in range(STEPS):
+        nxt = R.full(logits).argmax(-1).to(torch.int32)
+        toks.append(nxt)
+        logits, _ = decode(params, cache, nxt[:, None], clen + i)
+        steps.append(R.full(logits))
+    return torch.stack(toks, 1), torch.stack(steps)
+
+
+def _per_shard(fn, batch, data):
+    """``fn`` on each data shard's rows, concatenated: the single-device
+    counterpart of a mesh run whose MoE routes each shard on its own."""
+    n = next(iter(batch.values())).shape[0] // data
+    parts = [fn({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+             for i in range(data)]
+    return [torch.cat([p[j] for p in parts], dim=0 if j == 0 else 1)
+            for j in range(len(parts[0]))]
+
+
+def _by_path(tree):
+    """{path: full value as numpy} of a tree of (D)Tensors; every rank
+    walks it in the same order, so the gathers pair up."""
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    shd.map_with_path(lambda p, x: out.__setitem__(p, _np(x)), tree)
+    return out
+
+
+def lm_mesh_2x2(rank, world, cases):
+    """``cases``: {arch: (cfg, params, batch)}, numpy, float32.  For
+    each, prefill + STEPS greedy decode steps on a 2 x 2 mesh (an
+    encoder: its forward): the mesh's tokens, logits and this rank's
+    routes (one per MoE call), which the test holds against the JAX
+    package; and the same run on the port's single device (per data
+    shard), held here."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    for arch, (cfg, params_np, batch_np) in cases.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        if cfg.encoder_only:
+            want = lm.forward(params, batch, cfg, remat=False)["logits"]
+            got = _np(lm.forward(sp, batch, cfg, ctx=ctx,
+                                 remat=False)["logits"])
+            out[arch] = {"logits": got,
+                         "logit_gap": float(np.abs(got - want.numpy()).max())}
+            continue
+        ref_routes, mesh_routes = [], []
+        inner = _record_routes(ref_routes)
+        want_toks, want_logits = _per_shard(
+            lambda b: _serve(cfg, params, b), batch, 2)
+        blocks.route_tokens = inner
+        _record_routes(mesh_routes)
+        got_toks, got_logits = _serve(cfg, sp, batch, ctx)
+        blocks.route_tokens = inner
+        # the user's entry point, ServeEngine over the mesh (one dense and
+        # one MoE family: the loop is the same for all)
+        engine_equal = None
+        if arch in ENGINE_ARCHS:
+            from repro_torch.serve.lm_engine import ServeEngine
+            max_len = PROMPT + STEPS
+            want_eng = _per_shard(lambda b: [ServeEngine(
+                cfg, params, max_len=max_len).generate(b["tokens"], STEPS)],
+                {"tokens": batch["tokens"]}, 2)[0]
+            got_eng = ServeEngine(cfg, sp, max_len=max_len,
+                                  ctx=ctx).generate(batch["tokens"], STEPS)
+            engine_equal = bool(torch.equal(want_eng, got_eng))
+        data_rank = mesh.get_local_rank("data")
+        out[arch] = {
+            "tokens": got_toks.numpy(), "logits": got_logits.numpy(),
+            "routes": mesh_routes, "data_rank": data_rank,
+            "tokens_equal": bool(torch.equal(want_toks, got_toks)),
+            "engine_equal": engine_equal,
+            "logit_gap": float((got_logits - want_logits).abs().max()),
+            "calls": (len(ref_routes), len(mesh_routes)),
+            # this rank's routes are those of its own data shard's reference
+            "routes_equal": _routes_equal(ref_routes, mesh_routes,
+                                          data_rank)}
+    return out
+
+
+def _routes_equal(ref, got, shard):
+    """The mesh run's routes (one per MoE call on this rank) against the
+    reference's calls on the same data shard (it ran shard 0's whole
+    serve, then shard 1's)."""
+    if not got:
+        return True
+    n = len(got)
+    mine = ref[shard * n:(shard + 1) * n]
+    return len(mine) == n and all(
+        all(np.array_equal(a, b) for a, b in zip(x, y))
+        for x, y in zip(mine, got))
+
+
+def train_2x2(rank, world, cases):
+    """``cases``: {arch: (cfg, AdamW config or None, params, batch)},
+    numpy, float32.  For each, the loss and gradients of
+    `value_and_grad` on a 2 x 2 mesh (full values by path) and whether
+    each gradient has its parameter's placements; with an AdamW config,
+    one sharded train step too: its loss, ``lr``, updated parameters and
+    whether AdamW's moments have the parameters' placements.  The test
+    holds them against the JAX package."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    out = {}
+    for arch, (cfg, opt, params_np, batch_np) in cases.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        sb = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+        loss, _, grads = ts.value_and_grad(sp, sb, cfg, ctx)
+        r = {"loss": float(_np(loss)),
+             "grads": _by_path(tree_unflatten(sp, grads)),
+             "grads_like_params": all(a.placements == p.placements
+                                      for a, p in zip(grads, tree_leaves(sp)))}
+        if opt is not None:
+            state, m = ts.make_train_step(cfg, opt, ctx=ctx)(
+                ts.TrainState(sp, adamw.init(opt, sp),
+                              torch.zeros((), dtype=torch.int32)), sb)
+            r.update(step_loss=float(_np(m["loss"])), lr=float(_np(m["lr"])),
+                     params=_by_path(state.params),
+                     moments_like_params=all(
+                         a.placements == b.placements
+                         for a, b in zip(tree_leaves(state.opt.mu),
+                                         tree_leaves(state.params))))
+        out[arch] = r
+    return out
+
+
+# ---- placements and meshes ------------------------------------------------
+
+
+def placements_2x2x2(rank, world, full, specs):
+    """Each spec's local block on a (pod, data, model) = 2 x 2 x 2 mesh,
+    this rank's coordinate, and whether `make_host_mesh` refuses a
+    wrong world size."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.parallel import sharding as shd
+    mesh = M.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    t = torch.from_numpy(full)
+    blocks = [shd.place(t, spec, mesh).to_local().numpy() for spec in specs]
+    refused = []
+    for d, m in ((2, 2), (3, 3), (1, 4)):
+        try:
+            M.make_host_mesh(d, m, device="cpu")
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    return {"coord": tuple(mesh.get_coordinate()), "blocks": blocks,
+            "refused": refused}
+
+
+# ---- the fabric over a chips mesh, and the collectives ---------------------
+
+
+def fabric_chips(rank, world, cfg, params_np, streams, mask):
+    """``run(shard="chips")`` of each stream on a session whose process
+    group has ``chips`` ranks, and one masked ``run_batched``."""
+    from repro_torch.interface import Interface
+    from repro_torch.interface.types import params_from_numpy
+    params = params_from_numpy(*params_np, device="cpu")
+    session = Interface(cfg).compile(params, device="cpu")
+    out = {}
+    for name, spikes in streams.items():
+        cur, st = session.run(torch.from_numpy(spikes), shard="chips")
+        out[name] = (cur.numpy(), {k: float(v) for k, v in
+                                   st._asdict().items()},
+                     session.last_shard_body)
+    stack = torch.from_numpy(np.stack(list(streams.values())))
+    cur, st = session.run_batched(stack, shard="chips",
+                                  mask=torch.from_numpy(mask))
+    out["masked"] = (cur.numpy(), {k: v.numpy() for k, v in
+                                   st._asdict().items()},
+                     session.last_shard_body)
+    return out
+
+
+def collectives(rank, world, shards, ef_grads, staged):
+    """The compressed all-reduces of this rank's shard, 20 error-feedback
+    syncs, and (``staged``) one DTensor gather and one reduce-scatter
+    (of whole numbers, so any order sums them exactly) with the
+    host-staged functional collectives registered for the CPU."""
+    from repro_torch.parallel import collectives as C
+    x = torch.from_numpy(shards[rank])
+    out = {"exact": C.compressed_psum_exact_scales(x).numpy(),
+           "approx": C.compressed_psum(x).numpy()}
+    sync = C.make_ef_sync()
+    g = torch.from_numpy(ef_grads[rank])
+    res = torch.zeros_like(g)
+    acc = torch.zeros_like(g)
+    for _ in range(20):
+        s, res = sync(g, res)
+        acc = acc + s
+    out["ef_acc"] = acc.numpy()
+    if staged:
+        from torch.distributed.tensor import DTensor, Partial, Shard
+        from repro_torch.launch import mesh as M, staging
+        staging.install("CPU")
+        mesh = M.make_mesh((world,), ("chips",), device="cpu")
+        before = dict(staging.COUNTS)
+        full = DTensor.from_local(x[None], mesh, [Shard(0)],
+                                  run_check=False).full_tensor()
+        out["staged_gather"] = full.numpy()
+        whole = torch.round(x[:x.shape[0] // world * world] * 64)
+        out["staged_reduce_scatter"] = DTensor.from_local(
+            whole, mesh, [Partial()], run_check=False).redistribute(
+            mesh, [Shard(0)]).to_local().numpy()
+        out["staged_calls"] = {k: v - before.get(k, 0)
+                               for k, v in staging.COUNTS.items()}
+    return out
+
+
+def lm_2x2(rank, world, serve, train):
+    """`lm_mesh_2x2` and `train_2x2` in one spawn."""
+    return {"serve": lm_mesh_2x2(rank, world, serve),
+            "train": train_2x2(rank, world, train)}
+
+
+def gqa_1x2(rank, world, cfg, params_np, x, qkv):
+    """`decode_attention` over a cache split along S (window 0 and 8),
+    and `attention_apply`: an 8-token head-TP prefill filling a
+    sequence-sharded 10-slot cache, then one decode step, on a 1 x 2
+    mesh."""
+    from repro_torch.models import blocks
+    from repro_torch.parallel import sharding as shd
+    _, ctx = _mesh_ctx(1, 2, cfg)
+    q, k, v = (torch.from_numpy(a) for a in qkv)
+    kv_spec = ("data", "model", None, None)
+    ks, vs = (shd.place(a, kv_spec, ctx.mesh) for a in (k, v))
+    qs = shd.place(q, ("data", None, None, None, None), ctx.mesh)
+    out = {"decode": [_np(blocks.decode_attention(qs, ks, vs, 11, window=w,
+                                                  ctx=ctx))
+                      for w in (0, 8)]}
+    p = {k_: shd.place(torch.from_numpy(np.asarray(v_)), (None,) * v_.ndim,
+                       ctx.mesh) for k_, v_ in params_np.items()}
+    xs = shd.place(torch.from_numpy(x), ("data", None, None), ctx.mesh)
+    b = x.shape[0]
+    cache = {n: shd.place(torch.zeros((b, 10, cfg.n_kv_heads, cfg.head_dim)),
+                          kv_spec, ctx.mesh) for n in ("k", "v")}
+    o, cache = blocks.attention_apply(p, xs[:, :8], cfg, is_local=False,
+                                      cache=cache, ctx=ctx)
+    out["prefill"] = _np(o)
+    o, _ = blocks.attention_apply(p, xs[:, 8:9], cfg, is_local=False,
+                                  positions=torch.tensor([[8]]), cache=cache,
+                                  cache_len=8, ctx=ctx)
+    out["decode_step"] = _np(o)
+    return out
+
+
+# ---- on the card (tests/test_torch_mesh_gpu.py): gloo ranks on cuda:0 -----
+
+
+def gpu_collectives(rank, world):
+    """The direct gloo collectives on CUDA tensors, and a DTensor gather
+    and all-reduce through the host staging of a mesh on the card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from repro_torch.launch import mesh as M, staging
+    dev = torch.device("cuda", 0)
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    red = x.clone()
+    dist.all_reduce(red)
+    gat = torch.empty(8 * world, device=dev)
+    dist.all_gather_into_tensor(gat, x)
+    rs = torch.empty(8 // world, device=dev)
+    dist.reduce_scatter_tensor(rs, x)
+    mesh = M.make_host_mesh(2, world // 2, device="cuda")
+    staging.COUNTS.clear()
+    full = DTensor.from_local(x[None], mesh, [Shard(0), Shard(0)],
+                              run_check=False).full_tensor()
+    summed = DTensor.from_local(x, mesh, [Partial(), Partial()],
+                                run_check=False).full_tensor()
+    return {"all_reduce": red.cpu(), "all_gather": gat.cpu(),
+            "reduce_scatter": rs.cpu(), "staged_gather": full.cpu(),
+            "staged_all_reduce": summed.cpu(), "staged": dict(staging.COUNTS),
+            "installed": staging.installed()}
+
+
+def gpu_chips(rank, world, cfg, params, spikes):
+    """``run(shard="chips")`` at chips=world on the card, this rank's chip."""
+    from repro_torch.interface import Interface
+    from repro_torch.interface.types import InterfaceParams
+    dev = torch.device("cuda", 0)
+    session = Interface(cfg).compile(
+        InterfaceParams(*(t.to(dev) for t in params)), device=dev)
+    cur, st = session.run(spikes.to(dev), shard="chips")
+    return (cur.cpu(), {k: v.cpu() for k, v in st._asdict().items()},
+            session.last_shard_body)
+
+
+def gpu_lm(rank, world, arch, backend_mesh=(2, 2)):
+    """A smoke config's prefill + STEPS greedy decode steps on a mesh on
+    the card against the one-device run (per data shard), and the
+    backend the ranks ran."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import LOCAL
+    from repro_torch.parallel import regions as R, sharding as shd
+    from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _f32(configs.get_smoke_config(arch))
+    params = lm.init_model(torch.Generator(dev).manual_seed(0), cfg,
+                           device=dev)
+    mesh = M.make_host_mesh(*backend_mesh, device="cuda")
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1),
+                         dtype=torch.int32)
+
+    def serve(p, tokens, ctx_):
+        cache = lm.init_cache(cfg, tokens.shape[0], PROMPT + STEPS,
+                              device=dev)
+        if ctx_.enabled:
+            cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx_),
+                                   mesh)
+        logits, _ = make_prefill_step(cfg, ctx_)(p, {"tokens": tokens},
+                                                  cache)
+        out, steps = [], [R.full(logits)]
+        for i in range(STEPS):
+            nxt = R.full(logits).argmax(-1).to(torch.int32)
+            out.append(nxt)
+            logits, _ = make_decode_step(cfg, ctx_)(p, cache, nxt[:, None],
+                                                    PROMPT + i)
+            steps.append(R.full(logits))
+        return torch.stack(out, 1), torch.stack(steps)
+
+    data = backend_mesh[0]
+    n = BATCH // data
+    with torch.no_grad():
+        parts = [serve(params, toks[i * n:(i + 1) * n], LOCAL)
+                 for i in range(data)]
+        want_t = torch.cat([p[0] for p in parts])
+        want_l = torch.cat([p[1] for p in parts], dim=1)
+        got_t, got_l = serve(sp, toks, ctx)
+    return {"tokens_equal": bool(torch.equal(want_t, got_t)),
+            "logit_gap": float((got_l - want_l).abs().max()),
+            "backend": dist.get_backend()}
