@@ -2423,6 +2423,16 @@ SHARD_SERVE = ("internlm2-1.8b", 4, 128, 8)   # arch, batch, prompt, new
 SHARD_CUT_TOKENS = 128          # the 2-layer float32 cuts: 4 x 128 tokens
 SHARD_MLA_STEPS = 2             # deepseek's cut: decode steps after prefill
 SHARD_TRAIN = (4, 512)          # internlm2-1.8b's 2-layer cut: batch, seq
+# rwkv6-3b at full width and depth on the 2 x 2 mesh: batch, prompt, new
+# tokens, and the rwkv_pad_heads served (0: the 40 heads whole on every
+# model rank, as in the JAX package; 48: 24 padded heads a rank)
+SHARD_RWKV = (4, 128, 8, (0, 48))
+SHARD_RWKV_TRAIN = (4, 512, 48)     # its 2-layer cut: batch, seq, pad heads
+# jamba-1.5-large-398b's first two layers (Mamba + MoE, Mamba + dense MLP)
+# at full width, bfloat16 parameters (24.3 GB), float32 compute, on a
+# 1 x 2 (data x model) mesh of ranks 0 and 1: layers, batch, prompt,
+# decode steps
+SHARD_JAMBA = (2, 4, 128, 2)
 # where the ranks run and at which size: the card and the registry's
 # configs; a CPU rehearsal sets {"device": "cpu", "smoke": True} (the
 # ranks receive it from the parent)
@@ -2476,6 +2486,65 @@ def _local_bytes(tree) -> tuple:
         loc += t.to_local().numel() * t.element_size()
         full += t.numel() * t.element_size()
     return loc, full
+
+
+class Widths:
+    """While the block runs, record the width each call inside the mixers
+    runs on, this rank: Mamba's scan its d_inner channels, the WKV and
+    attention their heads (shapes only)."""
+
+    SITES = (("mamba", "_ssm_scan_chunked", "Mamba d_inner", -1),
+             ("rwkv6", "wkv_chunked", "WKV heads", 2),
+             ("rwkv6", "wkv_recurrent", "WKV heads", 2),
+             ("blocks", "flash_attention", "attention heads", 2))
+
+    def __enter__(self):
+        from repro_torch.models import blocks, mamba, rwkv6
+        mods = {"mamba": mamba, "rwkv6": rwkv6, "blocks": blocks}
+        self.seen, self.saved = set(), []
+        for mod, name, tag, dim in self.SITES:
+            inner = getattr(mods[mod], name)
+            self.saved.append((mods[mod], name, inner))
+
+            def run(a, *rest, _inner=inner, _tag=tag, _dim=dim, **kw):
+                self.seen.add((_tag, a.shape[_dim]))
+                return _inner(a, *rest, **kw)
+            setattr(mods[mod], name, run)
+        return self.seen
+
+    def __exit__(self, *exc):
+        for mod, name, inner in self.saved:
+            setattr(mod, name, inner)
+
+
+def _staged_since(before):
+    """{op: (staged calls, bytes)} since ``before`` (`_staged_now`)."""
+    from repro_torch.launch import staging
+    return {op: (n - before[0].get(op, 0),
+                 staging.BYTES[op] - before[1].get(op, 0))
+            for op, n in staging.COUNTS.items()
+            if n - before[0].get(op, 0)}
+
+
+def _staged_now():
+    from repro_torch.launch import staging
+    return dict(staging.COUNTS), dict(staging.BYTES)
+
+
+def _in_turn(fn, order):
+    """``fn()`` on the ranks in ``order``, one at a time, with a barrier
+    of every rank after each turn, so that one full parameter tree at a
+    time is on the card; this rank's result (None without a turn)."""
+    import torch.distributed as dist
+    out = None
+    for r in order:
+        if r == dist.get_rank():
+            out = fn()
+            if _dev().type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 def _rank_probe(rank, world):
@@ -2571,11 +2640,15 @@ def _rank_chips(rank, world, cfg, params, streams):
     return out
 
 
-def _draw(arch, seed, layers=None, f32=False, **over):
+def _config(arch):
     from repro_torch import configs
+    return (configs.get_smoke_config(arch) if SHARD_OPTS["smoke"]
+            else configs.get_config(arch))
+
+
+def _draw(arch, seed, layers=None, f32=False, **over):
     from repro_torch.models import lm
-    cfg = (configs.get_smoke_config(arch) if SHARD_OPTS["smoke"]
-           else configs.get_config(arch))
+    cfg = _config(arch)
     if layers is not None and not SHARD_OPTS["smoke"]:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if f32:
@@ -2589,12 +2662,8 @@ def _rank_serve(rank, world, seed, prompts):
     """internlm2-1.8b at full width and depth, float32 compute, on the
     2 x 2 mesh with the JAX package's serving placement (``serve_tp_only``:
     weights split over ``model`` only, so no step gathers weights):
-    ``ServeEngine(..., ctx=ctx).generate`` (timed), then one prefill for
-    its logits (rank 0 returns them); peak memory and this rank's
-    parameter bytes."""
-    from repro_torch.models import lm
-    from repro_torch.parallel import regions as R, sharding as shd
-    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    `_generate_on_mesh`, and this rank's parameter bytes."""
+    from repro_torch.parallel import sharding as shd
     _rank_setup()
     arch, batch, prompt, new = SHARD_SERVE
     cfg, full = _draw(arch, seed, f32=True, serve_tp_only=True)
@@ -2602,22 +2671,42 @@ def _rank_serve(rank, world, seed, prompts):
     ctx = shd.make_shard_ctx(mesh, cfg)
     params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
     del full
+    out = _generate_on_mesh(cfg, params, mesh, prompts, new)
+    out["param_bytes"] = _local_bytes(params)
+    return out
+
+
+def _generate_on_mesh(cfg, params, mesh, prompts, new):
+    """``ServeEngine(..., ctx=ctx).generate`` on ``mesh`` (timed; the
+    staged collectives it made, by op with their bytes; the widths the
+    mixers ran on), then one prefill for its logits (rank 0 returns
+    them); peak memory above the parameters."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import regions as R, sharding as shd
+    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    batch, prompt = prompts.shape
     base = _peak_reset()
     prompts = prompts.to(_dev())
-    t0 = time.perf_counter()
-    tokens = ServeEngine(cfg, params, max_len=prompt + new,
-                         ctx=ctx).generate(prompts, new)
-    _sync()
-    secs = time.perf_counter() - t0
+    before = _staged_now()
+    with Widths() as widths:
+        t0 = time.perf_counter()
+        tokens = ServeEngine(cfg, params, max_len=prompt + new,
+                             ctx=ctx).generate(prompts, new)
+        _sync()
+        secs = time.perf_counter() - t0
+    staged = _staged_since(before)
     peak = _peak() - base
     cache = lm.init_cache(cfg, batch, prompt + new, device=_dev())
     cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
     logits, _ = make_prefill_step(cfg, ctx)(params, {"tokens": prompts},
                                             cache)
     logits = R.full(logits)
-    return {"tokens": tokens.cpu(), "prefill": (logits.float().cpu()
-                                                if rank == 0 else None),
-            "peak": peak, "s": secs, "param_bytes": _local_bytes(params)}
+    return {"tokens": tokens.cpu(),
+            "prefill": (logits.float().cpu()
+                        if torch.distributed.get_rank() == 0 else None),
+            "peak": peak, "s": secs, "staged": staged,
+            "widths": sorted(widths)}
 
 
 def _gap_local(got, want_full, spec, mesh):
@@ -2697,7 +2786,8 @@ def _rank_cuts(rank, world, seed):
         cache = lm.init_cache(cfg, toks.shape[0], max_len, device=_dev())
         cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
         moe_kernel.launches = 0
-        with Capture(moe_kernel, "dispatch_positions_cuda") as b5:
+        with Capture(moe_kernel, "dispatch_positions_cuda") as b5, \
+                Widths() as widths:
             got = serve(params, toks, ctx, cache)
         launches = moe_kernel.launches
     held = all(torch.equal(pos, moe_ref.dispatch_positions_ref(*args)[0])
@@ -2714,15 +2804,29 @@ def _rank_cuts(rank, world, seed):
     out["deepseek_ep"] = {"gap": max(gaps),
                           "scale": max(float(w.abs().max()) for w in want),
                           "b5_launches": launches, "b5_calls": len(b5),
-                          "b5_held": held,
+                          "b5_held": held, "widths": sorted(widths),
                           "b5_want": n_moe * (1 + SHARD_MLA_STEPS)}
     del params, cache, got, want, b5
     _peak_reset()
 
     # internlm2-1.8b: one training step's loss and gradients
     cfg, full = _draw("internlm2-1.8b", seed, layers=2, f32=True)
+    out["train"] = _train_cut(cfg, full, mesh, SHARD_TRAIN, g)
+    return out
+
+
+def _train_cut(cfg, full, mesh, shape, g):
+    """`value_and_grad` of one step of the cut ``full`` on one device and
+    on ``mesh`` (FSDP x TP), at ``shape`` (batch, seq) of random tokens
+    from ``g``: losses, the widest gradient gap (this rank's blocks) of
+    its leaf's largest, peak memory of each, seconds of the mesh step,
+    this rank's parameter bytes and the tree's, and the widths the mixers
+    ran on in the mesh step."""
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
     ctx = shd.make_shard_ctx(mesh, cfg)
-    b, t = SHARD_TRAIN
+    b, t = shape
     tt = torch.randint(0, cfg.vocab, (b, t + 1), generator=g, device=_dev(),
                        dtype=torch.int32)
     batch = {"tokens": tt[:, :-1], "labels": tt[:, 1:]}
@@ -2732,27 +2836,131 @@ def _rank_cuts(rank, world, seed):
     specs = shd.params_pspecs(full, cfg, ctx)
     params = shd.shard_tree(full, specs, mesh)
     sbatch = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
-    full_leaves = list(_leaves(full))
-    del full
+    full_bytes = sum(x.numel() * x.element_size() for x in _leaves(full))
     base = _peak_reset()
-    t0 = time.perf_counter()
-    loss, _, grads = ts.value_and_grad(params, sbatch, cfg, ctx)
-    _sync()
-    step_s = time.perf_counter() - t0
+    with Widths() as widths:
+        t0 = time.perf_counter()
+        loss, _, grads = ts.value_and_grad(params, sbatch, cfg, ctx)
+        _sync()
+        step_s = time.perf_counter() - t0
     peak_mesh = _peak() - base
     # the specs in the gradients' order (tree_leaves: keys sorted)
     order = tree_leaves(shd.map_with_path(lambda _, sp: _Spec(sp), specs))
-    worst = 0.0
-    for got, want, sp in zip(grads, grads_ref, order):
+    paths = tree_leaves(shd.map_with_path(lambda p, _: p, specs))
+    worst, where = 0.0, None
+    for got, want, sp, path in zip(grads, grads_ref, order, paths):
         gap, top = _gap_local(got, want, sp.spec, mesh)
-        worst = max(worst, gap / max(top, 1e-30))
-    out["train"] = {"loss": float(loss.full_tensor()),
-                    "loss_ref": float(loss_ref), "grad_rel_gap": worst,
-                    "peak_mesh": peak_mesh, "peak_single": peak_single,
-                    "step_s": step_s,
-                    "param_bytes": _local_bytes(params),
-                    "full_bytes": sum(x.numel() * x.element_size()
-                                      for x in full_leaves)}
+        if gap / max(top, 1e-30) > worst:
+            worst, where = gap / max(top, 1e-30), path
+    return {"loss": float(loss.full_tensor()), "loss_ref": float(loss_ref),
+            "grad_rel_gap": worst, "grad_worst": where,
+            "peak_mesh": peak_mesh,
+            "peak_single": peak_single, "step_s": step_s,
+            "param_bytes": _local_bytes(params), "full_bytes": full_bytes,
+            "widths": sorted(widths)}
+
+
+def _jamba_serve(cfg, params, tokens, ctx, cache):
+    """Prefill ``tokens`` then SHARD_JAMBA's decode steps (each feeding
+    the prompts' first tokens): the logits of every step, full."""
+    from repro_torch.parallel import regions as R
+    from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
+    logits, _ = make_prefill_step(cfg, ctx)(params, {"tokens": tokens},
+                                            cache)
+    steps = [R.full(logits).float().cpu()]
+    decode = make_decode_step(cfg, ctx)
+    for i in range(SHARD_JAMBA[3]):
+        logits, _ = decode(params, cache, tokens[:, :1],
+                           tokens.shape[1] + i)
+        steps.append(R.full(logits).float().cpu())
+    return steps
+
+
+def _rank_mixers(rank, world, seed, rwkv_prompts, jamba_tokens):
+    """The recurrent mixers on their tensor-parallel layout.
+
+    rwkv6-3b at full width and depth (``serve_tp_only``, float32) on the
+    2 x 2 mesh, drawn one rank at a time (`_in_turn`), served at each
+    ``rwkv_pad_heads`` of SHARD_RWKV (`_generate_on_mesh`); its 2-layer
+    cut's training step at SHARD_RWKV_TRAIN (`_train_cut`); jamba's first
+    two layers at full width on a 1 x 2 mesh of ranks 0 and 1 (rank 1
+    draws first), prefill + decode (`_jamba_serve`), its routes and B5
+    counted, every launch held to its plain version."""
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import sharding as shd
+    _rank_setup()
+    mesh, _ = _rank_mesh()
+    out = {"rwkv": {}}
+
+    def place_rwkv():
+        cfg, full = _draw("rwkv6-3b", seed, f32=True, serve_tp_only=True)
+        ctx = shd.make_shard_ctx(mesh, cfg)
+        return cfg, shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx),
+                                   mesh)
+    cfg, params = _in_turn(place_rwkv, range(world))
+    out["param_bytes"] = _local_bytes(params)
+    batch, prompt, new, pads = SHARD_RWKV
+    for pad in pads:
+        out["rwkv"][pad] = _generate_on_mesh(
+            dataclasses.replace(cfg, rwkv_pad_heads=pad), params, mesh,
+            rwkv_prompts, new)
+    del params
+    _peak_reset()
+
+    b, t, pad = SHARD_RWKV_TRAIN
+    cfg, full = _draw("rwkv6-3b", seed + 1, layers=2, f32=True,
+                      rwkv_pad_heads=pad)
+    out["rwkv_train"] = _train_cut(
+        cfg, full, mesh, (b, t), torch.Generator(_dev()).manual_seed(seed))
+    del full
+    _peak_reset()
+
+    layers = SHARD_JAMBA[0]
+    jmesh = M.make_mesh((1, 2), ("data", "model"), device=_dev().type,
+                        ranks=[0, 1])
+
+    def place_jamba():
+        cfg, full = _draw("jamba-1.5-large-398b", seed + 2, f32=True,
+                          n_layers=layers, scan_group=layers,
+                          serve_tp_only=True)
+        ctx = shd.make_shard_ctx(jmesh, cfg)
+        return cfg, shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx),
+                                   jmesh)
+    placed = _in_turn(place_jamba, (1, 0))
+    if placed is None:                       # ranks 2 and 3: not on it
+        return out
+    cfg, params = placed
+    ctx = shd.make_shard_ctx(jmesh, cfg)
+    tokens = jamba_tokens.to(_dev())
+    cache = lm.init_cache(cfg, tokens.shape[0],
+                          tokens.shape[1] + SHARD_JAMBA[3], device=_dev())
+    cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), jmesh)
+    base = _peak_reset()
+    before = _staged_now()
+    moe_kernel.launches = 0
+    with torch.no_grad(), Widths() as widths, \
+            Capture(moe_kernel, "dispatch_positions_cuda") as b5, \
+            Capture(blocks, "route_tokens") as routes:
+        t0 = time.perf_counter()
+        steps = _jamba_serve(cfg, params, tokens, ctx, cache)
+        secs = time.perf_counter() - t0
+    held = all(torch.equal(pos, moe_ref.dispatch_positions_ref(*args)[0])
+               and torch.equal(load,
+                               moe_ref.dispatch_positions_ref(*args)[1])
+               for args, _, (pos, load) in b5)
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.n_layers)))
+    out["jamba"] = {
+        "logits": steps if rank == 0 else None,
+        "routes": [tuple(getattr(r, f).cpu() for f in
+                         ("expert_ids", "event_slot", "kept"))
+                   for _, _, r in routes],
+        "b5_launches": moe_kernel.launches, "b5_calls": len(b5),
+        "b5_held": held, "b5_want": n_moe * (1 + SHARD_JAMBA[3]),
+        "s": secs, "peak": _peak() - base, "staged": _staged_since(before),
+        "widths": sorted(widths), "param_bytes": _local_bytes(params)}
     return out
 
 
@@ -2836,6 +3044,7 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     want_prefill = logits.float().cpu()
     del params, engine, cache, logits
     torch.cuda.empty_cache()
+    mixer_refs = _mixer_references(dev)
 
     fabric = {k: v.cpu() for k, v in streams.items()}
     fparams = InterfaceParams(*(t.cpu() for t in flat_xla.params))
@@ -2855,7 +3064,9 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     on_card = SHARD_OPTS["device"] == "cuda"
     results = spawn(_rank_all, SHARD_RANKS, device_id=0 if on_card else None,
                     timeout=900, args=(SHARD_OPTS, chips_cfg, tuple(fparams),
-                                       fabric, SEED, prompts.cpu()))
+                                       fabric, SEED, prompts.cpu(),
+                                       mixer_refs["rwkv_prompts"],
+                                       mixer_refs["jamba_tokens"]))
     spawn_s = time.perf_counter() - t0
 
     # ---- the probe
@@ -2920,7 +3131,8 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f" MiB against {single_peak // mib} MiB (one device, cache and "
           f"activations); parameter bytes a rank {loc // mib} of "
           f"{full // mib} MiB; tokens equal by rank {same} of "
-          f"{want_tokens.numel()}")
+          f"{want_tokens.numel()}; staged a generate, rank 0, by op (calls, "
+          f"bytes): {results[0]['serve']['staged']}")
     for r, res in enumerate(results):
         check(torch.equal(res["serve"]["tokens"], want_tokens),
               f"rank {r}: mesh greedy tokens differ from one device")
@@ -2932,7 +3144,8 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f"against one device on the card, each rank its own block): "
           f"llama3.2-3b sequence-parallel logits gap "
           f"{max(res['cuts']['llama_sp'][0] for res in results):.3e}; "
-          f"deepseek-v2-lite MLA + expert parallel, prefill + "
+          f"deepseek-v2-lite MLA (prefill on {c0['deepseek_ep']['widths']} "
+          f"a rank) + expert parallel, prefill + "
           f"{SHARD_MLA_STEPS} decode steps, logits gap "
           f"{max(res['cuts']['deepseek_ep']['gap'] for res in results):.3e}"
           f", B5 {c0['deepseek_ep']['b5_launches']} launches a rank (one a "
@@ -2959,11 +3172,16 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
               f"rank {r}: B5 launches {ep['b5_launches']}, calls "
               f"{ep['b5_calls']}, want {ep['b5_want']}")
         check(ep["b5_held"], f"rank {r}: a B5 launch differs from plain")
+        heads = _config("deepseek-v2-lite-16b").n_heads // SHARD_MESH[1]
+        check(ep["widths"] == [("attention heads", heads)],
+              f"rank {r}: MLA prefill ran on {ep['widths']}")
         tr = res["cuts"]["train"]
         check(abs(tr["loss"] - tr["loss_ref"]) <= 1e-4 * abs(tr["loss_ref"]),
               f"rank {r}: train loss {tr['loss']} vs {tr['loss_ref']}")
         check(tr["grad_rel_gap"] <= GRAD_RTOL,
               f"rank {r}: gradient gap {tr['grad_rel_gap']}")
+
+    _mixers_report(tag, results, mixer_refs)
 
     # ---- NCCL, one rank
     nccl = spawn(_rank_nccl, 1, backend="nccl" if on_card else "gloo",
@@ -2988,16 +3206,169 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f"FLOP count, {time.perf_counter() - t0:.1f} s): {summary}")
     print(f"{tag} sharded phase: {time.perf_counter() - t_phase:.1f} s "
           f"(ranks {spawn_s:.1f} s)")
-    return c0["deepseek_ep"]["b5_launches"]
+    return {"deepseek": c0["deepseek_ep"]["b5_launches"],
+            "jamba": results[0]["mixers"]["jamba"]["b5_launches"]}
 
 
-def _rank_all(rank, world, opts, chips_cfg, fparams, streams, seed, prompts):
+def _mixer_references(dev):
+    """The one-device runs the mixer jobs of the sharded phase are held
+    to, on the card, each model freed after: rwkv6-3b at full width and
+    depth (float32) served SHARD_RWKV's prompts (greedy tokens, seconds,
+    prefill logits), and jamba's first two layers (bfloat16 parameters,
+    float32 compute) through `_jamba_serve` with their routes.  The
+    ranks draw the same parameters from the same seeds."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.blocks import LOCAL
+    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    out = {}
+    batch, prompt, new, _ = SHARD_RWKV
+    cfg, params = _draw("rwkv6-3b", SEED + 11, f32=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
+                            generator=gen, dtype=torch.int32)
+    engine = ServeEngine(cfg, params, max_len=prompt + new)
+    _sync()
+    t0 = time.perf_counter()
+    out["rwkv_tokens"] = engine.generate(prompts, new).cpu()
+    _sync()
+    out["rwkv_s"] = time.perf_counter() - t0
+    cache = lm.init_cache(cfg, batch, prompt + new, device=dev)
+    with torch.no_grad():
+        logits, _ = make_prefill_step(cfg)(params, {"tokens": prompts},
+                                           cache)
+    out["rwkv_prefill"] = logits.float().cpu()
+    out["rwkv_prompts"] = prompts.cpu()
+    out["rwkv_bytes"] = sum(x.numel() * x.element_size()
+                            for x in _leaves(params))
+    del params, engine, cache, logits
+    _peak_reset()
+
+    layers, batch, prompt, steps = SHARD_JAMBA
+    cfg, params = _draw("jamba-1.5-large-398b", SEED + 13, f32=True,
+                        n_layers=layers, scan_group=layers)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
+                           generator=gen, dtype=torch.int32)
+    cache = lm.init_cache(cfg, batch, prompt + steps, device=dev)
+    with torch.no_grad(), Capture(blocks, "route_tokens") as routes:
+        _sync()
+        t0 = time.perf_counter()
+        out["jamba_logits"] = _jamba_serve(cfg, params, tokens, LOCAL, cache)
+        out["jamba_s"] = time.perf_counter() - t0
+    out["jamba_routes"] = [tuple(getattr(r, f).cpu() for f in
+                                 ("expert_ids", "event_slot", "kept"))
+                           for _, _, r in routes]
+    out["jamba_tokens"] = tokens.cpu()
+    out["jamba_bytes"] = sum(x.numel() * x.element_size()
+                             for x in _leaves(params))
+    del params, cache, routes
+    _peak_reset()
+    return out
+
+
+def _mixers_report(tag, results, refs):
+    """Print and check the mixer jobs of the sharded phase against their
+    one-device references (`_mixer_references`)."""
+    from repro_torch.models import mamba
+    mib = 2 ** 20
+    model = SHARD_MESH[1]
+    rwkv = _config("rwkv6-3b")
+    heads = rwkv.d_model // rwkv.rwkv.head_dim
+
+    def rwkv_heads(pad):
+        """The WKV's heads a rank: H' / model when padded, H otherwise."""
+        return pad // model if pad > heads and pad % model == 0 else heads
+
+    batch, prompt, new, pads = SHARD_RWKV
+    scale = float(refs["rwkv_prefill"].abs().max())
+    for pad in pads:
+        runs = [res["mixers"]["rwkv"][pad] for res in results]
+        gap = float((runs[0]["prefill"] - refs["rwkv_prefill"]).abs().max())
+        same = [int((r["tokens"] == refs["rwkv_tokens"]).sum()) for r in runs]
+        print(f"{tag} sharded rwkv6-3b (full width and depth, float32, "
+              f"serve_tp_only) at rwkv_pad_heads {pad} on 2 x 2, {batch} x "
+              f"{prompt} + {new} greedy: widths a rank {runs[0]['widths']}; "
+              f"prefill logit gap {gap:.4e} to one device (largest logit "
+              f"{scale:.3f}); tokens equal by "
+              f"rank {same} of {refs['rwkv_tokens'].numel()}; generate "
+              f"{max(r['s'] for r in runs):.2f} s on the mesh against "
+              f"{refs['rwkv_s']:.2f} s on one device; peak by rank "
+              f"{', '.join(str(r['peak'] // mib) for r in runs)} MiB above "
+              f"the parameters ({results[0]['mixers']['param_bytes'][0] // mib}"
+              f" of {refs['rwkv_bytes'] // mib} MiB a rank); staged a "
+              f"generate, rank 0, by op (calls, bytes): {runs[0]['staged']}")
+        for r, run in enumerate(runs):
+            check(torch.equal(run["tokens"], refs["rwkv_tokens"]),
+                  f"rank {r}: rwkv6-3b pad {pad} tokens differ from one "
+                  f"device")
+            check(run["widths"] == [("WKV heads", rwkv_heads(pad))],
+                  f"rank {r}: rwkv6-3b pad {pad} ran on {run['widths']}")
+        check(gap <= LOGIT_ATOL + LOGIT_RTOL * scale,
+              f"rwkv6-3b pad {pad} prefill logits gap {gap}")
+    tr = [res["mixers"]["rwkv_train"] for res in results]
+    print(f"{tag} sharded rwkv6-3b 2-layer cut, one step (batch "
+          f"{SHARD_RWKV_TRAIN[0]}, seq {SHARD_RWKV_TRAIN[1]}, rwkv_pad_heads "
+          f"{SHARD_RWKV_TRAIN[2]}, FSDP x TP) on 2 x 2 against one device: "
+          f"widths a rank {tr[0]['widths']}; loss {tr[0]['loss']:.6f} vs "
+          f"{tr[0]['loss_ref']:.6f}; largest gradient gap "
+          f"{max(t['grad_rel_gap'] for t in tr):.3e} of its leaf's largest "
+          f"({max(tr, key=lambda t: t['grad_rel_gap'])['grad_worst']}); "
+          f"{tr[0]['step_s']:.2f} s; peak by rank "
+          f"{', '.join(str(t['peak_mesh'] // mib) for t in tr)} MiB against "
+          f"{tr[0]['peak_single'] // mib} MiB on one device")
+    # RWKV's bound, as its one-device step card vs CPU: the factored WKV's
+    # nearly cancelling decay factors move gradients with summation order
+    # (an H100 read 1.5e-4 of the leaf's largest here)
+    for r, t in enumerate(tr):
+        check(t["widths"] == [("WKV heads",
+                               rwkv_heads(SHARD_RWKV_TRAIN[2]))],
+              f"rank {r}: rwkv6-3b step ran on {t['widths']}")
+        check(abs(t["loss"] - t["loss_ref"]) <= 1e-5 * abs(t["loss_ref"]),
+              f"rank {r}: rwkv6-3b step loss {t['loss']} vs {t['loss_ref']}")
+        check(t["grad_rel_gap"] <= RWKV_GRAD_RTOL,
+              f"rank {r}: rwkv6-3b gradient gap {t['grad_rel_gap']}")
+    jr = [res["mixers"]["jamba"] for res in results[:2]]
+    gaps = [float((g - w).abs().max()) for g, w in
+            zip(jr[0]["logits"], refs["jamba_logits"])]
+    scale = max(float(w.abs().max()) for w in refs["jamba_logits"])
+    print(f"{tag} sharded jamba-1.5-large-398b first {SHARD_JAMBA[0]} layers "
+          f"(full width, bfloat16 parameters, float32 compute, "
+          f"serve_tp_only) on a 1 x 2 mesh, {SHARD_JAMBA[1]} x "
+          f"{SHARD_JAMBA[2]} prefill + {SHARD_JAMBA[3]} decode steps: "
+          f"widths a rank {jr[0]['widths']}; logit gaps by step "
+          f"{', '.join(f'{g:.3e}' for g in gaps)} (largest {scale:.3f}); "
+          f"routes {len(jr[0]['routes'])} calls; B5 {jr[0]['b5_launches']} "
+          f"launches a rank, each == its plain version; {jr[0]['s']:.2f} s "
+          f"on the mesh against {refs['jamba_s']:.2f} s on one device; peak "
+          f"by rank {', '.join(str(j['peak'] // mib) for j in jr)} MiB above "
+          f"{jr[0]['param_bytes'][0] // mib} of {refs['jamba_bytes'] // mib} "
+          f"MiB of parameters a rank; staged, rank 0, by op (calls, bytes): "
+          f"{jr[0]['staged']}")
+    check(all(g <= LOGIT_ATOL + LOGIT_RTOL * scale for g in gaps),
+          f"jamba mesh logit gaps {gaps}")
+    d_inner = mamba.d_inner(_config("jamba-1.5-large-398b"))
+    for r, j in enumerate(jr):
+        check(j["widths"] == [("Mamba d_inner", d_inner // 2)],
+              f"rank {r}: jamba ran on {j['widths']}")
+        check(len(j["routes"]) == len(refs["jamba_routes"]) and all(
+            all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(j["routes"], refs["jamba_routes"])),
+            f"rank {r}: jamba routes differ from one device")
+        check(j["b5_launches"] == j["b5_want"] == j["b5_calls"],
+              f"rank {r}: jamba B5 launches {j['b5_launches']}, calls "
+              f"{j['b5_calls']}, want {j['b5_want']}")
+        check(j["b5_held"], f"rank {r}: a jamba B5 launch differs from plain")
+
+
+def _rank_all(rank, world, opts, chips_cfg, fparams, streams, seed, prompts,
+              rwkv_prompts, jamba_tokens):
     """Every job of the sharded phase on one rank, in one spawn."""
     SHARD_OPTS.update(opts)
     return {"probe": _rank_probe(rank, world),
             "chips": _rank_chips(rank, world, chips_cfg, fparams, streams),
             "serve": _rank_serve(rank, world, seed + 9, prompts),
-            "cuts": _rank_cuts(rank, world, seed)}
+            "cuts": _rank_cuts(rank, world, seed),
+            "mixers": _rank_mixers(rank, world, seed + 11, rwkv_prompts,
+                                   jamba_tokens)}
 
 
 def _leaves(tree):
@@ -4283,7 +4654,8 @@ def main() -> int:
                row=label.endswith("prefill stream"))
     next(r for r in rows if r["name"] == "moe_dispatch").update(
         jamba_launches_per_generate=jamba_b5,
-        mesh_launches_per_rank=mesh_b5)
+        mesh_launches_per_rank=mesh_b5["deepseek"],
+        mesh_jamba_launches_per_rank=mesh_b5["jamba"])
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

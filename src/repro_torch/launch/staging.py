@@ -9,8 +9,10 @@ and ``all_gather_into_tensor`` there ended the ranks on an H100
 (torch 2.11; `tools/gloo_cuda_probe.py`).  `install` registers CUDA
 kernels for those ops that copy the operand to host memory, run the
 collective there over the same gloo group, and copy the result back to
-the card.  Every staged call adds one to `COUNTS` under its op's name,
-so a caller can print how many collectives went through the host.
+the card.  Every staged call adds one to `COUNTS` under its op's name
+and the bytes it copies between the card and the host (its operand
+down, its result back) to `BYTES`, so a caller can print how many
+collectives, and how many bytes, went through the host.
 
 It is installed only where a mesh on the card runs over a gloo group
 (`repro_torch.launch.mesh.make_mesh`); NCCL ranks never take it.
@@ -24,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 COUNTS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
@@ -33,6 +36,11 @@ _LIB = None
 def _group(name):
     from torch.distributed.distributed_c10d import _resolve_process_group
     return _resolve_process_group(name)
+
+
+def _count(op: str, x: torch.Tensor, out: torch.Tensor) -> None:
+    COUNTS[op] += 1
+    BYTES[op] += (x.numel() + out.numel()) * x.element_size()
 
 
 def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
@@ -46,13 +54,15 @@ def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
 
 
 def all_reduce(x, reduce_op, group_name):
-    COUNTS["all_reduce"] += 1
-    return _reduce(x, reduce_op, _group(group_name)).to(x.device)
+    host = _reduce(x, reduce_op, _group(group_name))
+    _count("all_reduce", x, host)
+    return host.to(x.device)
 
 
 def all_reduce_(x, reduce_op, group_name):
-    COUNTS["all_reduce"] += 1
-    x.copy_(_reduce(x, reduce_op, _group(group_name)))
+    host = _reduce(x, reduce_op, _group(group_name))
+    _count("all_reduce", x, host)
+    x.copy_(host)
     return x
 
 
@@ -61,10 +71,10 @@ def all_reduce_coalesced(xs, reduce_op, group_name):
 
 
 def all_gather_into_tensor(x, group_size, group_name):
-    COUNTS["all_gather_into_tensor"] += 1
     host = x.detach().contiguous().cpu()
     out = host.new_empty((host.shape[0] * group_size,) + host.shape[1:])
     dist.all_gather_into_tensor(out, host, group=_group(group_name))
+    _count("all_gather_into_tensor", x, out)
     return out.to(x.device)
 
 
@@ -73,13 +83,13 @@ def all_gather_into_tensor_coalesced(xs, group_size, group_name):
 
 
 def reduce_scatter_tensor(x, reduce_op, group_size, group_name):
-    COUNTS["reduce_scatter_tensor"] += 1
     host = x.detach().contiguous().cpu()
     out = host.new_empty((host.shape[0] // group_size,) + host.shape[1:])
     op = dist.ReduceOp.SUM if reduce_op == "avg" else _OPS[reduce_op]
     dist.reduce_scatter_tensor(out, host, op, group=_group(group_name))
     if reduce_op == "avg":
         out = out / group_size
+    _count("reduce_scatter_tensor", x, out)
     return out.to(x.device)
 
 
@@ -89,7 +99,6 @@ def reduce_scatter_tensor_coalesced(xs, reduce_op, group_size, group_name):
 
 
 def all_to_all_single(x, output_split_sizes, input_split_sizes, group_name):
-    COUNTS["all_to_all_single"] += 1
     group = _group(group_name)
     host = x.detach().contiguous().cpu()
     if output_split_sizes is None:
@@ -98,6 +107,7 @@ def all_to_all_single(x, output_split_sizes, input_split_sizes, group_name):
         out = host.new_empty((sum(output_split_sizes),) + host.shape[1:])
     dist.all_to_all_single(out, host, output_split_sizes, input_split_sizes,
                            group=group)
+    _count("all_to_all_single", x, out)
     return out.to(x.device)
 
 

@@ -747,15 +747,7 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions=None, cache=None,
                              m.qk_nope_dim)
         val = _split_last(_linear(c_kv, p["wv_b"], dt), b, t, h,
                           m.v_head_dim)
-        k_full = torch.cat(
-            [k_nope, k_rope[:, :, None, :].expand(b, t, h, m.qk_rope_dim)],
-            dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        # GQA layout with KH=H, rep=1
-        attend = (lambda q_, k_, v_: flash_attention(
-            q_[:, :, :, None, :], k_, v_, causal=True))
-        o = (attend(q_full, k_full, val) if not ctx.enabled else
-             _batch_local(attend, ctx, (q_full, k_full, val), (4, 4, 4), 5))
+        o = _mla_prefill(q_nope, q_rope, k_nope, k_rope, val, ctx)
         o = o.reshape(b, t, h, m.v_head_dim)
         if cache is not None:
             new_cache = {"ckv": cache_update(cache["ckv"], c_kv, 0, ctx),
@@ -763,6 +755,44 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions=None, cache=None,
 
     out = _linear(o.reshape(b, t, h * m.v_head_dim), p["wo"], dt)
     return out, new_cache
+
+
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, val):
+    """Causal attention of the per-head q, k (``k_rope`` shared by every
+    head) and v: (B, T, H, 1, Dv) in the GQA layout (KH = H, rep = 1)."""
+    b, t, h, _ = q_nope.shape
+    k_full = torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(b, t, h, k_rope.shape[-1])],
+        dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    return flash_attention(q_full[:, :, :, None, :], k_full, val,
+                           causal=True)
+
+
+def _mla_prefill(q_nope, q_rope, k_nope, k_rope, val, ctx: ShardCtx):
+    """`_mla_attend` of train and prefill.  Under an enabled ``ctx`` with
+    the heads a multiple of the model size, the column-parallel ``wq``,
+    ``wk_b`` and ``wv_b`` leave q, ``k_nope`` and v split over ``model``
+    by head: each rank attends its own heads with ``k_rope`` whole (its
+    gradient a `Partial` sum: each rank reads it for its heads), and the
+    output stays split for the row-parallel ``wo``.  Other head counts
+    attend on each rank's batch shard, whole over ``model``."""
+    if not ctx.enabled:
+        return _mla_attend(q_nope, q_rope, k_nope, k_rope, val)
+    b, _, h, _ = q_nope.shape
+    if h % ctx.model_size:
+        return _batch_local(_mla_attend, ctx,
+                            (q_nope, q_rope, k_nope, k_rope, val),
+                            (4, 4, 4, 3, 4), 5)
+    bspec = _bspec_for(ctx, b)
+    heads = (bspec, None, ctx.model_axis, None)
+    shared = (bspec, None, None)
+    R = _regions()
+    return R.region(_mla_attend, ctx, [heads, heads, heads, shared, heads],
+                    (bspec, None, ctx.model_axis, None, None),
+                    in_grad=[None, None, None,
+                             R.partial_on_model(shared, ctx), None])(
+        q_nope, q_rope, k_nope, k_rope, val)
 
 
 def _mla_decode(q_eff, q_rope, ckv, kr, cache_len, scale,

@@ -41,8 +41,10 @@ the backward pass (`torch.utils.checkpoint`), which changes no value;
 Sharding: with ``ctx = parallel.sharding.make_shard_ctx(mesh, cfg)`` on
 a `DeviceMesh` (`repro_torch.launch.mesh`) and the parameters, batch and
 caches placed as DTensors by the port's specs (`sharding.shard_tree`),
-`forward` runs every family on the mesh: the embedding and the
-recurrent mixers on each rank's batch shard, the activations between
+`forward` runs every family on the mesh: the embedding on each rank's
+batch shard, the recurrent mixers tensor-parallel as the JAX package's
+specs place them (Mamba's d_inner, RWKV's channel mix and padded WKV
+heads over the model axis), the activations between
 layer groups constrained to the JAX package's specs (the sequence over
 the model axis under ``attn_shard="sequence"``), the logits split over
 the vocab, and the ``shard_map`` regions of `models.blocks` as
@@ -60,7 +62,6 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
 from repro_torch.interface.session import resolve_device
 from repro_torch.models import blocks, mamba, rwkv6
 from repro_torch.models.blocks import ITEM_12, LOCAL, Draw, ShardCtx
@@ -246,19 +247,17 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
                 positions=positions, cache=cache, cache_len=cache_len,
                 ctx=ctx, causal=not cfg.encoder_only)
     elif kind == "mamba":
-        o, state = _mixer(lambda p_, h_, s_: mamba.mamba_apply(
-            p_, h_, cfg, state=s_), lp["mix"], h, cache, ctx)
+        o, state = mamba.mamba_apply(lp["mix"], h, cfg, state=cache, ctx=ctx)
     else:
-        o, state = _mixer(lambda p_, h_, s_: rwkv6.time_mix_apply(
-            p_, h_, cfg, state=s_, chunked=(mode != "decode")),
-            lp["mix"], h, cache, ctx)
+        o, state = rwkv6.time_mix_apply(lp["mix"], h, cfg, state=cache,
+                                        chunked=(mode != "decode"), ctx=ctx)
     if cfg.post_norms:
         o = blocks.rms_norm(o, lp["post_ln1"], cfg.norm_eps)
     x = x + o
     h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind == "rwkv":
-        o, state2 = _mixer(lambda p_, h_, s_: rwkv6.channel_mix_apply(
-            p_, h_, cfg, state=s_), lp["ffn"], h, state, ctx)
+        o, state2 = rwkv6.channel_mix_apply(lp["ffn"], h, cfg, state=state,
+                                            ctx=ctx)
         state = state2 if state2 is not None else state
     elif cfg.layer_is_moe(idx):
         o, aux = blocks.moe_apply(lp["ffn"], h, cfg, ctx=ctx)
@@ -275,46 +274,13 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
 
 def _write_state(dst, new):
     """``dst.copy_(new)``; a DTensor cache leaf takes its own block of
-    ``new`` (replicated over the model axis), in place."""
+    ``new`` (which the mixers' regions leave in the leaf's placements),
+    in place."""
     if isinstance(dst, DTensor):
         dst.to_local().copy_(new.redistribute(dst.device_mesh,
                                               dst.placements).to_local())
     else:
         dst.copy_(new)
-
-
-def _mixer(fn, p, h, state, ctx: ShardCtx):
-    """``fn(p, h, state) -> (out, new_state)`` for a recurrent mixer
-    (Mamba, RWKV time / channel mix).  Under an enabled ``ctx`` it runs
-    on each rank's batch shard with its parameters gathered and its
-    state gathered over the model axis; the new state comes back
-    replicated there (`_write_state` keeps each rank's block)."""
-    if not ctx.enabled:
-        return fn(p, h, state)
-    from repro_torch.parallel import regions as R
-    leaves = tree_leaves(p)
-    keys = sorted(state) if state is not None else []
-    bspec = blocks._bspec_for(ctx, h.shape[0])
-    bsp = (lambda t: (bspec,) + (None,) * (t.ndim - 1))
-
-    def body(h_, *rest):
-        p_ = tree_unflatten(p, list(rest[:len(leaves)]))
-        s_ = (dict(zip(keys, rest[len(leaves):])) if state is not None
-              else None)
-        out, ns = fn(p_, h_, s_)
-        return (out,) + tuple(ns[k] for k in keys)
-
-    w_specs = [(None,) * w.ndim for w in leaves]
-    outs = R.region(
-        body, ctx,
-        [bsp(h)] + w_specs + [bsp(state[k]) for k in keys],
-        [bsp(h)] + [bsp(state[k]) for k in keys],
-        in_grad=[None] + [R.grad_of_replicated(sp, ctx, bspec is not None)
-                          for sp in w_specs] + [None] * len(keys))(
-            h, *leaves,
-            *[state[k] for k in keys])
-    return outs[0], (dict(zip(keys, outs[1:])) if state is not None
-                     else None)
 
 
 def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):

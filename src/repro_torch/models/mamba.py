@@ -13,7 +13,8 @@ odd/even recursion of ``jax.lax.associative_scan`` (so the float32
 products and sums come in the JAX package's order, in 2 log2(chunk)
 levels of batched ops), the chunk boundary state carried by a Python
 loop where JAX scans.  Decode (and a one-token prefill): one recurrence
-step against the (conv window, ssm state) cache.
+step against the (conv window, ssm state) cache.  On a mesh each rank
+runs its block of d_inner (`mamba_apply`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import Draw, _dense_init, dtype_of
+from repro_torch.models.blocks import (LOCAL, Draw, ShardCtx, _dense_init,
+                                      dtype_of)
 from repro_torch.models.config import ModelConfig
 
 SCAN_CHUNK = 512
@@ -146,23 +148,89 @@ def _ssm_scan_chunked(u, dt, b_t, c_t, a, ssm_state):
     return y, h
 
 
-def mamba_apply(p, x, cfg: ModelConfig, state=None):
-    """x (B,T,d) -> (y, new_state).  state: dict(conv, ssm) or None."""
+def _split_uz(xz, ctx: ShardCtx):
+    """(u, z) of this rank's d_inner block from ``xz``, this rank's block
+    of ``x @ w_in``'s columns ``[u | z]``.
+
+    On one device the two halves.  Inside the region of an enabled
+    ``ctx``, ``w_in``'s columns are split contiguously over the M model
+    ranks: of the 2M blocks of width di/M, rank s holds blocks 2s and
+    2s + 1, and block j (u's when j < M, z's after) belongs to rank
+    j mod M.  One all-to-all moves them (at M = 2 rank 0 holds all of u
+    and rank 1 all of z): rank s sends one block to each of two ranks and
+    receives its u block from rank s // 2 and its z block from rank
+    (M + s) // 2, in that order.
+    """
+    c = xz.shape[-1] // 2
+    if not ctx.enabled:
+        return xz[..., :c], xz[..., c:]
+    from repro_torch.parallel import regions as R
+    m, s = ctx.model_size, R.model_index(ctx)
+    blocks = sorted(((2 * s + i) % m, i) for i in range(2))  # (dest, block)
+    send, recv = [0] * m, [0] * m
+    for dest, _ in blocks:
+        send[dest] += c
+    for src in (s // 2, (m + s) // 2):
+        recv[src] += c
+    rows = xz.movedim(-1, 0)                               # (2c, B, T)
+    rows = torch.cat([rows[i * c:(i + 1) * c] for _, i in blocks])
+    uz = R.all_to_all(rows, send, recv, ctx).movedim(0, -1)
+    return uz[..., :c], uz[..., c:]
+
+
+def _sum_over_model(x, ctx: ShardCtx):
+    """A row-parallel product's sum over the model ranks (inside the
+    region of an enabled ``ctx``); ``x`` on one device."""
+    if not ctx.enabled:
+        return x
+    from repro_torch.parallel import regions as R
+    return R.psum(x, ctx)
+
+
+def mamba_apply(p, x, cfg: ModelConfig, state=None, ctx: ShardCtx = LOCAL):
+    """x (B,T,d) -> (y, new_state).  state: dict(conv, ssm) or None.
+
+    Under an enabled ``ctx`` (DTensors placed by the port's specs) each
+    rank runs its block of d_inner over the model axis, as GSPMD runs
+    the JAX package's layer on its specs: ``x @ w_in`` column-parallel,
+    the placed columns exchanged into the rank's (u, z) blocks
+    (`_split_uz`); the causal conv, the SSM scan and the gate on the
+    block; ``u @ w_bc`` and ``u @ w_dt_a`` row-parallel, their small sums
+    reduced over ``model``; ``w_dt_b`` column-parallel; ``w_out``
+    row-parallel, so ``y`` is a `Partial` sum.  The state stays split
+    over d_inner as `parallel.sharding.cache_pspecs` places it.
+
+    Raises:
+      ValueError: under an enabled ``ctx`` whose model size does not
+        divide d_inner (the weights would not split alike).
+    """
+    if not ctx.enabled:
+        return _mamba(p, x, cfg, state, ctx)
+    if d_inner(cfg) % ctx.model_size:
+        raise ValueError(f"d_inner {d_inner(cfg)} does not split over "
+                         f"{ctx.model_size} model ranks")
+    from repro_torch.parallel import regions as R
+    return R.layer_region(lambda p_, x_, s_: _mamba(p_, x_, cfg, s_, ctx),
+                          ctx, p, x, state, partial=True)
+
+
+def _mamba(p, x, cfg: ModelConfig, state, ctx: ShardCtx):
+    """`mamba_apply` on one device, or on this rank's d_inner block
+    inside the region of an enabled ``ctx``."""
     m = cfg.mamba
     bsz, t, _ = x.shape
     dt_ = x.dtype
-    di = d_inner(cfg)
-    xz = x @ p["w_in"].to(dt_)                             # (B,T,2*di)
-    u, z = xz[..., :di], xz[..., di:]
+    di = p["d_skip"].shape[0]                              # this rank's
+    u, z = _split_uz(x @ p["w_in"].to(dt_), ctx)           # (B,T,di) each
 
     conv_state = state["conv"] if state is not None else None
     u_c, new_conv = _causal_conv(u, p["conv_w"].to(dt_),
                                  p["conv_b"].to(dt_), conv_state)
     u_c = F.silu(u_c)
 
-    bc = u_c @ p["w_bc"].to(dt_)                           # (B,T,2N)
+    bc = _sum_over_model(u_c @ p["w_bc"].to(dt_), ctx)     # (B,T,2N)
     b_t, c_t = bc[..., :m.d_state], bc[..., m.d_state:]
-    dt_low = u_c @ p["w_dt_a"].to(dt_)
+    dt_low = _sum_over_model(u_c @ p["w_dt_a"].to(dt_), ctx)
     delta = F.softplus(dt_low @ p["w_dt_b"].to(dt_)
                        + p["dt_bias"].to(dt_))             # (B,T,di)
 

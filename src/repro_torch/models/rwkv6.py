@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.blocks import Draw, _dense_init, dtype_of, rms_norm
+from repro_torch.models.blocks import (LOCAL, Draw, ShardCtx, _dense_init,
+                                      dtype_of, rms_norm)
 from repro_torch.models.config import ModelConfig
 
 CHUNK = 16
@@ -158,13 +159,34 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = CHUNK):
     return out.permute(1, 0, 3, 2, 4).reshape(b, t, h, d), s
 
 
-def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True):
+def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
+                   ctx: ShardCtx = LOCAL):
     """x (B,T,d) -> (out, new_state).  state: dict(prev_x_tm, wkv) or None.
 
     With cfg.rwkv_pad_heads = H' > H the WKV runs on H' heads, the pad
     heads zero with decay 1, and is sliced back to H: it changes no
     value (the JAX package pads so that the heads shard over a mesh).
+
+    Under an enabled ``ctx`` (DTensors placed by the port's specs, the
+    time mix's weights whole over the model axis) each rank runs the
+    layer on its batch shard; at H' > H with H' a multiple of the model
+    size the padded r, k, v and decay split over ``model`` by heads (the
+    JAX package's ``with_sharding_constraint``), each rank runs the WKV
+    on its H'/model heads, and the output heads and the new state are
+    gathered before the per-head norm, the gate and ``wo``.  Otherwise
+    the WKV runs whole on every model rank, as in the JAX package.
     """
+    if not ctx.enabled:
+        return _time_mix(p, x, cfg, state, chunked, ctx)
+    from repro_torch.parallel import regions as R
+    return R.layer_region(
+        lambda p_, x_, s_: _time_mix(p_, x_, cfg, s_, chunked, ctx), ctx,
+        p, x, state)
+
+
+def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
+    """`time_mix_apply` on one device, or on this rank's batch shard
+    inside the region of an enabled ``ctx``."""
     b, t, d = x.shape
     r_cfg = cfg.rwkv
     h = d // r_cfg.head_dim
@@ -196,6 +218,12 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True):
         w4 = F.pad(w4, pads, value=1.0)                    # decay 1 on pads
         u = F.pad(u, (0, 0, 0, h_pad - h))
         wkv_state = F.pad(wkv_state, (0, 0, 0, 0, 0, h_pad - h))
+    split = ctx.enabled and h_pad > h and h_pad % ctx.model_size == 0
+    if split:
+        from repro_torch.parallel import regions as R
+        r, k, v, w4 = (R.split_model(a, 2, ctx) for a in (r, k, v, w4))
+        u = R.split_model(u, 0, ctx)
+        wkv_state = R.split_model(wkv_state, 1, ctx)
 
     args = (r.float(), k.float(), v.float(), w4.float(), u,
             wkv_state.float())
@@ -204,6 +232,9 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True):
     else:
         o, new_wkv = wkv_recurrent(*args)
 
+    if split:
+        o = R.gather_whole(o, 2, ctx)
+        new_wkv = R.gather_whole(new_wkv, 1, ctx)
     if h_pad > h:
         o = o[:, :, :h]
         new_wkv = new_wkv[:, :h]
@@ -221,7 +252,28 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True):
     return out, new_state
 
 
-def channel_mix_apply(p, x, cfg: ModelConfig, state=None):
+def channel_mix_apply(p, x, cfg: ModelConfig, state=None,
+                      ctx: ShardCtx = LOCAL):
+    """x (B,T,d) -> (out, new_state).  state: dict(prev_x_cm, ...) or None.
+
+    Under an enabled ``ctx`` (DTensors placed by the port's specs) it
+    runs tensor-parallel as GSPMD runs the JAX package's specs when the
+    model size divides d_ff: ``wk`` column-parallel, the squared ReLU on
+    each rank's columns, ``wv`` row-parallel, and the receptance gate
+    (``wr`` whole over ``model``) applied to each rank's summand, so the
+    result is a `Partial` sum.  Otherwise ``wk`` and ``wv`` are whole
+    over ``model`` (`sharding.sanitize_spec`) and each rank computes the
+    layer on its batch shard.
+    """
+    if not ctx.enabled:
+        return _channel_mix(p, x, cfg, state)
+    from repro_torch.parallel import regions as R
+    return R.layer_region(
+        lambda p_, x_, s_: _channel_mix(p_, x_, cfg, s_), ctx, p, x, state,
+        partial=cfg.d_ff % ctx.model_size == 0)
+
+
+def _channel_mix(p, x, cfg: ModelConfig, state=None):
     b, t, d = x.shape
     dt = x.dtype
     prev_x = (state["prev_x_cm"] if state is not None

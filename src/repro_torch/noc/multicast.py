@@ -42,6 +42,13 @@ def subscription_matrix(tags: torch.Tensor, valid: torch.Tensor,
     return subs
 
 
+def dest_core_mask(tags: torch.Tensor, valid: torch.Tensor, cores: int,
+                   neurons_per_core: int, tag_bits: int) -> torch.Tensor:
+    """(total, cores) bool: destination-core bitmask of each source neuron."""
+    return subscription_matrix(tags, valid, cores, neurons_per_core,
+                               tag_bits).T
+
+
 def unicast_hops(dest_mask: torch.Tensor, src_core: torch.Tensor,
                  cores: int) -> torch.Tensor:
     """(S,) total mesh hops when each destination gets its own copy."""

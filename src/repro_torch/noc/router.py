@@ -140,6 +140,14 @@ def _broadcast_link_loads(dest_mask, src_core, cores):
                                  cores)
 
 
+def link_loads(dest_mask: torch.Tensor, src_core: torch.Tensor, cores: int,
+               scheme: str) -> torch.Tensor:
+    """(S, L) events per physical link per source spike (registry
+    dispatch)."""
+    entry: NocScheme = interface_registry.get_noc_scheme(scheme)
+    return entry.link_loads(dest_mask, src_core, cores)
+
+
 def build_tables(tags: torch.Tensor, valid: torch.Tensor, *, cores: int,
                  neurons_per_core: int, tag_bits: int,
                  scheme: str = "multicast_tree") -> NocTables:

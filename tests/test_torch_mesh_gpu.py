@@ -12,7 +12,8 @@ on cuda:0: gloo's own collectives on CUDA tensors, and the functional
 collectives DTensor calls through the port's host staging
 (`repro_torch.launch.staging`), each exact.  ``run(shard="chips")`` on 4
 ranks is bitwise the one-chip session on the card; the LM smoke configs
-on a 2 x 2 mesh give the one-device greedy tokens (logits within 1e-4);
+on a 2 x 2 mesh give the one-device greedy tokens (logits within 1e-4),
+the recurrent mixers each rank on its block of d_inner or WKV heads;
 one NCCL rank runs the same path on a 1 x 1 mesh with no staging.
 """
 
@@ -85,6 +86,24 @@ def test_lm_mesh_on_the_card_matches_one_device(arch):
         assert o["backend"] == "gloo"
         assert o["tokens_equal"]
         assert o["logit_gap"] < LOGIT_TOL, o["logit_gap"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,over,width", [
+    ("rwkv6-3b", {}, ("wkv", 4)),
+    ("rwkv6-3b", {"rwkv_pad_heads": 8}, ("wkv", 4)),
+    ("jamba-1.5-large-398b", {}, ("mamba_scan", 64))])
+def test_mixers_mesh_on_the_card_match_one_device(arch, over, width):
+    """The recurrent mixers on their tensor-parallel layout (Mamba's
+    d_inner and RWKV's padded WKV heads split over ``model``, the channel
+    mix column/row-parallel) on the card: greedy tokens and logits as
+    one device, each rank on its own block."""
+    _cuda()
+    for o in spawn(ranks.gpu_lm, 4, device_id=0, timeout=300,
+                   args=(arch, (2, 2), over)):
+        assert o["tokens_equal"]
+        assert o["logit_gap"] < LOGIT_TOL, o["logit_gap"]
+        assert {w for w in o["widths"] if w[0] == width[0]} == {width}
 
 
 @pytest.mark.gpu

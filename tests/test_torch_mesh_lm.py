@@ -129,9 +129,11 @@ def _inputs(cfg, seed, train=False):
     return out
 
 
-def _jax_serve(cfg, params, batch, log):
+def _jax_serve(cfg, params, batch, log, snap=None):
     """Prefill + ranks.STEPS greedy decode steps on one device: (tokens,
-    logits of every step); each MoE call's routes appended to ``log``."""
+    logits of every step), and with ``snap`` the cache by path after
+    that many decode steps; each MoE call's routes appended to
+    ``log``."""
     b = batch["tokens"].shape[0]
     prefix = cfg.frontend.max_prefix if "image_embeds" in batch else 0
     clen = prefix + ranks.PROMPT
@@ -148,16 +150,20 @@ def _jax_serve(cfg, params, batch, log):
         logits, cache = jax.jit(jengine.make_prefill_step(cfg, remat=False))(
             params, batch, cache)
         decode = jax.jit(jengine.make_decode_step(cfg))
-        toks, steps = [], [logits]
+        toks, steps, state = [], [logits], None
         for i in range(ranks.STEPS):
             nxt = jnp.argmax(logits, -1).astype(jnp.int32)
             toks.append(nxt)
             logits, cache = decode(params, cache, nxt[:, None],
                                    jnp.int32(clen + i))
             steps.append(logits)
+            if i + 1 == snap:
+                state = _by_path(cache)
         jax.effects_barrier()
     finally:
         jrouter.hat_route = inner
+    if snap is not None:
+        return np.stack(toks, 1), np.stack(steps), state
     return np.stack(toks, 1), np.stack(steps)
 
 

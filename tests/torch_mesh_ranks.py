@@ -120,9 +120,10 @@ def _record_routes(log):
     return inner
 
 
-def _serve(cfg, params, batch, ctx=None):
+def _serve(cfg, params, batch, ctx=None, snap=None):
     """Prefill then STEPS greedy decode steps: (tokens, logits of every
-    step)."""
+    step), and with ``snap`` the cache's full values by path after that
+    many decode steps."""
     from repro_torch.models import lm
     from repro_torch.models.blocks import LOCAL
     from repro_torch.parallel import regions as R, sharding as shd
@@ -138,11 +139,16 @@ def _serve(cfg, params, batch, ctx=None):
     decode = make_decode_step(cfg, ctx)
     toks, steps = [], [R.full(logits)]
     clen = prefix + PROMPT
+    state = None
     for i in range(STEPS):
         nxt = R.full(logits).argmax(-1).to(torch.int32)
         toks.append(nxt)
         logits, _ = decode(params, cache, nxt[:, None], clen + i)
         steps.append(R.full(logits))
+        if i + 1 == snap:
+            state = _by_path(cache)
+    if snap is not None:
+        return torch.stack(toks, 1), torch.stack(steps), state
     return torch.stack(toks, 1), torch.stack(steps)
 
 
@@ -270,6 +276,154 @@ def train_2x2(rank, world, cases):
                          for a, b in zip(tree_leaves(state.opt.mu),
                                          tree_leaves(state.params))))
         out[arch] = r
+    return out
+
+
+# ---- the recurrent mixers and MLA prefill, tensor-parallel ----------------
+
+
+def _record_widths(log):
+    """Wrap the calls inside the mixers so each logs the width it runs
+    on a rank: Mamba's scan its d_inner channels, the WKV and attention
+    their heads.  Returns a function that unwraps them."""
+    from repro_torch.models import blocks, mamba, rwkv6
+    saved = []
+
+    def wrap(mod, name, tag, dim):
+        inner = getattr(mod, name)
+        saved.append((mod, name, inner))
+
+        def run(a, *rest, **kw):
+            log.append((tag, a.shape[dim]))
+            return inner(a, *rest, **kw)
+        setattr(mod, name, run)
+
+    wrap(mamba, "_ssm_scan_chunked", "mamba_scan", -1)
+    wrap(rwkv6, "wkv_chunked", "wkv", 2)
+    wrap(rwkv6, "wkv_recurrent", "wkv", 2)
+    wrap(blocks, "flash_attention", "attention", 2)
+
+    def restore():
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return restore
+
+
+def _is_mixer_weight(path, cfg):
+    """A weight of a layer's mixer (Mamba, RWKV's time mix, attention,
+    MLA) or of RWKV's channel mix."""
+    return "/mix/" in path or ("/ffn/" in path and cfg.family == "rwkv")
+
+
+def mixers_2x2(rank, world, serve, grad, staged):
+    """On a 2 x 2 mesh, float32, numpy in and out.
+
+    ``serve``: {name: (cfg, params, batch)}: prefill + STEPS greedy
+    decode steps (tokens, logits, this rank's routes a MoE call, the
+    cache after 2 decode steps) and the widths the mixers ran on
+    (`_record_widths`).  ``grad``: {name: (cfg, params, batch)}:
+    `value_and_grad` (loss, gradients by path) and whether each mixer
+    weight's gradient has its parameter's placements.  ``staged``:
+    {name: (cfg, params, batch)}: one forward under ``serve_tp_only``
+    and one under FSDP x TP with the functional collectives staged
+    through the host (`launch.staging`, here on the CPU), each
+    all-gather's operand shape and whether it ran over the data axis,
+    the block shapes a Mamba or channel-mix weight can take, and the
+    staged calls and bytes by op."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.models import blocks, lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    out = {"serve": {}, "grad": {}, "staged": {}}
+    for name, (cfg, params_np, batch_np) in serve.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        routes, widths = [], []
+        inner = _record_routes(routes)
+        restore = _record_widths(widths)
+        try:
+            toks, logits, state = _serve(cfg, sp, batch, ctx, snap=2)
+        finally:
+            blocks.route_tokens = inner
+            restore()
+        out["serve"][name] = {
+            "tokens": toks.numpy(), "logits": logits.numpy(), "state": state,
+            "routes": routes, "data_rank": mesh.get_local_rank("data"),
+            "widths": sorted(set(widths))}
+    for name, (cfg, params_np, batch_np) in grad.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        sb = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+        loss, _, grads = ts.value_and_grad(sp, sb, cfg, ctx, remat=False)
+        order = tree_leaves(shd.map_with_path(lambda p, _: p, sp))
+        placed = {path: g.placements == p.placements
+                  for path, g, p in zip(order, grads, tree_leaves(sp))
+                  if _is_mixer_weight(path, cfg)}
+        out["grad"][name] = {"loss": float(_np(loss)),
+                             "grads": _by_path(tree_unflatten(sp, grads)),
+                             "placements": placed}
+    if staged:
+        out["staged"] = _staged_forwards(staged)
+    return out
+
+
+def _staged_forwards(cases):
+    """`mixers_2x2`'s ``staged`` part (last: the staging stays installed
+    in the process)."""
+    from repro_torch.launch import staging
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    import torch.distributed as dist
+    gathers = []
+    inner = staging.all_gather_into_tensor
+
+    def recorded(x, group_size, group_name):
+        # by its ranks: DTensor may run a redistribution it planned on an
+        # equal mesh made earlier over that mesh's group of the same ranks
+        gathers.append((tuple(x.shape), tuple(dist.get_process_group_ranks(
+            staging._group(group_name)))))
+        return inner(x, group_size, group_name)
+    staging.all_gather_into_tensor = recorded
+    staging.install("CPU")
+    out = {}
+    for name, (cfg, params_np, batch_np) in cases.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        for tp_only in (True, False):
+            c = dataclasses.replace(cfg, serve_tp_only=tp_only)
+            mesh, ctx = _mesh_ctx(2, 2, c)
+            specs = shd.params_pspecs(params, c, ctx)
+            sp = shd.shard_tree(params, specs, mesh)
+            spec_of, blocks_ = {}, set()
+            shd.map_with_path(lambda p, s_: spec_of.__setitem__(p, s_), specs)
+
+            def shapes(path, leaf):
+                """A repeat's block as placed, and with its data split
+                gathered."""
+                if not _is_mixer_weight(path, c):
+                    return
+                whole_data = list(leaf.shape[1:])
+                for d, entry in enumerate(spec_of[path][1:]):
+                    if "model" in shd._axes(entry):
+                        whole_data[d] //= 2
+                blocks_.update({tuple(leaf.to_local().shape[1:]),
+                                tuple(whole_data)})
+            shd.map_with_path(shapes, sp)
+            data_group = tuple(dist.get_process_group_ranks(
+                mesh.get_group("data")))
+            gathers.clear()
+            staging.COUNTS.clear()
+            staging.BYTES.clear()
+            with torch.no_grad():
+                lm.forward(sp, batch, c, ctx=ctx, remat=False)
+            out[(name, tp_only)] = {
+                "gathers": [(s_, g == data_group) for s_, g in gathers],
+                "blocks": blocks_, "counts": dict(staging.COUNTS),
+                "bytes": dict(staging.BYTES)}
     return out
 
 
@@ -434,10 +588,11 @@ def gpu_chips(rank, world, cfg, params, spikes):
             session.last_shard_body)
 
 
-def gpu_lm(rank, world, arch, backend_mesh=(2, 2)):
-    """A smoke config's prefill + STEPS greedy decode steps on a mesh on
-    the card against the one-device run (per data shard), and the
-    backend the ranks ran."""
+def gpu_lm(rank, world, arch, backend_mesh=(2, 2), over=None):
+    """A smoke config's (with ``over`` replaced) prefill + STEPS greedy
+    decode steps on a mesh on the card against the one-device run (per
+    data shard), the backend the ranks ran and the widths the mixers ran
+    on (`_record_widths`)."""
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.launch import mesh as M
@@ -447,7 +602,8 @@ def gpu_lm(rank, world, arch, backend_mesh=(2, 2)):
     from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _f32(configs.get_smoke_config(arch))
+    cfg = dataclasses.replace(_f32(configs.get_smoke_config(arch)),
+                              **(over or {}))
     params = lm.init_model(torch.Generator(dev).manual_seed(0), cfg,
                            device=dev)
     mesh = M.make_host_mesh(*backend_mesh, device="cuda")
@@ -481,7 +637,12 @@ def gpu_lm(rank, world, arch, backend_mesh=(2, 2)):
                  for i in range(data)]
         want_t = torch.cat([p[0] for p in parts])
         want_l = torch.cat([p[1] for p in parts], dim=1)
-        got_t, got_l = serve(sp, toks, ctx)
+        widths = []
+        restore = _record_widths(widths)
+        try:
+            got_t, got_l = serve(sp, toks, ctx)
+        finally:
+            restore()
     return {"tokens_equal": bool(torch.equal(want_t, got_t)),
             "logit_gap": float((got_l - want_l).abs().max()),
-            "backend": dist.get_backend()}
+            "backend": dist.get_backend(), "widths": set(widths)}
