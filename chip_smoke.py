@@ -142,7 +142,14 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     its own block; one internlm2-1.8b training step at its 2-layer cut
     (batch 4, seq 512, FSDP x TP): loss and gradients against one device;
     NCCL on one rank (a 1 x 1 mesh); the dry run's per-device bytes of
-    all 80 cells (no FLOP count);
+    all 80 cells (no FLOP count); the dry run's per-device pass (rank 0
+    of a fake process group, on the CPU) of the served prefill, whose
+    collective calls by op must equal rank 0's staged calls in that
+    prefill and whose bytes must match the staged bytes op by op (its
+    peak printed beside the rank's), of internlm2-1.8b train_4k on
+    16 x 16 (calibrated), and of the smoke prefill the CPU tests hold
+    against JAX, whose all-reduces must be the JAX dry run's 5 and
+    81,920 B;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -169,7 +176,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     pallas and xla sessions' ms a tick and the stream form's launch; the
     dense LMs' prefill ms, decode ms a step, tokens/s, host split,
     device profile and peak memory, and the trained LM's ms a step
-    (median and quartiles of 10), its forward/backward/update split,
+    (median and quartiles of 5), its forward/backward/update split,
     profile and peak memory; the same for the served rwkv6-3b, jamba cut
     and phi-3-vision, the hubert-xlarge encoder's ms a forward, and the
     trained rwkv6-3b (3 timed steps); lif_step on bfloat16 with L2
@@ -238,7 +245,7 @@ DENSE_NEW_TOKENS = 32
 DENSE_PROFILE_STEPS = 4
 BANDED_TOKENS = 2048
 DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH = 4096, 2    # train_4k's seq_len
-DENSE_TRAIN_STEPS = 10
+DENSE_TRAIN_STEPS = 5
 DENSE_DRILL_STEPS, DENSE_DRILL_FAIL, DENSE_DRILL_EVERY = 3, 2, 2
 DENSE_DRILL_SEQ, DENSE_DRILL_BATCH = 256, 2
 # the rest of the registry: RWKV6, the Jamba hybrid, the audio and vision
@@ -686,10 +693,13 @@ def served_lm(dev, tag, reset_launches, read_launches, no_launch):
           f"combine, sampling and the wait for the device "
           f"{(total - top) * 1e3:.3f}")
 
-    # device profile of one generate
-    wall_us, events = device_events(lambda: engine.generate(prompts,
-                                                            LM_STEPS))
+    # device profile of a shorter generate (the prefill and
+    # DENSE_PROFILE_STEPS decode steps): the profiler's event list of the
+    # whole generate (170,000 device ops) took ~80 s to build
+    wall_us, events = device_events(lambda: engine.generate(
+        prompts, DENSE_PROFILE_STEPS))
     check(bool(events), "the profiler recorded no device op in generate")
+    profile_ops = n_moe * (1 + DENSE_PROFILE_STEPS)
     busy_us = sum(e.device_time_total for e in events)
     by_name = {}
     for e in events:
@@ -697,12 +707,13 @@ def served_lm(dev, tag, reset_launches, read_launches, no_launch):
         by_name[e.name] = (us + e.device_time_total, count + 1)
     b5 = {kernel: sum(c for n, (_, c) in by_name.items() if kernel in n)
           for kernel in moe_kernel.KERNEL_NAMES}
-    check(all(c == want_ops for c in b5.values()),
-          f"profile: B5 kernels {b5}, want {want_ops} of each")
-    print(f"{tag} profile generate: wall {wall_us:.1f} us (host clock, "
-          f"profiler on), device busy {busy_us:.1f} us in {len(events)} "
-          f"device ops, idle share {1 - busy_us / wall_us:.4f}; B5 kernels "
-          f"counted {b5} against {n_moe} x {1 + LM_STEPS} = {want_ops} ops")
+    check(all(c == profile_ops for c in b5.values()),
+          f"profile: B5 kernels {b5}, want {profile_ops} of each")
+    print(f"{tag} profile generate (prefill and {DENSE_PROFILE_STEPS} decode "
+          f"steps): wall {wall_us:.1f} us (host clock, profiler on), device "
+          f"busy {busy_us:.1f} us in {len(events)} device ops, idle share "
+          f"{1 - busy_us / wall_us:.4f}; B5 kernels counted {b5} against "
+          f"{n_moe} x {1 + DENSE_PROFILE_STEPS} = {profile_ops} ops")
     for key, (us, count) in sorted(by_name.items(),
                                    key=lambda r: -r[1][0])[:14]:
         print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
@@ -2680,7 +2691,9 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
     """``ServeEngine(..., ctx=ctx).generate`` on ``mesh`` (timed; the
     staged collectives it made, by op with their bytes; the widths the
     mixers ran on), then one prefill for its logits (rank 0 returns
-    them); peak memory above the parameters."""
+    them), its own staged collectives (the gather of its logits left
+    out) and peak memory; the generate's peak memory above the
+    parameters."""
     from repro_torch.models import lm
     from repro_torch.parallel import regions as R, sharding as shd
     from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
@@ -2699,13 +2712,19 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
     peak = _peak() - base
     cache = lm.init_cache(cfg, batch, prompt + new, device=_dev())
     cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
+    _peak_reset()
+    before = _staged_now()
     logits, _ = make_prefill_step(cfg, ctx)(params, {"tokens": prompts},
                                             cache)
+    _sync()
+    prefill_staged = _staged_since(before)
+    prefill_peak = _peak()
     logits = R.full(logits)
     return {"tokens": tokens.cpu(),
             "prefill": (logits.float().cpu()
                         if torch.distributed.get_rank() == 0 else None),
             "peak": peak, "s": secs, "staged": staged,
+            "prefill_staged": prefill_staged, "prefill_peak": prefill_peak,
             "widths": sorted(widths)}
 
 
@@ -3006,12 +3025,16 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     greedy tokens equal to the one-device generate; the float32 2-layer
     cuts (llama3.2-3b sequence-parallel, deepseek-v2-lite's MLA and expert
     parallelism with B5 once a rank a MoE layer a forward, internlm2's
-    training step); NCCL on one rank; the dry run's summary.  Returns B5's
+    training step); NCCL on one rank; the dry run's summary and its
+    per-device pass of the served prefill (held to the staged
+    collectives), of internlm2-1.8b train_4k and of the smoke prefill
+    the CPU tests hold against JAX.  Returns B5's
     launches a rank on the mesh path."""
     from repro_torch import configs
     from repro_torch.interface.types import InterfaceParams
     from repro_torch.kernels import build
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec, make_production_mesh
     from repro_torch.launch.spawn import spawn
     from repro_torch.models import lm
     from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
@@ -3136,6 +3159,7 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     for r, res in enumerate(results):
         check(torch.equal(res["serve"]["tokens"], want_tokens),
               f"rank {r}: mesh greedy tokens differ from one device")
+    _dry_prefill_vs_staged(tag, results, prompt, batch, new)
 
     # ---- the float32 cuts
     c0 = results[0]["cuts"]
@@ -3194,7 +3218,7 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f"internlm2-1.8b 2-layer float32 forward gap {nccl['gap']:.3e} "
           f"against one device; no host staging")
 
-    # ---- the dry run (bytes; FLOPs are counted by --all off the card)
+    # ---- the dry run: bytes of every cell; the per-device pass of one
     t0 = time.perf_counter()
     recs = [dryrun.run_cell(a, sh, mp, os.path.join("build", "dryrun_torch"),
                             count=False, verbose=False)
@@ -3204,10 +3228,98 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     check(summary["error"] == 0, f"dry run errors: {summary}")
     print(f"{tag} sharded dry run (per-device bytes by the port's specs, no "
           f"FLOP count, {time.perf_counter() - t0:.1f} s): {summary}")
+    t0 = time.perf_counter()
+    arch = "internlm2-1.8b"
+    mesh = make_production_mesh()
+    rec = dryrun.calibrated_costs(
+        configs.get_config(arch), configs.SHAPES["train_4k"], mesh,
+        opt_overrides=configs.train_overrides(arch))
+    print(f"{tag} sharded dry run per-device ({arch} train_4k, rank 0 of a "
+          f"fake {mesh.sizes} process group, meta shards, 2 and 3 layers "
+          f"extrapolated to {configs.get_config(arch).n_layers}, "
+          f"{time.perf_counter() - t0:.1f} s): {rec}")
+    # the cell tests/test_torch_dryrun_costs.py holds against the JAX dry
+    # run, whose GSPMD program makes 5 all-reduces of one (4, 16, 64)
+    # float32 operand there: the port on this card's torch makes the same
+    smoke = dataclasses.replace(configs.get_smoke_config("internlm2-1.8b"),
+                                serve_tp_only=True)
+    low = dryrun.calibrated_costs(smoke, configs.Shape("prefill_t", 16, 4,
+                                                       "prefill"),
+                                  MeshSpec((1, 2), ("data", "model")))
+    jax_calls, jax_bytes = 5, 5 * 4 * 16 * smoke.d_model * 4
+    print(f"{tag} sharded dry run, internlm2-1.8b smoke 4 x 16 prefill on "
+          f"1 x 2, serve_tp_only, torch {torch.__version__}: calls "
+          f"{low['collective_counts']}, bytes {low['collectives']}, flops "
+          f"{low['flops']}, bytes accessed {low['bytes accessed']}; the JAX "
+          f"dry run's all-reduces {jax_calls}, {jax_bytes} B")
+    check(low["collective_counts"].get("all-reduce") == jax_calls
+          and low["collectives"].get("all-reduce") == jax_bytes,
+          f"smoke prefill all-reduces {low['collective_counts']} "
+          f"{low['collectives']}, the JAX dry run's {jax_calls}, "
+          f"{jax_bytes} B")
     print(f"{tag} sharded phase: {time.perf_counter() - t_phase:.1f} s "
           f"(ranks {spawn_s:.1f} s)")
     return {"deepseek": c0["deepseek_ep"]["b5_launches"],
             "jamba": results[0]["mixers"]["jamba"]["b5_launches"]}
+
+
+# staged bytes are the operand down plus the result back; the dry run
+# counts (collective_bytes's convention) the gathered result of an
+# all-gather and the operand of the others.  On a group of g ranks:
+# staged * g == dry * STAGED_OVER_DRY[op] (all-to-all: equal splits)
+STAGED_OVER_DRY = {"all-reduce": lambda g: 2 * g,
+                   "all-gather": lambda g: g + 1,
+                   "reduce-scatter": lambda g: g + 1,
+                   "all-to-all": lambda g: 2 * g}
+STAGED_NAMES = {"all-reduce": "all_reduce",
+                "all-gather": "all_gather_into_tensor",
+                "reduce-scatter": "reduce_scatter_tensor",
+                "all-to-all": "all_to_all_single"}
+
+
+def _dry_prefill_vs_staged(tag, results, prompt, batch, new):
+    """The dry run's per-device pass of the served prefill (internlm2-1.8b
+    at full width, float32, ``serve_tp_only``, the 2 x 2 mesh, its cache
+    of prompt + new), against the collectives rank 0 staged in that
+    prefill: the same calls by op, bytes by `STAGED_OVER_DRY`; the dry
+    run's peak printed beside the rank's."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+    arch = SHARD_SERVE[0]
+    cfg = dataclasses.replace(_config(arch), compute_dtype="float32",
+                              serve_tp_only=True)
+    t0 = time.perf_counter()
+    dry = dryrun.per_device_costs(
+        cfg, configs.Shape("serve_prefill", prompt, batch, "prefill"),
+        MeshSpec(SHARD_MESH, ("data", "model")), cache_len=prompt + new)
+    dry_s = time.perf_counter() - t0
+    staged = results[0]["serve"]["prefill_staged"]
+    g = SHARD_MESH[1]
+    check(SHARD_MESH[0] == g, "the staged relation takes one group size")
+    calls = {STAGED_NAMES[op]: n for op, n in dry["collective_counts"].items()
+             if op != "total"}
+    check(calls == {op: n for op, (n, _) in staged.items()},
+          f"dry run calls {calls} against staged {staged}")
+    for op, moved in dry["collectives"].items():
+        if op == "total":
+            continue
+        got = staged.get(STAGED_NAMES[op], (0, 0))[1]
+        check(got * g == moved * STAGED_OVER_DRY[op](g),
+              f"{op}: staged {got} B against the dry run's {moved} B")
+    peak = results[0]["serve"]["prefill_peak"]
+    mem = dry["memory"]
+    print(f"{tag} sharded dry run of the served prefill ({arch} full width, "
+          f"{batch} x {prompt}, cache {prompt + new}, float32, "
+          f"serve_tp_only, {SHARD_MESH[0]} x {SHARD_MESH[1]}; fake rank 0, "
+          f"{dry_s:.1f} s): calls {dry['collective_counts']} == rank 0's "
+          f"staged calls in that prefill; bytes {dry['collectives']} "
+          f"(staged, operand down + result back: {staged}); flops "
+          f"{dry['cost']['flops']}, bytes accessed "
+          f"{dry['cost']['bytes accessed']}; peak {mem['peak_bytes']} B "
+          f"(placed {mem['placed_bytes']}, temp {mem['temp_bytes']}) against "
+          f"rank 0's measured {peak} B (max_memory_allocated over the "
+          f"prefill: gap {peak - mem['peak_bytes']} B)")
 
 
 def _mixer_references(dev):

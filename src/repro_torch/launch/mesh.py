@@ -9,10 +9,14 @@ for several ranks sharing one card.
 
 `make_production_mesh` needs no process group: it describes the
 production meshes (`MeshSpec`) for the dry run, which places nothing.
+`fake_mesh` builds a `DeviceMesh` of such a spec for one rank over a
+``fake`` process group (no peers, no transport): the dry run's
+per-device pass runs a cell's step there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -116,3 +120,32 @@ def make_chip_mesh(chips: int, device=None):
     if chips > world:
         raise ValueError(f"need {chips} ranks for a chip mesh, have {world}")
     return make_mesh((chips,), ("chips",), device, ranks=list(range(chips)))
+
+
+@contextlib.contextmanager
+def fake_mesh(spec: MeshSpec, rank: int = 0):
+    """A CPU `DeviceMesh` of ``spec``'s shape and axes as rank ``rank``
+    of a ``fake`` process group of the mesh's world size
+    (`torch.testing._internal.distributed.fake_pg.FakeStore`): its
+    collectives return at once and move nothing, so one process runs a
+    rank's share of a production mesh.  The group is destroyed on exit.
+
+    Raises:
+      RuntimeError: when a process group already runs (the fake group
+        is process-global).
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a fake mesh needs a process without a process "
+                           "group; one already runs")
+    world = 1
+    for s in spec.shape:
+        world *= s
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield DeviceMesh("cpu", torch.arange(world).reshape(spec.shape),
+                         mesh_dim_names=spec.axis_names)
+    finally:
+        dist.destroy_process_group()

@@ -36,7 +36,8 @@ Modes:
 
 ``remat`` (the JAX default, True) recomputes each repeat of a group in
 the backward pass (`torch.utils.checkpoint`), which changes no value;
-``remat_policy`` maps the JAX package's names (`REMAT_POLICIES`).
+``remat_policy`` maps the JAX package's names (`REMAT_POLICIES`) and
+the `jax.checkpoint_policies` policies' names (`JAX_POLICY_NAMES`).
 
 Sharding: with ``ctx = parallel.sharding.make_shard_ctx(mesh, cfg)`` on
 a `DeviceMesh` (`repro_torch.launch.mesh`) and the parameters, batch and
@@ -427,6 +428,17 @@ REMAT_POLICIES = {
     "dots_batch": ("mm", "addmm", "bmm", "baddbmm"),     # dots_saveable
     "everything": "everything",              # everything_saveable
 }
+# the `jax.checkpoint_policies` attributes that are policies (not
+# factories such as ``save_only_these_names``), by the short name above
+# that JAX resolves to the same policy
+JAX_POLICY_NAMES = {
+    "nothing_saveable": "none",
+    "dots_with_no_batch_dims_saveable": "dots",
+    "checkpoint_dots_with_no_batch_dims": "dots",
+    "dots_saveable": "dots_batch",
+    "checkpoint_dots": "dots_batch",
+    "everything_saveable": "everything",
+}
 
 
 def _remat_wrap(body, remat: bool, remat_policy):
@@ -436,12 +448,14 @@ def _remat_wrap(body, remat: bool, remat_policy):
     read only with ``remat``."""
     if not remat:
         return body
-    if remat_policy not in REMAT_POLICIES:
+    name = JAX_POLICY_NAMES.get(remat_policy, remat_policy)
+    if name not in REMAT_POLICIES:
         raise NotImplementedError(
             f"remat_policy {remat_policy!r} has no counterpart in "
             f"repro_torch ({ITEM_12}); it maps "
-            f"{sorted(map(str, REMAT_POLICIES))}")
-    saved = REMAT_POLICIES[remat_policy]
+            f"{sorted(map(str, REMAT_POLICIES))} and the "
+            f"jax.checkpoint_policies names {sorted(JAX_POLICY_NAMES)}")
+    saved = REMAT_POLICIES[name]
     if saved == "everything" or not torch.is_grad_enabled():
         return body
     from torch.utils import checkpoint as ckpt

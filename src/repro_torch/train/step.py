@@ -129,6 +129,47 @@ def value_and_grad(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
             grads)
 
 
+def _microbatches(batch: dict, m: int) -> list:
+    """The ``m`` microbatches of ``batch``: rows ``[i b/m, (i+1) b/m)``,
+    as the JAX step's reshape gives them.  A DTensor leaf is gathered
+    whole once and each microbatch placed as the leaf was: DTensor cannot
+    split a batch dim sharded over more ranks than ``m`` in place."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel import regions as R
+    out = [{} for _ in range(m)]
+    for k, v in batch.items():
+        n = v.shape[0] // m
+        whole = R.replicate(v)
+        for i in range(m):
+            part = whole[i * n:(i + 1) * n]
+            if isinstance(v, DTensor):
+                part = part.redistribute(v.device_mesh, v.placements)
+            out[i][k] = part
+    return out
+
+
+def microbatch_value_and_grad(params, batch, cfg: ModelConfig,
+                              ctx: ShardCtx = LOCAL, microbatch: int = 1,
+                              remat: bool = True,
+                              remat_policy: str | None = None):
+    """`value_and_grad` of the mean over ``microbatch`` microbatches, as
+    the JAX step's scan takes it: ``(loss, metrics, grads)``, the loss
+    the mean of the microbatches', the metrics the last one's, the
+    gradients summed in float32 in order and divided."""
+    if microbatch == 1:
+        return value_and_grad(params, batch, cfg, ctx, remat, remat_policy)
+    grads, loss = None, 0.0
+    for mb in _microbatches(batch, microbatch):
+        l, metrics, g = value_and_grad(params, mb, cfg, ctx, remat,
+                                       remat_policy)
+        if grads is None:       # DTensors keep their placements
+            grads = [torch.zeros_like(x, dtype=torch.float32) for x in g]
+        grads = [a + b.to(torch.float32) for a, b in zip(grads, g)]
+        loss = loss + l
+    return (loss / microbatch, metrics,
+            [g / microbatch for g in grads])
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     ctx: ShardCtx = LOCAL, microbatch: int = 1,
                     remat: bool = True, remat_policy: str | None = None):
@@ -136,24 +177,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     0-d tensors ``ce_loss`` (the last microbatch's), the aux losses,
     ``grad_norm``, ``lr`` and ``loss`` (the mean over microbatches)."""
     def train_step(state: TrainState, batch):
-        if microbatch == 1:
-            loss, metrics, grads = value_and_grad(
-                state.params, batch, cfg, ctx, remat, remat_policy)
-        else:
-            grads, loss = None, 0.0
-            for i in range(microbatch):
-                mb = {k: v.reshape(microbatch, v.shape[0] // microbatch,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, metrics, g = value_and_grad(
-                    state.params, mb, cfg, ctx, remat, remat_policy)
-                if grads is None:
-                    grads = [torch.zeros(x.shape, dtype=torch.float32,
-                                         device=x.device) for x in g]
-                grads = [a + b.to(torch.float32) for a, b in zip(grads, g)]
-                loss = loss + l
-            grads = [g / microbatch for g in grads]
-            loss = loss / microbatch
+        loss, metrics, grads = microbatch_value_and_grad(
+            state.params, batch, cfg, ctx, microbatch, remat, remat_policy)
         new_params, new_opt, opt_metrics = adamw.update(
             opt_cfg, tree_unflatten(state.params, grads), state.opt,
             state.params)

@@ -181,7 +181,7 @@ def test_remat_policy_without_counterpart_is_refused():
                             device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="item 12"):
-        tlm.forward(params, batch, cfg, remat_policy="nothing_saveable")
+        tlm.forward(params, batch, cfg, remat_policy="save_only_these_names")
 
 
 def test_remat_recomputes_in_the_backward_and_gives_the_same_gradients():

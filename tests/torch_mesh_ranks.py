@@ -279,6 +279,44 @@ def train_2x2(rank, world, cases):
     return out
 
 
+def train_microbatch_2x2(rank, world, cases):
+    """``cases``: {arch: (cfg, AdamW config, microbatch, params, batch)},
+    numpy, float32.  For each, on a 2 x 2 mesh: the loss and gradients
+    of `microbatch_value_and_grad` (the step's split of the batch into
+    microbatches, each placed as the batch was) by path, whether each
+    gradient has its parameter's placements, and one train step in
+    microbatches: its loss, ``grad_norm``, ``lr``, updated parameters and
+    AdamW's first moments by path.  The test holds them against the JAX
+    package."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    out = {}
+    for arch, (cfg, opt, microbatch, params_np, batch_np) in cases.items():
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        sb = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+        loss, _, grads = ts.microbatch_value_and_grad(sp, sb, cfg, ctx,
+                                                      microbatch)
+        state, m = ts.make_train_step(cfg, opt, ctx=ctx,
+                                      microbatch=microbatch)(
+            ts.TrainState(sp, adamw.init(opt, sp),
+                          torch.zeros((), dtype=torch.int32)), sb)
+        out[arch] = {
+            "loss": float(_np(loss)),
+            "grads": _by_path(tree_unflatten(sp, grads)),
+            "grads_like_params": all(a.placements == p.placements
+                                     for a, p in zip(grads, tree_leaves(sp))),
+            "step_loss": float(_np(m["loss"])),
+            "grad_norm": float(_np(m["grad_norm"])), "lr": float(_np(m["lr"])),
+            "params": _by_path(state.params), "mu": _by_path(state.opt.mu)}
+    return out
+
+
 # ---- the recurrent mixers and MLA prefill, tensor-parallel ----------------
 
 
@@ -424,6 +462,45 @@ def _staged_forwards(cases):
                 "gathers": [(s_, g == data_group) for s_, g in gathers],
                 "blocks": blocks_, "counts": dict(staging.COUNTS),
                 "bytes": dict(staging.BYTES)}
+    return out
+
+
+# ---- the dry run's per-device pass against a real rank ---------------------
+
+
+def dryrun_costs_2x2(rank, world, cases):
+    """``cases``: {name: (cfg, Shape, train kwargs)}.  For each, the
+    cell's step
+    (`repro_torch.launch.dryrun.cell_step`) on a real 2 x 2 mesh of gloo
+    CPU ranks, its operands placed by the dry run's specs from values
+    drawn here (parameters from seed 0, tokens and labels from seed 1,
+    a zero cache), measured as the dry run measures a fake rank
+    (`dryrun.measure`): this rank's record."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    for name, (cfg, shape, train_kwargs) in cases.items():
+        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        _, p_specs, meta_batch, b_specs, _, c_specs = dryrun._operands(
+            cfg, shape, ctx)
+        params = lm.init_model(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab, tuple(v.shape), generator=gen,
+                                  dtype=v.dtype)
+                 for k, v in meta_batch.items()}
+        params = shd.shard_tree(params, p_specs, mesh)
+        batch = shd.shard_tree(batch, b_specs, mesh)
+        cache = None
+        if shape.kind != "train":
+            cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="cpu")
+            cache = shd.shard_tree(cache, c_specs, mesh)
+        step, operands = dryrun.cell_step(cfg, shape.kind, ctx, params, batch,
+                                          cache, train_kwargs=train_kwargs,
+                                          decode_len=shape.seq_len - 1)
+        out[name] = dryrun.measure(step, operands)
     return out
 
 
