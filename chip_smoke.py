@@ -146,10 +146,14 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     of a fake process group, on the CPU) of the served prefill, whose
     collective calls by op must equal rank 0's staged calls in that
     prefill and whose bytes must match the staged bytes op by op (its
-    peak printed beside the rank's), of internlm2-1.8b train_4k on
-    16 x 16 (calibrated), and of the smoke prefill the CPU tests hold
-    against JAX, whose all-reduces must be the JAX dry run's 5 and
-    81,920 B;
+    peak printed beside the rank's), of the internlm2-1.8b cut's train
+    step, held the same way to rank 0's staged calls in that step and
+    its peak within 10 % of the rank's, of internlm2-1.8b train_4k on
+    16 x 16 (calibrated), whose calls by op must be the CPU tests'
+    torch's, and of the smoke prefill the CPU tests hold against JAX,
+    whose all-reduces must be the JAX dry run's 5 and 81,920 B; the
+    cut's train step again in 2 microbatches, held to the one-device
+    gradients;
  5. times, each printed beside the card's name and power limit: session
     ms per tick as the median and quartiles of interleaved runs, the host
     time per tick split by stage, a device profile of each tick, the SNN
@@ -2434,6 +2438,7 @@ SHARD_SERVE = ("internlm2-1.8b", 4, 128, 8)   # arch, batch, prompt, new
 SHARD_CUT_TOKENS = 128          # the 2-layer float32 cuts: 4 x 128 tokens
 SHARD_MLA_STEPS = 2             # deepseek's cut: decode steps after prefill
 SHARD_TRAIN = (4, 512)          # internlm2-1.8b's 2-layer cut: batch, seq
+SHARD_MICROBATCH = 2            # ... and its step again in 2 microbatches
 # rwkv6-3b at full width and depth on the 2 x 2 mesh: batch, prompt, new
 # tokens, and the rwkv_pad_heads served (0: the 40 heads whole on every
 # model rank, as in the JAX package; 48: 24 padded heads a rank)
@@ -2828,19 +2833,26 @@ def _rank_cuts(rank, world, seed):
     del params, cache, got, want, b5
     _peak_reset()
 
-    # internlm2-1.8b: one training step's loss and gradients
+    # internlm2-1.8b: one training step's loss and gradients, and the
+    # step again in SHARD_MICROBATCH microbatches
     cfg, full = _draw("internlm2-1.8b", seed, layers=2, f32=True)
-    out["train"] = _train_cut(cfg, full, mesh, SHARD_TRAIN, g)
+    out["train"] = _train_cut(cfg, full, mesh, SHARD_TRAIN, g,
+                              microbatch=SHARD_MICROBATCH)
     return out
 
 
-def _train_cut(cfg, full, mesh, shape, g):
+def _train_cut(cfg, full, mesh, shape, g, microbatch=1):
     """`value_and_grad` of one step of the cut ``full`` on one device and
     on ``mesh`` (FSDP x TP), at ``shape`` (batch, seq) of random tokens
     from ``g``: losses, the widest gradient gap (this rank's blocks) of
     its leaf's largest, peak memory of each, seconds of the mesh step,
     this rank's parameter bytes and the tree's, and the widths the mixers
-    ran on in the mesh step."""
+    ran on in the mesh step; the mesh step's staged collectives and its
+    peak as the dry run counts it (this rank's blocks of the parameters
+    and batch, plus the most the step allocated above what was resident
+    before it).  With ``microbatch`` > 1, the mesh step again in that
+    many microbatches (`train.step.microbatch_value_and_grad`): its loss
+    and widest gradient gap to the one-device step."""
     from repro_torch.ckpt.manager import tree_leaves
     from repro_torch.parallel import sharding as shd
     from repro_torch.train import step as ts
@@ -2857,26 +2869,44 @@ def _train_cut(cfg, full, mesh, shape, g):
     sbatch = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
     full_bytes = sum(x.numel() * x.element_size() for x in _leaves(full))
     base = _peak_reset()
+    before = _staged_now()
     with Widths() as widths:
         t0 = time.perf_counter()
         loss, _, grads = ts.value_and_grad(params, sbatch, cfg, ctx)
         _sync()
         step_s = time.perf_counter() - t0
+    staged = _staged_since(before)
     peak_mesh = _peak() - base
+    operands = _local_bytes(params)[0] + _local_bytes(sbatch)[0]
     # the specs in the gradients' order (tree_leaves: keys sorted)
     order = tree_leaves(shd.map_with_path(lambda _, sp: _Spec(sp), specs))
     paths = tree_leaves(shd.map_with_path(lambda p, _: p, specs))
-    worst, where = 0.0, None
-    for got, want, sp, path in zip(grads, grads_ref, order, paths):
-        gap, top = _gap_local(got, want, sp.spec, mesh)
-        if gap / max(top, 1e-30) > worst:
-            worst, where = gap / max(top, 1e-30), path
-    return {"loss": float(loss.full_tensor()), "loss_ref": float(loss_ref),
-            "grad_rel_gap": worst, "grad_worst": where,
-            "peak_mesh": peak_mesh,
-            "peak_single": peak_single, "step_s": step_s,
-            "param_bytes": _local_bytes(params), "full_bytes": full_bytes,
-            "widths": sorted(widths)}
+
+    def widest(got_grads):
+        worst, where = 0.0, None
+        for got, want, sp, path in zip(got_grads, grads_ref, order, paths):
+            gap, top = _gap_local(got, want, sp.spec, mesh)
+            if gap / max(top, 1e-30) > worst:
+                worst, where = gap / max(top, 1e-30), path
+        return worst, where
+
+    worst, where = widest(grads)
+    out = {"loss": float(loss.full_tensor()), "loss_ref": float(loss_ref),
+           "grad_rel_gap": worst, "grad_worst": where,
+           "peak_mesh": peak_mesh, "peak_step": operands + peak_mesh,
+           "staged": staged,
+           "peak_single": peak_single, "step_s": step_s,
+           "param_bytes": _local_bytes(params), "full_bytes": full_bytes,
+           "widths": sorted(widths)}
+    if microbatch > 1:
+        del grads
+        t0 = time.perf_counter()
+        loss, _, grads = ts.microbatch_value_and_grad(
+            params, sbatch, cfg, ctx, microbatch=microbatch)
+        _sync()
+        out["mb"] = (microbatch, float(loss.full_tensor()), *widest(grads),
+                     time.perf_counter() - t0)
+    return out
 
 
 def _jamba_serve(cfg, params, tokens, ctx, cache):
@@ -3025,11 +3055,13 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
     greedy tokens equal to the one-device generate; the float32 2-layer
     cuts (llama3.2-3b sequence-parallel, deepseek-v2-lite's MLA and expert
     parallelism with B5 once a rank a MoE layer a forward, internlm2's
-    training step); NCCL on one rank; the dry run's summary and its
-    per-device pass of the served prefill (held to the staged
-    collectives), of internlm2-1.8b train_4k and of the smoke prefill
-    the CPU tests hold against JAX.  Returns B5's
-    launches a rank on the mesh path."""
+    training step, and the step again in microbatches); NCCL on one
+    rank; the dry run's summary and its per-device pass of the served
+    prefill and of internlm2's cut's training step (each held to rank
+    0's staged collectives, the step's peak to the rank's), of
+    internlm2-1.8b train_4k (its calls by op held to the CPU tests'
+    torch's) and of the smoke prefill the CPU tests hold against JAX.
+    Returns B5's launches a rank on the mesh path."""
     from repro_torch import configs
     from repro_torch.interface.types import InterfaceParams
     from repro_torch.kernels import build
@@ -3183,7 +3215,12 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f" MiB against {tr['peak_single'] // mib} MiB on one device; "
           f"parameter bytes a rank {tr['param_bytes'][0] // mib} of "
           f"{tr['param_bytes'][1] // mib} MiB "
-          f"({tr['param_bytes'][0] / tr['param_bytes'][1]:.3f})")
+          f"({tr['param_bytes'][0] / tr['param_bytes'][1]:.3f}); the step "
+          f"in {tr['mb'][0]} microbatches loss {tr['mb'][1]:.6f}, largest "
+          f"gradient gap "
+          f"{max(res['cuts']['train']['mb'][2] for res in results):.3e} of "
+          f"its leaf's largest to the one-device step ({tr['mb'][3]}), "
+          f"{tr['mb'][4]:.2f} s")
 
     for r, res in enumerate(results):
         g, top = res["cuts"]["llama_sp"]
@@ -3204,6 +3241,13 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
               f"rank {r}: train loss {tr['loss']} vs {tr['loss_ref']}")
         check(tr["grad_rel_gap"] <= GRAD_RTOL,
               f"rank {r}: gradient gap {tr['grad_rel_gap']}")
+        _, mb_loss, mb_gap, _, _ = tr["mb"]
+        check(abs(mb_loss - tr["loss_ref"]) <= 1e-4 * abs(tr["loss_ref"]),
+              f"rank {r}: microbatched train loss {mb_loss} vs "
+              f"{tr['loss_ref']}")
+        check(mb_gap <= GRAD_RTOL,
+              f"rank {r}: microbatched gradient gap {mb_gap}")
+    _dry_train_vs_staged(tag, results)
 
     _mixers_report(tag, results, mixer_refs)
 
@@ -3238,6 +3282,9 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
           f"fake {mesh.sizes} process group, meta shards, 2 and 3 layers "
           f"extrapolated to {configs.get_config(arch).n_layers}, "
           f"{time.perf_counter() - t0:.1f} s): {rec}")
+    check(rec["collective_counts"] == TRAIN_4K_CALLS,
+          f"train_4k calls {rec['collective_counts']}, torch 2.13's "
+          f"{TRAIN_4K_CALLS}")
     # the cell tests/test_torch_dryrun_costs.py holds against the JAX dry
     # run, whose GSPMD program makes 5 all-reduces of one (4, 16, 64)
     # float32 operand there: the port on this card's torch makes the same
@@ -3271,10 +3318,87 @@ STAGED_OVER_DRY = {"all-reduce": lambda g: 2 * g,
                    "all-gather": lambda g: g + 1,
                    "reduce-scatter": lambda g: g + 1,
                    "all-to-all": lambda g: 2 * g}
+# the dry run's peak of the cut's train step against rank 0's measured one
+DRY_PEAK_RTOL = 0.10
+# the collective calls by op of internlm2-1.8b train_4k's per-device pass
+# on 16 x 16 as torch 2.13 counts them (`python -m
+# repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k` on a
+# CPU): the card machine's torch must count the same
+TRAIN_4K_CALLS = {"all-gather": 434, "all-reduce": 131,
+                  "reduce-scatter": 218, "total": 783}
 STAGED_NAMES = {"all-reduce": "all_reduce",
                 "all-gather": "all_gather_into_tensor",
                 "reduce-scatter": "reduce_scatter_tensor",
                 "all-to-all": "all_to_all_single"}
+
+
+def _check_staged(dry, staged):
+    """The dry run's collectives by op (calls, and bytes by
+    `STAGED_OVER_DRY`) against a rank's staged ones in the same step."""
+    g = SHARD_MESH[1]
+    check(SHARD_MESH[0] == g, "the staged relation takes one group size")
+    calls = {STAGED_NAMES[op]: n for op, n in dry["collective_counts"].items()
+             if op != "total"}
+    check(calls == {op: n for op, (n, _) in staged.items()},
+          f"dry run calls {calls} against staged {staged}")
+    for op, moved in dry["collectives"].items():
+        if op == "total":
+            continue
+        got = staged.get(STAGED_NAMES[op], (0, 0))[1]
+        check(got * g == moved * STAGED_OVER_DRY[op](g),
+              f"{op}: staged {got} B against the dry run's {moved} B")
+
+
+def _dry_train_vs_staged(tag, results):
+    """The dry run's per-device pass of the mesh step of internlm2-1.8b's
+    2-layer float32 cut (`_rank_cuts`: `train.step.value_and_grad` at
+    SHARD_TRAIN on the 2 x 2 mesh, rank 0 of a fake process group, meta
+    shards): its calls by op == rank 0's staged calls in that step, bytes
+    by `STAGED_OVER_DRY`, its peak within `DRY_PEAK_RTOL` of rank 0's
+    (`_train_cut`'s ``peak_step``)."""
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec, fake_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    cfg = _config("internlm2-1.8b")
+    if not SHARD_OPTS["smoke"]:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    b, t = SHARD_TRAIN
+    t0 = time.perf_counter()
+    with fake_mesh(MeshSpec(SHARD_MESH, ("data", "model"))) as mesh:
+        ctx = shd.make_shard_ctx(mesh, cfg)
+        params = lm.init_model(None, cfg, device="meta")
+        params = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx),
+                                mesh)
+        batch = {k: torch.empty((b, t), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        batch = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+        dry = dryrun.measure(
+            lambda: ts.value_and_grad(params, batch, cfg, ctx),
+            tree_leaves(params) + tree_leaves(batch))
+    dry_s = time.perf_counter() - t0
+    tr = results[0]["cuts"]["train"]
+    mem = dry["memory"]
+    print(f"{tag} sharded dry run of the cut's train step (internlm2-1.8b, "
+          f"2 layers at full width, float32, {b} x {t}, "
+          f"{SHARD_MESH[0]} x {SHARD_MESH[1]}; fake rank 0, {dry_s:.1f} s): "
+          f"calls {dry['collective_counts']} against rank 0's staged "
+          f"{tr['staged']}; bytes {dry['collectives']}; flops "
+          f"{dry['cost']['flops']}, bytes accessed "
+          f"{dry['cost']['bytes accessed']}; peak {mem['peak_bytes']} B "
+          f"(placed {mem['placed_bytes']}, temp {mem['temp_bytes']}) against "
+          f"rank 0's {tr['peak_step']} B (its blocks of the operands plus "
+          f"max_memory_allocated over the step above what was resident "
+          f"before it: gap {tr['peak_step'] - mem['peak_bytes']} B)")
+    _check_staged(dry, tr["staged"])
+    if _dev().type == "cuda":
+        check(abs(mem["peak_bytes"] - tr["peak_step"])
+              <= DRY_PEAK_RTOL * tr["peak_step"],
+              f"dry run peak {mem['peak_bytes']} B against rank 0's "
+              f"{tr['peak_step']} B")
 
 
 def _dry_prefill_vs_staged(tag, results, prompt, batch, new):
@@ -3295,18 +3419,7 @@ def _dry_prefill_vs_staged(tag, results, prompt, batch, new):
         MeshSpec(SHARD_MESH, ("data", "model")), cache_len=prompt + new)
     dry_s = time.perf_counter() - t0
     staged = results[0]["serve"]["prefill_staged"]
-    g = SHARD_MESH[1]
-    check(SHARD_MESH[0] == g, "the staged relation takes one group size")
-    calls = {STAGED_NAMES[op]: n for op, n in dry["collective_counts"].items()
-             if op != "total"}
-    check(calls == {op: n for op, (n, _) in staged.items()},
-          f"dry run calls {calls} against staged {staged}")
-    for op, moved in dry["collectives"].items():
-        if op == "total":
-            continue
-        got = staged.get(STAGED_NAMES[op], (0, 0))[1]
-        check(got * g == moved * STAGED_OVER_DRY[op](g),
-              f"{op}: staged {got} B against the dry run's {moved} B")
+    _check_staged(dry, staged)
     peak = results[0]["serve"]["prefill_peak"]
     mem = dry["memory"]
     print(f"{tag} sharded dry run of the served prefill ({arch} full width, "

@@ -44,7 +44,9 @@ Port of `repro.launch.dryrun`.  Per cell it:
        the placed operands included; ``memory.temp_bytes`` the peak less
        those operands.  This is eager allocation op by op, not XLA's
        buffer assignment: a tensor lives until its last Python reference
-       goes, and nothing is fused away.
+       goes, and nothing is fused away.  A collective's result wrapped
+       for autograd is held once, as on a real rank (the wrapper is an
+       alias; its meta kernel would copy).
      The pass runs at two and three repeats of the layer pattern
      (``first_k_dense + k * scan_group`` layers) and each field is
      extrapolated affinely to the real depth (`calibrated_costs`, the
@@ -328,6 +330,10 @@ def _cost_mode():
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
     wrappers = (DTensor, AsyncCollectiveTensor)
+    # a collective's result wrapped for autograd is its input (an alias);
+    # the op's meta kernel allocates a copy, which no real rank holds
+    wrap = getattr(torch.ops._c10d_functional, "_wrap_tensor_autograd",
+                   None)
 
     class CostMode(TorchDispatchMode):
         """Counts the local ops of one rank: FLOPs (torch's flop
@@ -348,6 +354,8 @@ def _cost_mode():
             kwargs = kwargs or {}
             if any(issubclass(t, wrappers) for t in types):
                 return NotImplemented
+            if wrap is not None and func._overloadpacket is wrap:
+                return args[0]
             out = func(*args, **kwargs)
             ins, outs = _tensors((args, kwargs)), _tensors(out)
             name = func._schema.name.split("::")[-1]

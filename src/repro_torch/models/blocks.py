@@ -235,11 +235,23 @@ def init_rmsnorm(draw: Draw, d: int, cfg: ModelConfig) -> Params:
 
 
 def rms_norm(x, p, eps: float = 1e-6):
+    """On a mesh (DTensor ``x``) under autograd the norm is recomputed in
+    the backward: eager autograd would keep its float32 input and output,
+    two float32 copies of the stream a norm, where XLA's fusion keeps
+    neither.  The same ops run, so the values are the same."""
+    if _is_dtensor(x) and torch.is_grad_enabled():
+        from torch.utils import checkpoint as ckpt
+        return ckpt.checkpoint(_rms_norm, x, p["scale"], eps,
+                               use_reentrant=False)
+    return _rms_norm(x, p["scale"], eps)
+
+
+def _rms_norm(x, scale, eps):
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["scale"].float())).to(dt)
+    return (y * (1.0 + scale.float())).to(dt)
 
 
 def act_fn(name: str):
@@ -515,7 +527,13 @@ def attention_apply(p, x, cfg: ModelConfig, *, is_local: bool,
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = h // kh
     dt = x.dtype
-    q = _split_last(_linear(x, p["wq"], dt), b, t, kh, rep, dh)
+    decode = cache is not None and cache_len is not None
+    # by flat head where `_prefill_attention` splits the heads but not the
+    # kv heads over the model axis: the column-parallel wq leaves each
+    # rank its own heads, which stay split, as GSPMD keeps them
+    qh = ((h, 1) if not decode and _flat_heads(cfg, ctx, kh, h)
+          else (kh, rep))
+    q = _split_last(_linear(x, p["wq"], dt), b, t, *qh, dh)
     k = _split_last(_linear(x, p["wk"], dt), b, t, kh, dh)
     v = _split_last(_linear(x, p["wv"], dt), b, t, kh, dh)
     if cfg.qk_norm:
@@ -531,7 +549,7 @@ def attention_apply(p, x, cfg: ModelConfig, *, is_local: bool,
 
     window = cfg.sliding_window if is_local else 0
     new_cache = None
-    if cache is not None and cache_len is not None:
+    if decode:
         # decode: append k/v at cache_len, attend over the cache
         new_cache = {"k": cache_update(cache["k"], k, cache_len, ctx),
                      "v": cache_update(cache["v"], v, cache_len, ctx)}
@@ -581,15 +599,26 @@ def cache_update(cache, kv, start: int, ctx: ShardCtx = LOCAL):
     return cache
 
 
+def _flat_heads(cfg: ModelConfig, ctx: ShardCtx, kh: int, h: int) -> bool:
+    """Head-TP over fewer kv heads than ranks: the heads divide the
+    model axis and the kv heads do not."""
+    return (ctx.enabled and cfg.attn_shard == "heads"
+            and kh % ctx.model_size != 0 and h % ctx.model_size == 0)
+
+
 def _prefill_attention(q, k, v, cfg: ModelConfig, window, causal,
                        ctx: ShardCtx = LOCAL):
+    """Attention of train and prefill: ``q`` (B, T, KH, rep, D), or (B,
+    T, H, 1, D) split over the model axis by head where `_flat_heads`;
+    the output in the same layout."""
     if not ctx.enabled:
         if window:
             return banded_attention(q, k, v, window=window, causal=causal)
         return flash_attention(q, k, v, causal=causal)
     R = _regions()
-    b, t, kh, rep, d = q.shape
-    h = kh * rep
+    b, t = q.shape[:2]
+    h, kh = q.shape[2] * q.shape[3], k.shape[2]
+    rep = h // kh
     bspec = _bspec_for(ctx, b)
     mx = ctx.model_axis
 
@@ -607,28 +636,23 @@ def _prefill_attention(q, k, v, cfg: ModelConfig, window, causal,
                         [(bspec, None, mx, None, None),
                          (bspec, None, mx, None), (bspec, None, mx, None)],
                         (bspec, None, mx, None, None))(q, k, v)
-    if cfg.attn_shard == "heads" and h % ctx.model_size == 0:
-        # head-TP over fewer kv heads than ranks: fold GQA reps into flat
-        # heads and shard H over `model`; kv is replicated, and each rank
-        # repeats only its own H/model slice.  Each rank's gradient
-        # reaches only its heads, so the replicated operands get partial
-        # gradients.
+    if _flat_heads(cfg, ctx, kh, h):
+        # head-TP over fewer kv heads than ranks: q by flat head, H over
+        # `model`; kv is replicated, and each rank repeats only its own
+        # H/model slice.  Each rank's gradient reaches only its heads, so
+        # the replicated kv get partial gradients.  The output stays split
+        # by head for the row-parallel wo.
         def heads(q_, k_, v_):
-            h_loc = h // ctx.model_size
+            h_loc = q_.shape[2]
             first = R.model_index(ctx) * h_loc
-            qf = q_.reshape(q_.shape[0], t, h, 1, d)[:, :, first:first + h_loc]
             kv_of = torch.arange(first, first + h_loc, device=q_.device) // rep
-            return attend(qf, k_[:, :, kv_of], v_[:, :, kv_of])
+            return attend(q_, k_[:, :, kv_of], v_[:, :, kv_of])
 
-        spec5 = (bspec, None, None, None, None)
+        flat = (bspec, None, mx, None, None)
         spec4 = (bspec, None, None, None)
-        o = R.region(heads, ctx, [spec5, spec4, spec4],
-                     (bspec, None, mx, None, None),
-                     in_grad=[R.partial_on_model(spec5, ctx),
-                              R.partial_on_model(spec4, ctx),
-                              R.partial_on_model(spec4, ctx)])(q, k, v)
-        o = R.constrain(o, spec5, ctx)
-        return o.reshape(b, t, kh, rep, o.shape[-1])
+        return R.region(heads, ctx, [flat, spec4, spec4], flat,
+                        in_grad=[None, R.partial_on_model(spec4, ctx),
+                                 R.partial_on_model(spec4, ctx)])(q, k, v)
     if (not window and cfg.attn_shard == "sequence"
             and t % ctx.model_size == 0):
         # sequence-parallel attention: q sharded over T, KV all-gathered
@@ -953,6 +977,10 @@ def moe_apply(p, x, cfg: ModelConfig, ctx: ShardCtx = LOCAL):
     else:
         y, aux_l, z_l = _moe_sharded(local_moe, xf, _use(p["router"], dt),
                                      ws, cfg, ctx)
+        # the layer's aux losses reduced here, as the JAX package's pmean
+        # is, not left `Partial` for DTensor to reduce where the sums over
+        # layers meet it (which differs between torch versions)
+        aux_l, z_l = (_regions().replicate(a) for a in (aux_l, z_l))
     if mo.num_shared:
         y = y + mlp_apply(p["shared"], xf, cfg)
     aux = {"moe_aux": aux_l * mo.aux_loss_weight,

@@ -235,7 +235,7 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
     into their cache tensors."""
     kind = cfg.layer_kind(idx)
     aux = {}
-    h = blocks.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _grad_reduced(blocks.rms_norm(x, lp["ln1"], cfg.norm_eps))
     state = None
     if kind == "attn":
         if cfg.mla is not None:
@@ -252,10 +252,11 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
     else:
         o, state = rwkv6.time_mix_apply(lp["mix"], h, cfg, state=cache,
                                         chunked=(mode != "decode"), ctx=ctx)
+    o = _reduced_like(o, x)
     if cfg.post_norms:
         o = blocks.rms_norm(o, lp["post_ln1"], cfg.norm_eps)
     x = x + o
-    h = blocks.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h = _grad_reduced(blocks.rms_norm(x, lp["ln2"], cfg.norm_eps))
     if kind == "rwkv":
         o, state2 = rwkv6.channel_mix_apply(lp["ffn"], h, cfg, state=state,
                                             ctx=ctx)
@@ -264,6 +265,7 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
         o, aux = blocks.moe_apply(lp["ffn"], h, cfg, ctx=ctx)
     else:
         o = blocks.mlp_apply(lp["ffn"], h, cfg)
+    o = _reduced_like(o, x)
     if cfg.post_norms:
         o = blocks.rms_norm(o, lp["post_ln2"], cfg.norm_eps)
     x = x + o
@@ -271,6 +273,44 @@ def _apply_layer(lp, x, cfg: ModelConfig, idx: int, *, mode: str, cache,
         for k_, v_ in state.items():
             _write_state(cache[k_], v_)
     return x, aux
+
+
+def _reduced_like(o, x):
+    """A branch output that is a `Partial` sum (a row-parallel product's)
+    reduced once, into the placements of the residual stream ``x`` it
+    joins: an all-reduce where ``x`` is whole over the model axis, a
+    reduce-scatter where it holds the tokens split there.  GSPMD reduces
+    it so; DTensor left alone may keep the sum `Partial` through the add
+    and reduce it again at each reader, as torch's versions differ."""
+    if isinstance(o, DTensor) and any(p.is_partial() for p in o.placements):
+        return o.redistribute(x.device_mesh, x.placements)
+    return o
+
+
+class _GradReduced(torch.autograd.Function):
+    """The identity, whose gradient is reduced once into the placements
+    of its operand where it comes back a `Partial` sum."""
+
+    @staticmethod
+    def forward(ctx_, h):
+        ctx_.mesh, ctx_.placements = h.device_mesh, h.placements
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx_, g):
+        if any(p.is_partial() for p in g.placements):
+            g = g.redistribute(ctx_.mesh, ctx_.placements)
+        return g
+
+
+def _grad_reduced(h):
+    """A branch input ``h`` whose gradient is reduced once, where the
+    branch's column-parallel products leave it a `Partial` sum over the
+    model axis: GSPMD's one all-reduce of each branch input's gradient
+    (the transpose of `_reduced_like`), on any torch version."""
+    if isinstance(h, DTensor) and torch.is_grad_enabled():
+        return _GradReduced.apply(h)
+    return h
 
 
 def _write_state(dst, new):
@@ -371,15 +411,19 @@ def _embed(params, batch, cfg: ModelConfig):
 def _head(params, x, cfg: ModelConfig, ctx: ShardCtx = LOCAL):
     """Final norm and the lm head: (B, T, d) -> (B, T, vocab) logits;
     under an enabled ``ctx`` split over the model axis along the vocab
-    when it divides (the JAX package's constraint)."""
+    when it divides (the JAX package's constraint).  There the normed
+    activations are whole over the model axis first (gathered where
+    ``attn_shard="sequence"`` splits the tokens), so that the head is
+    column-parallel and its logits come out in that split, as GSPMD
+    makes them, rather than its weight gathered and the logits moved."""
     x = blocks.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = blocks._linear(x, params["embed"].T, x.dtype)
-    else:
-        logits = blocks._linear(x, params["lm_head"], x.dtype)
     if ctx.enabled:
         from repro_torch.parallel import regions as R
-        bspec = blocks._bspec_for(ctx, logits.shape[0])
+        bspec = blocks._bspec_for(ctx, x.shape[0])
+        x = _grad_reduced(R.constrain(x, (bspec, None, None), ctx))
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = blocks._linear(x, w, x.dtype)
+    if ctx.enabled:
         vspec = ctx.model_axis if cfg.vocab % ctx.model_size == 0 else None
         logits = R.constrain(logits, (bspec, None, vspec), ctx)
     return logits

@@ -75,11 +75,35 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in flatten order."""
+    """sqrt of the sum of squares of every leaf, in flatten order.  On
+    DTensor leaves (a mesh) each rank sums the squares of its own blocks,
+    a block that is replicated over mesh dims counted once among its
+    copies, and one reduction over the mesh makes the total: the
+    collectives are the same whichever way DTensor would combine the
+    leaves' partial sums."""
+    from torch.distributed.tensor import DTensor
+    leaves = tree_leaves(tree)
+    if leaves and isinstance(leaves[0], DTensor):
+        return _global_norm_sharded(leaves)
     total = 0
-    for g in tree_leaves(tree):
+    for g in leaves:
         total = total + g.to(torch.float32).square().sum()
     return torch.sqrt(total)
+
+
+def _global_norm_sharded(leaves) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    total = 0
+    for g in leaves:
+        if any(p.is_partial() for p in g.placements):
+            g = g.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in g.placements])
+        copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                           if p.is_replicate())
+        total = total + g.to_local().to(torch.float32).square().sum() / copies
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim)
+    return torch.sqrt(total.full_tensor())
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):

@@ -59,29 +59,72 @@ def cross_entropy(logits, labels, mask=None):
     return nll.sum() / denom
 
 
+class _VocabSplitNLL(torch.autograd.Function):
+    """Per-position ``logsumexp(logits) - logits[label]`` of logits split
+    along the vocab over the model axis, on this rank's block: the
+    block's max, its sum of ``exp(logits - max)`` and its gold logit (0
+    where the label lies in another rank's block) combine over the model
+    axis.  The gradient of the block is its own part of ``softmax -
+    one_hot``: no collective in the backward."""
+
+    @staticmethod
+    def forward(ctx_, logits, labels, first, rctx):
+        from repro_torch.parallel import regions as R
+        x = logits.float()
+        v_loc = x.shape[-1]
+        m = R.all_reduce(x.amax(dim=-1), "max", rctx)
+        idx = labels.long() - first
+        mine = (idx >= 0) & (idx < v_loc)
+        gold = torch.gather(x, -1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
+        sums = R.all_reduce(torch.stack(
+            [(x - m[..., None]).exp_().sum(dim=-1),
+             torch.where(mine, gold, 0.0)]), "sum", rctx)
+        lse = m + torch.log(sums[0])
+        ctx_.save_for_backward(logits, lse, idx, mine)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx_, g):
+        logits, lse, idx, mine = ctx_.saved_tensors
+        grad = (logits.float() - lse[..., None]).exp_()
+        hit = torch.where(mine, -1.0, 0.0)
+        grad.scatter_add_(-1, idx.clamp(0, grad.shape[-1] - 1)[..., None],
+                          hit[..., None])
+        return grad.mul_(g[..., None]).to(logits.dtype), None, None, None
+
+
 def _cross_entropy_sharded(logits, labels, mask, ctx: ShardCtx):
     """`cross_entropy` of DTensor logits: each rank sums the NLL and
-    counts the valid positions of its batch shard (the vocab gathered),
-    and the two sums over the data axes make the mean."""
+    counts the valid positions of its batch shard, and the two sums over
+    the data axes make the mean.  Where the vocab divides the model axis
+    the logits stay split along it, as `lm._head` places them and GSPMD
+    partitions JAX's loss (`_VocabSplitNLL`: no rank holds the whole
+    vocab); otherwise they are whole on each rank, as in JAX."""
     from repro_torch.models.blocks import _bspec_for
     from repro_torch.parallel import regions as R
     bspec = _bspec_for(ctx, logits.shape[0])
     part = R.grad_of_replicated((None,), ctx, bspec is not None)
     ops = [logits, labels] + ([mask] if mask is not None else [])
+    split = logits.shape[-1] % ctx.model_size == 0
 
     def body(logits_, labels_, *mask_):
-        logits_ = logits_.float()
-        lse = torch.logsumexp(logits_, dim=-1)
-        gold = torch.gather(logits_, -1,
-                            labels_.clamp_min(0).long()[..., None])[..., 0]
+        if split:
+            nll = _VocabSplitNLL.apply(
+                logits_, labels_.clamp_min(0),
+                R.model_index(ctx) * logits_.shape[-1], ctx)
+        else:
+            logits_ = logits_.float()
+            gold = torch.gather(logits_, -1,
+                                labels_.clamp_min(0).long()[..., None])
+            nll = torch.logsumexp(logits_, dim=-1) - gold[..., 0]
         valid = labels_ >= 0
         if mask_:
             valid = valid & (mask_[0] > 0)
-        nll = torch.where(valid, lse - gold, 0.0)
+        nll = torch.where(valid, nll, 0.0)
         return nll.sum()[None], valid.sum(dtype=torch.float32)[None]
 
-    specs = [(bspec, None, None), (bspec, None)] + (
-        [(bspec, None)] if mask is not None else [])
+    specs = [(bspec, None, ctx.model_axis if split else None),
+             (bspec, None)] + ([(bspec, None)] if mask is not None else [])
     nll, count = R.region(body, ctx, specs, [part, part])(*ops)
     return (nll / count.clamp_min(1.0))[0]
 

@@ -3,6 +3,8 @@
 
 - The pass counts the local shard's FLOPs of a DTensor product, where
   `FlopCounterMode` around the same product counts the global ones.
+- A collective's result under autograd is held once (the wrapper that
+  makes it an autograd tensor is an alias; its meta kernel copies).
 - The fake rank's FLOPs, collective bytes and collective calls equal, to
   the unit, what rank 0 of a real 4-rank gloo CPU mesh records with the
   same mode, at the smoke configs of internlm2-1.8b (dense) and
@@ -19,12 +21,11 @@
   calls counted at two depths of each side and split into a part that
   does not grow with depth and a part a layer: every all-reduce moves
   the same (B, T, d) float32 operand, the embedding lookup makes the
-  one fixed all-reduce on both sides, and the port makes at least
-  GSPMD's two a layer (the attention and MLP outputs).  How many more
-  depends on the torch version: 2.13's DTensor keeps those outputs
-  `Partial` through the residual add and reduces the sum at each reader
-  (3 more a layer); 2.11's reduces once (JAX's count exactly, which
-  `chip_smoke.py` checks on the card).
+  one fixed all-reduce on both sides, and the port makes GSPMD's two a
+  layer (the attention and MLP outputs, each `Partial` sum reduced once
+  before its residual add, `repro_torch.models.lm._reduced_like`): the
+  JAX dry run's count and bytes exactly, on any torch version
+  (`chip_smoke.py` checks the same on the card's).
 - Each policy name maps to the policy JAX resolves it to: the JAX
   package's ``REMAT_POLICIES`` names the same `jax.checkpoint_policies`
   object, the aliases are the same objects in JAX, and
@@ -99,6 +100,28 @@ def test_dtensor_product_counts_the_local_shard():
     assert rec["collectives"]["all-gather"] == 256 * 4096 // 16 * 4
     import torch.distributed as dist
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("src,op", [("Partial", "all-reduce"),
+                                    ("Shard", "all-gather")])
+def test_a_collective_result_under_autograd_is_held_once(src, op):
+    """A (256, 1024) float32 block that requires grad, made whole over
+    ``model`` on a fake 2 x 2 mesh: the rank holds the collective's
+    result once (the all-reduce's 1 MiB, the gathered 2 MiB), not again
+    for the autograd wrapper, an alias that its meta kernel copies."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    with fake_mesh(MESH_2X2) as mesh:
+        x = DTensor.from_local(
+            torch.empty(256, 1024, device="meta"), mesh,
+            [Replicate(), Partial() if src == "Partial" else Shard(0)],
+            run_check=False).requires_grad_()
+        rec = dryrun.measure(
+            lambda: x.redistribute(mesh, [Replicate(), Replicate()]), [x])
+    block = 256 * 1024 * 4
+    assert rec["collective_counts"] == {op: 1, "total": 1}
+    assert rec["memory"]["placed_bytes"] == block
+    assert rec["memory"]["temp_bytes"] == (block if op == "all-reduce"
+                                           else 2 * block)
 
 
 def _fake_and_real_cases():
@@ -200,18 +223,21 @@ def test_all_reduces_against_the_jax_dry_run():
     assert (jax_fixed, jax_layer) == (1, 2)
     jax_count = jax_fixed + jax_layer * layers
     assert jax_rec["cal"]["collectives"]["all-reduce"] == jax_count * operand
-    # the port at two and three layers: the same fixed one, at least
-    # JAX's a layer, each moving the same operand
+    # the port at two and three layers: the same fixed one and JAX's
+    # two a layer, each moving the same operand
     at = {k: dryrun.per_device_costs(dryrun._unrolled_variant(cfg, k),
                                      PREFILL, MESH_1X2)
           for k in (2, 3)}
     p2, p3 = (at[k]["collective_counts"]["all-reduce"] for k in (2, 3))
     assert 3 * p2 - 2 * p3 == jax_fixed
-    assert p3 - p2 >= jax_layer
+    assert p3 - p2 == jax_layer
     for rec in at.values():
         assert rec["collectives"]["all-reduce"] == (
             rec["collective_counts"]["all-reduce"] * operand)
-    assert p2 >= jax_count          # at the smoke config's two layers
+    # at the smoke config's two layers: JAX's 5 calls and 81,920 B
+    assert p2 == jax_count == 5
+    assert at[2]["collectives"]["all-reduce"] == (
+        jax_rec["cal"]["collectives"]["all-reduce"]) == 81_920
 
 
 # ---- remat_policy by its jax.checkpoint_policies name -----------------------

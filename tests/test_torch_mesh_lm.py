@@ -68,8 +68,10 @@ PORT_TOL = 1e-5
 # to it: logits (`tests/test_torch_lm.py`), gradients of the leaf's
 # largest (`tests/test_torch_train_lm.py`)
 JAX_RTOL, JAX_ATOL = 1e-4, 1e-5
+# qwen3-32b+kv1: one kv head, which the model axis does not divide, so
+# q stays split by head (`blocks._flat_heads`), with its qk-norm
 GRAD_ARCHS = ("deepseek-v2-lite-16b", "rwkv6-3b", "jamba-1.5-large-398b",
-              "hubert-xlarge", "internlm2-1.8b")
+              "hubert-xlarge", "internlm2-1.8b", "qwen3-32b+kv1")
 TRAIN_ARCH = "internlm2-1.8b"
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 DATA = 2                          # the 2 x 2 mesh's data extent
@@ -92,6 +94,8 @@ def _jax_cfg(arch):
     if variant == "int8":        # int8 experts, dequantized at each use
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, quant_int8=True))
+    if variant == "kv1":
+        cfg = dataclasses.replace(cfg, n_kv_heads=1)
     return cfg
 
 

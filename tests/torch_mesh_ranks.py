@@ -504,6 +504,43 @@ def dryrun_costs_2x2(rank, world, cases):
     return out
 
 
+# ---- the loss on logits split along the vocab ------------------------------
+
+
+def vocab_loss_2x2(rank, world, cases):
+    """``cases``: {name: (logits, labels, mask or None)}, numpy.  Each
+    case's logits placed as `repro_torch.models.lm._head` places them on
+    the 2 x 2 mesh (the batch over ``data``, the vocab over ``model``
+    where it divides), the mesh train step's loss
+    (`train.step._cross_entropy_sharded`) and its gradient: {name: (loss,
+    the gradient's full value, the logits' placements, the gradient's
+    placements, this rank's gradient block's shape)}: a placement is
+    the dim it splits, or its class's name."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    mesh, ctx = _mesh_ctx(2, 2)
+    out = {}
+    for name, (logits, labels, mask) in cases.items():
+        vspec = "model" if logits.shape[-1] % 2 == 0 else None
+        x = shd.place(torch.from_numpy(logits), ("data", None, vspec),
+                      mesh).requires_grad_()
+        lab = shd.place(torch.from_numpy(labels), ("data", None), mesh)
+        msk = (None if mask is None
+               else shd.place(torch.from_numpy(mask), ("data", None), mesh))
+        loss = ts._cross_entropy_sharded(x, lab, msk, ctx)
+        with implicit_replication():
+            (g,) = torch.autograd.grad(loss, [x])
+        out[name] = (float(_np(loss)), _np(g), _placed(x), _placed(g),
+                     tuple(g.to_local().shape))
+    return out
+
+
+def _placed(x):
+    return [p.dim if p.is_shard() else type(p).__name__
+            for p in x.placements]
+
+
 # ---- placements and meshes ------------------------------------------------
 
 
