@@ -242,7 +242,10 @@ LM_RUNS = 3
 # the dense GQA LMs: the four architectures' 2-layer full-width checks
 # (gemma3-12b: its 6-layer group), the served models and the trained one
 DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-32b", "gemma3-12b")
-DENSE_CHECK_TOKENS = 128
+# teacher-forced tokens of the 2-layer cuts' card-vs-CPU checks, dense
+# and hybrid (at 128 the CPU's references took ~160 s of the script's
+# 1,200)
+DENSE_CHECK_TOKENS = 64
 DENSE_SERVE = {"internlm2-1.8b": (LM_BATCH, LM_PROMPT),
                "gemma3-12b": (2, 2048)}   # prompt > gemma3's 1024 window
 DENSE_NEW_TOKENS = 32
@@ -2444,6 +2447,11 @@ SHARD_MICROBATCH = 2            # ... and its step again in 2 microbatches
 # model rank, as in the JAX package; 48: 24 padded heads a rank)
 SHARD_RWKV = (4, 128, 8, (0, 48))
 SHARD_RWKV_TRAIN = (4, 512, 48)     # its 2-layer cut: batch, seq, pad heads
+# its 2-layer cut served on the 2 x 2 mesh with the production placement
+# (the time mix's FSDP split kept: decode permutes each block to the
+# model ranks, `models.blocks._linear`): layers, new tokens (the prompts
+# of SHARD_RWKV)
+SHARD_RWKV_FSDP = (2, 2)
 # jamba-1.5-large-398b's first two layers (Mamba + MoE, Mamba + dense MLP)
 # at full width, bfloat16 parameters (24.3 GB), float32 compute, on a
 # 1 x 2 (data x model) mesh of ranks 0 and 1: layers, batch, prompt,
@@ -2697,11 +2705,13 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
     staged collectives it made, by op with their bytes; the widths the
     mixers ran on), then one prefill for its logits (rank 0 returns
     them), its own staged collectives (the gather of its logits left
-    out) and peak memory; the generate's peak memory above the
-    parameters."""
+    out) and peak memory, then one decode step at the cache's next
+    position and its staged collectives (rank 0 returns its logits);
+    the generate's peak memory above the parameters."""
     from repro_torch.models import lm
     from repro_torch.parallel import regions as R, sharding as shd
-    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    from repro_torch.serve.lm_engine import (ServeEngine, make_decode_step,
+                                             make_prefill_step)
     ctx = shd.make_shard_ctx(mesh, cfg)
     batch, prompt = prompts.shape
     base = _peak_reset()
@@ -2724,10 +2734,16 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
     _sync()
     prefill_staged = _staged_since(before)
     prefill_peak = _peak()
-    logits = R.full(logits)
-    return {"tokens": tokens.cpu(),
-            "prefill": (logits.float().cpu()
-                        if torch.distributed.get_rank() == 0 else None),
+    before = _staged_now()
+    step, _ = make_decode_step(cfg, ctx)(params, cache, prompts[:, -1:],
+                                         prompt)
+    _sync()
+    decode_staged = _staged_since(before)
+    logits, step = R.full(logits), R.full(step)
+    first = torch.distributed.get_rank() == 0
+    return {"tokens": tokens.cpu(), "decode_staged": decode_staged,
+            "prefill": logits.float().cpu() if first else None,
+            "decode": step.float().cpu() if first else None,
             "peak": peak, "s": secs, "staged": staged,
             "prefill_staged": prefill_staged, "prefill_peak": prefill_peak,
             "widths": sorted(widths)}
@@ -2931,10 +2947,11 @@ def _rank_mixers(rank, world, seed, rwkv_prompts, jamba_tokens):
     rwkv6-3b at full width and depth (``serve_tp_only``, float32) on the
     2 x 2 mesh, drawn one rank at a time (`_in_turn`), served at each
     ``rwkv_pad_heads`` of SHARD_RWKV (`_generate_on_mesh`); its 2-layer
-    cut's training step at SHARD_RWKV_TRAIN (`_train_cut`); jamba's first
-    two layers at full width on a 1 x 2 mesh of ranks 0 and 1 (rank 1
-    draws first), prefill + decode (`_jamba_serve`), its routes and B5
-    counted, every launch held to its plain version."""
+    cut served with the time mix's FSDP split kept (SHARD_RWKV_FSDP), and
+    its 2-layer cut's training step at SHARD_RWKV_TRAIN (`_train_cut`);
+    jamba's first two layers at full width on a 1 x 2 mesh of ranks 0
+    and 1 (rank 1 draws first), prefill + decode (`_jamba_serve`), its
+    routes and B5 counted, every launch held to its plain version."""
     from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
     from repro_torch.kernels.moe_dispatch import ref as moe_ref
     from repro_torch.launch import mesh as M
@@ -2956,6 +2973,17 @@ def _rank_mixers(rank, world, seed, rwkv_prompts, jamba_tokens):
         out["rwkv"][pad] = _generate_on_mesh(
             dataclasses.replace(cfg, rwkv_pad_heads=pad), params, mesh,
             rwkv_prompts, new)
+    del params
+    _peak_reset()
+
+    layers, new = SHARD_RWKV_FSDP
+    cfg, full = _draw("rwkv6-3b", seed + 3, layers=layers, f32=True)
+    ctx = shd.make_shard_ctx(mesh, cfg)
+    params = shd.shard_tree(full, shd.params_pspecs(full, cfg, ctx), mesh)
+    del full
+    out["rwkv_fsdp"] = _generate_on_mesh(cfg, params, mesh, rwkv_prompts,
+                                         new)
+    out["rwkv_fsdp"]["param_bytes"] = _local_bytes(params)
     del params
     _peak_reset()
 
@@ -3317,7 +3345,8 @@ def sharded(dev, tag, flat_xla, chip_xla, streams):
 STAGED_OVER_DRY = {"all-reduce": lambda g: 2 * g,
                    "all-gather": lambda g: g + 1,
                    "reduce-scatter": lambda g: g + 1,
-                   "all-to-all": lambda g: 2 * g}
+                   "all-to-all": lambda g: 2 * g,
+                   "collective-permute": lambda g: 2 * g}
 # the dry run's peak of the cut's train step against rank 0's measured one
 DRY_PEAK_RTOL = 0.10
 # the collective calls by op of internlm2-1.8b train_4k's per-device pass
@@ -3329,7 +3358,8 @@ TRAIN_4K_CALLS = {"all-gather": 434, "all-reduce": 131,
 STAGED_NAMES = {"all-reduce": "all_reduce",
                 "all-gather": "all_gather_into_tensor",
                 "reduce-scatter": "reduce_scatter_tensor",
-                "all-to-all": "all_to_all_single"}
+                "all-to-all": "all_to_all_single",
+                "collective-permute": "collective_permute"}
 
 
 def _check_staged(dry, staged):
@@ -3435,16 +3465,59 @@ def _dry_prefill_vs_staged(tag, results, prompt, batch, new):
           f"prefill: gap {peak - mem['peak_bytes']} B)")
 
 
+def _dry_decode_vs_staged(tag, results):
+    """The dry run's per-device pass of one decode step of the served
+    rwkv6-3b (full width and depth, float32, ``serve_tp_only``) at each
+    ``rwkv_pad_heads`` of SHARD_RWKV, and of its FSDP-placed cut
+    (SHARD_RWKV_FSDP), on the 2 x 2 mesh with a cache of prompt + new,
+    against the collectives rank 0 staged in one decode step
+    (`_generate_on_mesh`): the same calls by op, bytes by
+    `STAGED_OVER_DRY`."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+    batch, prompt, new, pads = SHARD_RWKV
+    layers, new_fsdp = SHARD_RWKV_FSDP
+    rwkv = dataclasses.replace(_config("rwkv6-3b"), compute_dtype="float32")
+    cut = rwkv if SHARD_OPTS["smoke"] else dataclasses.replace(
+        rwkv, n_layers=layers)
+    cells = [(f"serve_tp_only, rwkv_pad_heads {pad}",
+              dataclasses.replace(rwkv, serve_tp_only=True,
+                                  rwkv_pad_heads=pad),
+              prompt + new, results[0]["mixers"]["rwkv"][pad])
+             for pad in pads]
+    cells.append((f"{layers}-layer cut, FSDP x TP", cut, prompt + new_fsdp,
+                  results[0]["mixers"]["rwkv_fsdp"]))
+    for name, cfg, cache, run in cells:
+        t0 = time.perf_counter()
+        dry = dryrun.per_device_costs(
+            cfg, configs.Shape("serve_decode", cache, batch, "decode"),
+            MeshSpec(SHARD_MESH, ("data", "model")), cache_len=cache)
+        dry_s = time.perf_counter() - t0
+        staged = run["decode_staged"]
+        print(f"{tag} sharded dry run of the served rwkv6-3b decode step "
+              f"({name}, float32, {batch} sequences, cache {cache}, "
+              f"{SHARD_MESH[0]} x {SHARD_MESH[1]}; fake rank 0, "
+              f"{dry_s:.1f} s): calls {dry['collective_counts']} against "
+              f"rank 0's staged calls in that step; bytes "
+              f"{dry['collectives']} (staged, operand down + result back: "
+              f"{staged}); flops {dry['cost']['flops']}")
+        _check_staged(dry, staged)
+
+
 def _mixer_references(dev):
     """The one-device runs the mixer jobs of the sharded phase are held
     to, on the card, each model freed after: rwkv6-3b at full width and
     depth (float32) served SHARD_RWKV's prompts (greedy tokens, seconds,
-    prefill logits), and jamba's first two layers (bfloat16 parameters,
+    prefill logits), its 2-layer cut the same and the logits of one
+    decode step after the prefill (SHARD_RWKV_FSDP), and
+    jamba's first two layers (bfloat16 parameters,
     float32 compute) through `_jamba_serve` with their routes.  The
     ranks draw the same parameters from the same seeds."""
     from repro_torch.models import blocks, lm
     from repro_torch.models.blocks import LOCAL
-    from repro_torch.serve.lm_engine import ServeEngine, make_prefill_step
+    from repro_torch.serve.lm_engine import (ServeEngine, make_decode_step,
+                                             make_prefill_step)
     out = {}
     batch, prompt, new, _ = SHARD_RWKV
     cfg, params = _draw("rwkv6-3b", SEED + 11, f32=True)
@@ -3466,6 +3539,26 @@ def _mixer_references(dev):
     out["rwkv_bytes"] = sum(x.numel() * x.element_size()
                             for x in _leaves(params))
     del params, engine, cache, logits
+    _peak_reset()
+
+    layers, new = SHARD_RWKV_FSDP
+    cfg, params = _draw("rwkv6-3b", SEED + 14, layers=layers, f32=True)
+    engine = ServeEngine(cfg, params, max_len=prompt + new)
+    _sync()
+    t0 = time.perf_counter()
+    out["fsdp_tokens"] = engine.generate(prompts, new).cpu()
+    _sync()
+    out["fsdp_s"] = time.perf_counter() - t0
+    cache = lm.init_cache(cfg, batch, prompt + new, device=dev)
+    with torch.no_grad():
+        logits, _ = make_prefill_step(cfg)(params, {"tokens": prompts},
+                                           cache)
+        # the mesh's decode step after its prefill (`_generate_on_mesh`)
+        step, _ = make_decode_step(cfg)(params, cache, prompts[:, -1:],
+                                        prompt)
+    out["fsdp_prefill"] = logits.float().cpu()
+    out["fsdp_decode"] = step.float().cpu()
+    del params, engine, cache, logits, step
     _peak_reset()
 
     layers, batch, prompt, steps = SHARD_JAMBA
@@ -3529,6 +3622,38 @@ def _mixers_report(tag, results, refs):
                   f"rank {r}: rwkv6-3b pad {pad} ran on {run['widths']}")
         check(gap <= LOGIT_ATOL + LOGIT_RTOL * scale,
               f"rwkv6-3b pad {pad} prefill logits gap {gap}")
+    layers, new_fsdp = SHARD_RWKV_FSDP
+    runs = [res["mixers"]["rwkv_fsdp"] for res in results]
+    scale = float(refs["fsdp_prefill"].abs().max())
+    gap = float((runs[0]["prefill"] - refs["fsdp_prefill"]).abs().max())
+    # the decode step's products run row-parallel on the permuted blocks
+    d_scale = float(refs["fsdp_decode"].abs().max())
+    d_gap = float((runs[0]["decode"] - refs["fsdp_decode"]).abs().max())
+    loc, full = runs[0]["param_bytes"]
+    print(f"{tag} sharded rwkv6-3b {layers}-layer cut (full width, float32, "
+          f"FSDP x TP: the time mix split over data, as the production "
+          f"decode cells) on 2 x 2, {batch} x {prompt} + {new_fsdp} greedy: "
+          f"prefill logit gap {gap:.4e} to one device (largest logit "
+          f"{scale:.3f}), a decode step's {d_gap:.4e} (largest "
+          f"{d_scale:.3f}); tokens equal by rank "
+          f"{[int((r['tokens'] == refs['fsdp_tokens']).sum()) for r in runs]}"
+          f" of {refs['fsdp_tokens'].numel()}; generate "
+          f"{max(r['s'] for r in runs):.2f} s on the mesh against "
+          f"{refs['fsdp_s']:.2f} s on one device; parameter bytes a rank "
+          f"{loc // mib} of {full // mib} MiB; staged a generate, rank 0, by "
+          f"op (calls, bytes): {runs[0]['staged']}; a decode step: "
+          f"{runs[0]['decode_staged']}")
+    for r, run in enumerate(runs):
+        check(torch.equal(run["tokens"], refs["fsdp_tokens"]),
+              f"rank {r}: rwkv6-3b FSDP cut tokens differ from one device")
+        check(run["decode_staged"].get("collective_permute", (0, 0))[0] > 0,
+              f"rank {r}: the FSDP cut's decode step permuted no block: "
+              f"{run['decode_staged']}")
+    check(gap <= LOGIT_ATOL + LOGIT_RTOL * scale,
+          f"rwkv6-3b FSDP cut prefill logits gap {gap}")
+    check(d_gap <= LOGIT_ATOL + LOGIT_RTOL * d_scale,
+          f"rwkv6-3b FSDP cut decode step logits gap {d_gap}")
+    _dry_decode_vs_staged(tag, results)
     tr = [res["mixers"]["rwkv_train"] for res in results]
     print(f"{tag} sharded rwkv6-3b 2-layer cut, one step (batch "
           f"{SHARD_RWKV_TRAIN[0]}, seq {SHARD_RWKV_TRAIN[1]}, rwkv_pad_heads "
@@ -3679,6 +3804,15 @@ def main() -> int:
     print(f"card: {card}; torch device: {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
 
+    # each section's and phase's wall time, on the host clock: where the
+    # script's 1,200 s go
+    lap_at = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"{tag} section {what}: {now - lap_at[0]:.1f} s (host clock)")
+        lap_at[0] = now
+
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     nvcc_s = build.ensure_built(*kernel_modules, "launch_floor")
@@ -3718,6 +3852,8 @@ def main() -> int:
         return sparse_ref.sparse_tick_ref(*args, n=NEURONS,
                                           latency_fn=policy.latency_fn,
                                           encode_fn=policy.encode_fn)
+
+    lap("build")
 
     # ---- 3. kernels against their plain versions, on the card -------------
     gen = torch.Generator(dev).manual_seed(SEED + 1)
@@ -4189,6 +4325,8 @@ def main() -> int:
               f"exact; {moe_kernel.launch_geometry(ids.numel())[0]} "
               f"block(s))")
 
+    lap("kernels against their plain versions")
+
     # ---- 4. the main paths -----------------------------------------------
     sparse_session = Interface(config("hier_tree")).compile(params)
     pallas_session = Interface(cfg).compile(params)
@@ -4405,6 +4543,8 @@ def main() -> int:
           f"({ACCOUNT_BATCH * steps} ticks, fabric impl "
           f"{snn_cfg.fabric.impl!r}): per-tick means {json.dumps(acc_summary)}")
 
+    lap("main paths")
+
     # ---- 5. times --------------------------------------------------------
     def session_ms(session, stream):
         torch.cuda.synchronize()
@@ -4521,38 +4661,47 @@ def main() -> int:
                                        key=lambda r: -r[1][0])[:8]:
             print(f"{tag}   {us:10.1f} us  x{count:5d}  {key[:90]}")
 
+    lap("times")
+
     # the SNN trained through the port's example, before the served LM's
     # parameters are drawn
     train_launches = trained_snn(dev, tag, reset_launches, read_launches,
                                  no_launch, root)
+    lap("trained SNN")
 
     # the served LM: its checks, times and profile (moe_dispatch's path)
     path_launches["moe_dispatch"], moe_ids = served_lm(
         dev, tag, reset_launches, read_launches, no_launch)
+    lap("served DeepSeek-V2-Lite")
 
     # the dense GQA LMs: 2-layer full-width checks, banded attention,
     # internlm2-1.8b and gemma3-12b served, internlm2-1.8b trained (no
     # kernel on these paths), after the DeepSeek phase freed its 62.8 GB
     dense_lms(dev, tag, reset_launches, read_launches, no_launch)
+    lap("dense LMs")
 
     # the rest of the registry: RWKV6, the Jamba hybrid (B5 on its two MoE
     # layers), the audio and vision frontends, deepseek-v2-236b's cut with
     # bfloat16 and int8 experts (B5 at 160 experts); rwkv6-3b trained
     jamba_b5 = hybrid_lms(dev, tag, reset_launches, read_launches, no_launch)
+    lap("hybrid LMs")
 
     # the fabric serving tier: its checks, launches per flush and times
     serve_per_flush = served_fabric(dev, tag, reset_launches, read_launches,
                                     no_launch)
+    lap("served fabric")
 
     # the multi-chip fabric: the chip tier, shard="chips", telemetry,
     # faults, faulted and sharded tenants, the oracle
     chip_sessions = multichip_fabric(
         dev, tag, reset_launches, read_launches, no_launch, params,
         {label: s for label, s in sessions}, streams)
+    lap("multi-chip fabric")
 
     # the mesh: 4 gloo ranks on the card (probe, shard="chips", the LM
     # paths with B5 a rank, a train step), NCCL on one rank, the dry run
     mesh_b5 = sharded(dev, tag, xla_session, chip_sessions["xla"], streams)
+    lap("sharded")
 
     rows = []
 
@@ -4881,6 +5030,8 @@ def main() -> int:
         jamba_launches_per_generate=jamba_b5,
         mesh_launches_per_rank=mesh_b5["deepseek"],
         mesh_jamba_launches_per_rank=mesh_b5["jamba"])
+
+    lap("kernel times")
 
     # ---- 6. result lines -------------------------------------------------
     print(json.dumps({"kernels": rows}))

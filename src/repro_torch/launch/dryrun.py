@@ -36,7 +36,9 @@ Port of `repro.launch.dryrun`.  Per cell it:
      - ``collectives``: the bytes of each ``_c10d_functional`` collective
        by op (coalesced ones tensor by tensor) in
        `repro.launch.dryrun.collective_bytes`'s convention: all-gather
-       its gathered result, all-reduce and all-to-all their operand,
+       its gathered result, all-reduce, all-to-all and
+       collective-permute (the port's
+       ``repro_torch::collective_permute``) their operand,
        reduce-scatter its operand (the result times the group size);
        ``total`` their sum.  ``collective_counts``: the calls by op.
      - ``memory.peak_bytes``: the rank's peak from
@@ -307,7 +309,10 @@ COLLECTIVE_OPS = {
     "reduce_scatter_tensor_out": "reduce-scatter",
     "all_to_all_single": "all-to-all",
     "broadcast": "broadcast", "broadcast_": "broadcast",
+    # repro_torch::collective_permute (`parallel.regions.permute_op`)
+    "collective_permute": "collective-permute",
 }
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "repro_torch")
 # allocations: they move no bytes (MemTracker sees their storage)
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty",
            "new_empty_strided"}
@@ -359,7 +364,7 @@ def _cost_mode():
             out = func(*args, **kwargs)
             ins, outs = _tensors((args, kwargs)), _tensors(out)
             name = func._schema.name.split("::")[-1]
-            if func.namespace == "_c10d_functional":
+            if func.namespace in COLLECTIVE_NAMESPACES:
                 op = COLLECTIVE_OPS.get(name)
                 if op is not None:
                     moved = (_nbytes(outs) if op == "all-gather"

@@ -12,7 +12,9 @@ collective there over the same gloo group, and copy the result back to
 the card.  Every staged call adds one to `COUNTS` under its op's name
 and the bytes it copies between the card and the host (its operand
 down, its result back) to `BYTES`, so a caller can print how many
-collectives, and how many bytes, went through the host.
+collectives, and how many bytes, went through the host.  The port's
+own ``repro_torch::collective_permute`` (a pair exchange by
+``batch_isend_irecv``) is staged and counted the same way.
 
 It is installed only where a mesh on the card runs over a gloo group
 (`repro_torch.launch.mesh.make_mesh`); NCCL ranks never take it.
@@ -111,13 +113,29 @@ def all_to_all_single(x, output_split_sizes, input_split_sizes, group_name):
     return out.to(x.device)
 
 
+def collective_permute(x, peer):
+    """`repro_torch.parallel.regions.permute_op` through the host: this
+    rank's block to global rank ``peer``, ``peer``'s back (a host copy
+    when ``peer`` is this rank: counted all the same, as every rank's
+    program makes the call)."""
+    from repro_torch.parallel import regions
+    host = x.detach().contiguous().cpu()
+    out = regions.send_recv(host, peer)
+    _count("collective_permute", x, out)
+    return out.to(x.device)
+
+
 def install(device_type: str = "CUDA") -> None:
-    """Register the staged kernels for ``device_type`` (once a process).
-    Tests register them for ``"CPU"`` to run the same code on gloo CPU
+    """Register the staged kernels for ``device_type`` (once a process),
+    the port's ``repro_torch::collective_permute`` with them.  Tests
+    register them for ``"CPU"`` to run the same code on gloo CPU
     ranks."""
     global _LIB
     if _LIB is not None:
         return
+    from repro_torch.parallel import regions
+    regions.permute_op().register_kernel(device_type.lower())(
+        collective_permute)
     lib = torch.library.Library("_c10d_functional", "IMPL")
     for name, fn in (("all_reduce", all_reduce), ("all_reduce_", all_reduce_),
                      ("all_reduce_coalesced", all_reduce_coalesced),

@@ -87,12 +87,17 @@ def _regions():
 
 def _use(w, dt):
     """A parameter at its use, in ``dt``: a sharded one (a DTensor) is
-    gathered whole first, the use-site all-gather of FSDP / TP."""
-    return _regions().replicate(w).to(dt)
+    gathered whole first, the use-site all-gather of FSDP / TP (its data
+    split in one gather over the data axes together where no gradient
+    is recorded, `regions.gathers_flat`)."""
+    R = _regions()
+    if R.gathers_flat(w):
+        w = R.gather_data(w)
+    return R.replicate(w).to(dt)
 
 
 def _linear(x, w, dt):
-    """``x @ w`` in ``dt``; on DTensors the product GSPMD makes of the
+    """``x @ w`` in ``dt``.  On DTensors the product GSPMD makes of the
     operands' placements, mesh dim by mesh dim:
 
     * ``x`` split by rows there (the batch, the sequence): the weight is
@@ -104,12 +109,48 @@ def _linear(x, w, dt):
       `Partial` sum, reduced where it is next read;
     * both whole: the same product on every rank.
 
-    No dim of ``x`` is reshaped, and each operand's gradient comes back
-    in the placements the rule gives it."""
+    Where autograd records no gradient of the product (prefill, decode:
+    no operand requires grad) a weight split over the data axes (FSDP)
+    is placed by the cheaper of what GSPMD does with it, in bytes a rank
+    moves (`repro.launch.dryrun.collective_bytes`'s convention;
+    `regions.product_plan`).  W is the weight's block, D the data ranks
+    that split it, R the rows ``x`` holds here, N the product's columns
+    here:
+
+    * ``x`` split by rows over those data axes: the split gathered
+      (D |W|; one all-gather over the data axes together), or, where
+      one data axis splits the weight's rows, it is whole over the model
+      axis as ``x`` is and that axis has as many ranks, the block moved
+      to the model ranks by one ``collective-permute`` (rank (d, m)
+      sends block d to (m, d)) and the product row-parallel over
+      ``model``, its partial sums reduced at once (|W| + R N): decode's
+      few tokens, where GSPMD permutes RWKV's time mix and llama's
+      projections;
+    * ``x`` whole over them (a batch that does not split, long_500k's
+      one sequence): the gather (D |W|) or the weight left in place,
+      row-parallel over the data axes with the partial sums reduced at
+      once (R N; also where ``x`` is split there along its features),
+      or column-parallel with the result gathered there at once
+      (R N D).
+
+    The train step keeps the rules above it (gradients recorded: the
+    split is gathered where ``x`` is split by rows).  No dim of ``x`` is
+    reshaped, and each operand's gradient comes back in the placements
+    the rule gives it.  Inside a region (`regions.layer_region`), a
+    weight placed so comes as its `regions.LocalPlan`, which runs the
+    product on the rank's block.
+    """
     if not _is_dtensor(x):
+        if not isinstance(w, torch.Tensor):          # a LocalPlan
+            return w.apply(x, dt)
         return x @ w.to(dt)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
+    R = _regions()
+    w = w.to(dt)
+    plan = R.product_plan(x, w)
+    if plan is not None:
+        w = R.place_for_product(w, plan)
     last = x.ndim - 1
     x_in, w_in, out, x_grad, w_grad = [], [], [], [], []
     for a, b in zip(x.placements, w.placements):
@@ -123,11 +164,12 @@ def _linear(x, w, dt):
             row = (Replicate(),) * 5
         for dst, v in zip((x_in, w_in, out, x_grad, w_grad), row):
             dst.append(v)
-    return local_map(torch.matmul, out_placements=out,
-                     in_placements=(tuple(x_in), tuple(w_in)),
-                     in_grad_placements=(tuple(x_grad), tuple(w_grad)),
-                     device_mesh=x.device_mesh,
-                     redistribute_inputs=True)(x, w.to(dt))
+    y = local_map(torch.matmul, out_placements=out,
+                  in_placements=(tuple(x_in), tuple(w_in)),
+                  in_grad_placements=(tuple(x_grad), tuple(w_grad)),
+                  device_mesh=x.device_mesh,
+                  redistribute_inputs=True)(x, w)
+    return y if plan is None else R.finish_product(y, plan)
 
 
 def _split_last(x, *shape):

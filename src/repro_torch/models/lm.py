@@ -353,6 +353,21 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
 
     vocab_split = cfg.vocab % ctx.model_size == 0
     e_spec = (ctx.model_axis if vocab_split else None, None)
+    embed = params["embed"]
+    out = (R.partial_on_model((bspec, None, None), ctx) if vocab_split
+           else R.placements((bspec, None, None), ctx))
+    recorded = R.recorded(embed)
+    # `blocks._linear`'s rule for the lookup (no gradient recorded)
+    plan = R.product_plan(batch["tokens"], embed, lookup_dt=cdt)
+    if plan is not None and plan.kind == "cols":
+        # tokens whole over the data axes: each rank reads its block of
+        # the table's columns, gathered after the lookup
+        from torch.distributed.tensor import Shard
+        e_spec = tuple(embed.placements)
+        out = tuple(Shard(2) if e.is_shard(1) else q
+                    for q, e in zip(out, e_spec))
+    elif plan is not None:
+        embed = R.gather_data(embed, plan.dims)
 
     def lookup(e, tok):
         v_loc = e.shape[0]
@@ -361,12 +376,14 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
         rows = e[idx.clamp(0, v_loc - 1)]
         return torch.where(mine[..., None], rows, 0.0).to(cdt)
 
-    out = (R.partial_on_model((bspec, None, None), ctx) if vocab_split
-           else (bspec, None, None))
+    grads = ([R.grad_of_replicated(e_spec, ctx, bspec is not None), None]
+             if recorded else None)
     tok = R.region(lookup, ctx, [e_spec, (bspec, None)], out,
-                   in_grad=[R.grad_of_replicated(e_spec, ctx,
-                                                 bspec is not None), None])(
-        params["embed"], batch["tokens"])
+                   in_grad=grads)(embed, batch["tokens"])
+    if plan is not None and plan.kind == "cols":
+        # the vocab blocks' sum, then the columns
+        tok = R.finish_product(R.sum_partial(tok, [
+            ctx.mesh.mesh_dim_names.index(ctx.model_axis)]), plan)
     tok = R.constrain(tok, (bspec, None, None), ctx)
     if cfg.frontend.kind == "vision" and "image_embeds" in batch:
         img = blocks._linear(batch["image_embeds"].to(cdt),

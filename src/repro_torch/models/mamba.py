@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.blocks import (LOCAL, Draw, ShardCtx, _dense_init,
-                                      dtype_of)
+                                      _linear, dtype_of)
 from repro_torch.models.config import ModelConfig
 
 SCAN_CHUNK = 512
@@ -221,7 +221,7 @@ def _mamba(p, x, cfg: ModelConfig, state, ctx: ShardCtx):
     bsz, t, _ = x.shape
     dt_ = x.dtype
     di = p["d_skip"].shape[0]                              # this rank's
-    u, z = _split_uz(x @ p["w_in"].to(dt_), ctx)           # (B,T,di) each
+    u, z = _split_uz(_linear(x, p["w_in"], dt_), ctx)      # (B,T,di) each
 
     conv_state = state["conv"] if state is not None else None
     u_c, new_conv = _causal_conv(u, p["conv_w"].to(dt_),
@@ -250,7 +250,7 @@ def _mamba(p, x, cfg: ModelConfig, state, ctx: ShardCtx):
                                        ssm_state)
     y = y.to(dt_) + u_c * p["d_skip"].to(dt_)[None, None]
     y = y * F.silu(z)
-    out = y @ p["w_out"].to(dt_)
+    out = _linear(y, p["w_out"], dt_)
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv, "ssm": new_ssm}

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.blocks import (LOCAL, Draw, ShardCtx, _dense_init,
-                                      dtype_of, rms_norm)
+                                      _linear, dtype_of, rms_norm)
 from repro_torch.models.config import ModelConfig
 
 CHUNK = 16
@@ -86,7 +86,7 @@ def _ddlerp(p, x, xs):
     dx = xs - x
     xxx = x + dx * p["maa_x"].to(dt)
     b, t, d = x.shape
-    mixer = torch.tanh(xxx @ p["maa_w1"].to(dt))          # (B,T,5*rank)
+    mixer = torch.tanh(_linear(xxx, p["maa_w1"], dt))     # (B,T,5*rank)
     rank = mixer.shape[-1] // 5
     mixer = mixer.reshape(b, t, 5, rank)
     offs = torch.einsum("btfr,frd->btfd", mixer, p["maa_w2"].to(dt))
@@ -168,13 +168,22 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
     value (the JAX package pads so that the heads shard over a mesh).
 
     Under an enabled ``ctx`` (DTensors placed by the port's specs, the
-    time mix's weights whole over the model axis) each rank runs the
-    layer on its batch shard; at H' > H with H' a multiple of the model
-    size the padded r, k, v and decay split over ``model`` by heads (the
-    JAX package's ``with_sharding_constraint``), each rank runs the WKV
-    on its H'/model heads, and the output heads and the new state are
-    gathered before the per-head norm, the gate and ``wo``.  Otherwise
-    the WKV runs whole on every model rank, as in the JAX package.
+    time mix's weights whole over the model axis and split over the data
+    axes) each rank runs the layer on its batch shard, its products
+    through `blocks._linear`: at decode each FSDP block moves to the
+    model ranks and the products run row-parallel there, at one
+    sequence the blocks stay in place, as GSPMD partitions the JAX
+    package's steps.  At H' > H with H' a multiple of the model size the
+    padded r, k, v and decay split over ``model`` by heads (the JAX
+    package's ``with_sharding_constraint``), each rank runs the WKV on
+    its H'/model heads, and the output heads and the new state are
+    gathered before the per-head norm, the gate and ``wo``: the new
+    state whole, as the cache's spec holds its heads.  GSPMD keeps it
+    split instead: the JAX package's decode step at H' = 48 on 16 x 16
+    returns each rank 5 of the 40 heads (``f32[1,8,5,64,64]``, after an
+    all-gather of 3 padded heads to 6 over pairs of model ranks), its
+    output's placement being XLA's to choose.  At H' = H the WKV runs
+    whole on every model rank, as in the JAX package.
     """
     if not ctx.enabled:
         return _time_mix(p, x, cfg, state, chunked, ctx)
@@ -196,15 +205,16 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
     xs = _token_shift(x, prev_x.to(dt))
     xw, xk, xv, xr, xg = _ddlerp(p, x, xs)
 
+    f32 = torch.float32
     decay_logit = (p["decay_base"].float()
-                   + torch.tanh(xw.float() @ p["decay_w1"].float())
-                   @ p["decay_w2"].float())
+                   + _linear(torch.tanh(_linear(xw.float(), p["decay_w1"],
+                                                f32)), p["decay_w2"], f32))
     w = torch.exp(-torch.clamp_max(torch.exp(decay_logit), DECAY_CLAMP))
 
-    r = (xr @ p["wr"].to(dt)).reshape(b, t, h, r_cfg.head_dim)
-    k = (xk @ p["wk"].to(dt)).reshape(b, t, h, r_cfg.head_dim)
-    v = (xv @ p["wv"].to(dt)).reshape(b, t, h, r_cfg.head_dim)
-    g = F.silu(xg @ p["wg"].to(dt))
+    r = _linear(xr, p["wr"], dt).reshape(b, t, h, r_cfg.head_dim)
+    k = _linear(xk, p["wk"], dt).reshape(b, t, h, r_cfg.head_dim)
+    v = _linear(xv, p["wv"], dt).reshape(b, t, h, r_cfg.head_dim)
+    g = F.silu(_linear(xg, p["wg"], dt))
 
     h_pad = max(cfg.rwkv_pad_heads, h)
     u = p["bonus"].float()
@@ -243,7 +253,7 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
     ln = {"scale": p["ln_x"]["scale"].reshape(h, r_cfg.head_dim)}
     o = rms_norm(o, ln, eps=1e-5 * 64)                    # (B,T,H,D) per head
     o = o.reshape(b, t, d).to(dt) * g
-    out = o @ p["wo"].to(dt)
+    out = _linear(o, p["wo"], dt)
     new_state = None
     if state is not None:
         new_state = dict(state)
@@ -282,8 +292,8 @@ def _channel_mix(p, x, cfg: ModelConfig, state=None):
     dx = xs - x
     xk = x + dx * p["maa_k"].to(dt)
     xr = x + dx * p["maa_r"].to(dt)
-    k = torch.square(F.relu(xk @ p["wk"].to(dt)))
-    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (k @ p["wv"].to(dt))
+    k = torch.square(F.relu(_linear(xk, p["wk"], dt)))
+    out = torch.sigmoid(_linear(xr, p["wr"], dt)) * _linear(k, p["wv"], dt)
     new_state = None
     if state is not None:
         new_state = dict(state)

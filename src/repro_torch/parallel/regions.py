@@ -15,11 +15,24 @@ a later op needs the value, one all-reduce), and ``in_grad`` names the
 placements of an operand's gradient where they differ from its own: an
 operand replicated over the model axis whose ranks each use a different
 part of it gets a partial gradient there.
+
+Products of weights split over the data axes (FSDP) in a step autograd
+does not record (prefill, decode): `product_plan` chooses how each
+is partitioned, as GSPMD partitions the JAX package's serve steps, and
+`place_for_product` moves the weight for it (`collective_permute`, a
+staged op the dry run counts as ``collective-permute``, or one gather
+over the data axes together); `models.blocks._linear` states the rule.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import itertools
+import math
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.blocks import ShardCtx
 
@@ -42,18 +55,29 @@ def data_coords(ctx: ShardCtx) -> list:
     return [(ctx.mesh.get_local_rank(a), sizes[a]) for a in ctx.data_axes]
 
 
+def _done(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for.  A meta tensor (the
+    dry run's) has nothing to wait for, and the wait's meta kernel would
+    allocate a copy that no rank holds."""
+    return t if t.is_meta else _fc().wait_tensor(t)
+
+
+def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced by ``op`` over ``group`` (no gradient)."""
+    return _done(torch.ops._c10d_functional.all_reduce(
+        x.contiguous(), op, group.group_name))
+
+
 def all_reduce(x: torch.Tensor, op: str, ctx: ShardCtx) -> torch.Tensor:
     """``pmax`` / ``psum`` over the model axis (no gradient)."""
-    fc = _fc()
-    return fc.wait_tensor(fc.all_reduce(x.contiguous(), op,
-                                        model_group(ctx)))
+    return _reduce(x, op, model_group(ctx))
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Tiled all-gather of ``x`` over ``group`` along ``dim``."""
-    fc = _fc()
-    xm = x.movedim(dim, 0).contiguous()
-    return fc.wait_tensor(fc.all_gather_tensor(xm, 0, group)).movedim(0, dim)
+    out = torch.ops._c10d_functional.all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), group.size(), group.group_name)
+    return _done(out).movedim(0, dim)
 
 
 class _GatherModel(torch.autograd.Function):
@@ -88,15 +112,12 @@ class _SumModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx_, x, group):
-        fc = _fc()
         ctx_.group = group
-        return fc.wait_tensor(fc.all_reduce(x.contiguous(), "sum", group))
+        return _reduce(x, "sum", group)
 
     @staticmethod
     def backward(ctx_, g):
-        fc = _fc()
-        return fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
-                                            ctx_.group)), None
+        return _reduce(g, "sum", ctx_.group), None
 
 
 def psum(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
@@ -254,6 +275,14 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
     of each weight whole over ``model`` are `Partial` sums there too.
     A weight's gradient sums over the data axes where the batch is split
     over them.
+
+    Where autograd records nothing (a serve step: no operand requires
+    grad), a 2-D weight split over the data axes
+    is placed by `product_plan` instead (the rule of
+    `models.blocks._linear`): gathered, moved to the model ranks, or left
+    in place; the body gets each weight placed so as a `LocalPlan`
+    bound to its block, which only ``_linear`` reads (it runs the
+    product on the rank's blocks).
     """
     from torch.distributed.tensor import Partial, Replicate
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
@@ -264,8 +293,15 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
     names = list(ctx.mesh.mesh_dim_names)
     data = [names.index(a) for a in ctx.data_axes]
     model = names.index(ctx.model_axis)
+    xs = (bspec, None, None)
+    if not recorded(x, *leaves):         # as the region takes it
+        x = x.redistribute(ctx.mesh, placements(xs, ctx))
 
     def weight(w):
+        plan = product_plan(x, w) if w.ndim == 2 else None
+        if plan is not None:
+            w = place_for_product(w, plan)
+            return w, tuple(w.placements), None, local_plan(w, plan)
         pin = [Replicate() if i in data else q
                for i, q in enumerate(w.placements)]
         grad = list(pin)
@@ -273,26 +309,27 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
             grad[i] = Partial() if bspec is not None else grad[i]
         if partial and not pin[model].is_shard():
             grad[model] = Partial()
-        return tuple(pin), tuple(grad)
+        return w, tuple(pin), tuple(grad), None
 
-    xs = (bspec, None, None)
     w_pl = [weight(w) for w in leaves]
     s_pl = [tuple(state[k].placements) for k in keys]
     out = partial_on_model(xs, ctx) if partial else placements(xs, ctx)
 
     def run(x_, *rest):
-        p_ = tree_unflatten(p, list(rest[:len(leaves)]))
+        p_ = tree_unflatten(p, [
+            b if lp is None else dataclasses.replace(lp, block=b)
+            for b, (_, _, _, lp) in zip(rest[:len(leaves)], w_pl)])
         s_ = (dict(zip(keys, rest[len(leaves):])) if state is not None
               else None)
         o, ns = body(p_, x_, s_)
         return (o,) + tuple(ns[k] for k in keys)
 
     outs = region(
-        run, ctx, [placements(xs, ctx)] + [a for a, _ in w_pl] + s_pl,
+        run, ctx, [placements(xs, ctx)] + [a for _, a, _, _ in w_pl] + s_pl,
         [out] + s_pl,
         in_grad=[partial_on_model(xs, ctx) if partial else None]
-        + [g for _, g in w_pl] + [None] * len(keys))(
-            x, *leaves, *[state[k] for k in keys])
+        + [g for _, _, g, _ in w_pl] + [None] * len(keys))(
+            x, *[w for w, _, _, _ in w_pl], *[state[k] for k in keys])
     return outs[0], (dict(zip(keys, outs[1:])) if state is not None
                      else None)
 
@@ -315,3 +352,299 @@ def full(x) -> torch.Tensor:
     """A DTensor's full value on every rank; a plain tensor as it is."""
     from torch.distributed.tensor import DTensor
     return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+# ---- products of weights split over the data axes, without autograd ------
+
+
+def send_recv(x: torch.Tensor, peer: int) -> torch.Tensor:
+    """``x`` sent to global rank ``peer`` and its block received from it
+    (a copy when ``peer`` is this rank)."""
+    if peer == dist.get_rank():
+        return x.clone()
+    out = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.contiguous(), peer),
+            dist.P2POp(dist.irecv, out, peer)]):
+        req.wait()
+    return out
+
+
+@functools.cache
+def permute_op():
+    """``torch.ops.repro_torch.collective_permute(x, peer)``: this rank's
+    block to global rank ``peer`` and ``peer``'s back, the pair exchange
+    of XLA's ``collective-permute`` (each rank's partner sends to it in
+    turn).  Defined on first use; `repro_torch.launch.staging` registers
+    its host-staged kernel for gloo ranks on a card, and a meta tensor
+    takes the fake kernel (the dry run)."""
+
+    @torch.library.custom_op("repro_torch::collective_permute",
+                             mutates_args=())
+    def collective_permute(x: torch.Tensor, peer: int) -> torch.Tensor:
+        return send_recv(x, peer)
+
+    @collective_permute.register_fake
+    def _(x, peer):
+        return torch.empty_like(x)
+
+    return collective_permute
+
+
+def recorded(*tensors) -> bool:
+    """Does autograd record an op on ``tensors`` (grad mode on and one of
+    them requires grad)?  The train step's products; a serve step's
+    parameters require no gradient."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
+
+
+def _dims(mesh):
+    """(the model mesh dim or None, the other (data) mesh dims)."""
+    names = list(mesh.mesh_dim_names)
+    model = names.index("model") if "model" in names else None
+    return model, [i for i in range(len(names)) if i != model]
+
+
+def _rank_at(mesh, coord) -> int:
+    """The global rank at mesh coordinate ``coord``, from this rank's
+    groups along each mesh dim (a mesh over evenly spaced ranks, as
+    `launch.mesh` builds them; ``DeviceMesh.mesh`` otherwise, which
+    keeps a copy of the rank grid alive)."""
+    mine = list(mesh.get_coordinate())
+    rank = dist.get_rank()
+    for i, (c, m) in enumerate(zip(coord, mine)):
+        ranks = dist.get_process_group_ranks(mesh.get_group(i))
+        step = ranks[1] - ranks[0] if len(ranks) > 1 else 0
+        if ranks != [ranks[0] + k * step for k in range(len(ranks))]:
+            return int(mesh.mesh[tuple(coord)])
+        rank += (c - m) * step
+    return rank
+
+
+def _group(mesh, dims):
+    """The process group over mesh dims ``dims`` together (major to
+    minor) and this rank's index in it.  Several dims take groups made
+    here, once a mesh (every rank makes all of them, as a new group
+    asks), not `DeviceMesh._flatten`: DTensor and the mesh's slicing may
+    reuse an equal mesh's flattened dims, whose groups die with an
+    earlier process group (a fake one a dry run pass)."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0]), mesh.get_local_rank(dims[0])
+    groups = mesh.__dict__.setdefault("_repro_groups", {})
+    key = tuple(dims)
+    if key not in groups:
+        lists = []
+        for fixed in itertools.product(*(
+                range(mesh.size(i)) if i not in dims else [None]
+                for i in range(mesh.ndim))):
+            lists.append([_rank_at(mesh, [f if f is not None else idx[
+                dims.index(i)] for i, f in enumerate(fixed)])
+                for idx in itertools.product(
+                    *(range(mesh.size(i)) for i in dims))])
+        mine = next(r for r in lists if dist.get_rank() in r)
+        group, _ = dist.new_subgroups_by_enumeration(lists)
+        groups[key] = group, mine.index(dist.get_rank())
+    return groups[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductPlan:
+    """How ``x @ w`` runs over the mesh dims ``dims`` that split ``w``
+    along its dim ``dim`` (`product_plan`): ``kind`` is ``"gather"``
+    (the split gathered), ``"permute"`` (the block moved to the model
+    ranks, the product row-parallel there), ``"rows"`` or ``"cols"``
+    (the weight left in place, row- or column-parallel over ``dims``)."""
+    kind: str
+    dims: tuple
+    dim: int
+
+
+def product_plan(x, w, lookup_dt=None):
+    """The plan of ``x @ w`` (DTensors, ``w`` 2-D) over the data mesh
+    dims that split ``w``, where autograd does not record it; None where
+    it does (the train step gathers as before) or when no data dim
+    splits ``w``.  With ``lookup_dt``, ``x`` holds indices of ``w``'s
+    rows instead, each a row of the product (a table lookup: the
+    product of their one-hot rows with ``w``, in ``lookup_dt``).  The
+    rule and its costs: `models.blocks._linear`."""
+    from torch.distributed.tensor import DTensor
+    if (not isinstance(w, DTensor) or not isinstance(x, DTensor)
+            or recorded(x, w)):
+        return None
+    mesh = w.device_mesh
+    model, data = _dims(mesh)
+    split = {i: w.placements[i].dim for i in data
+             if w.placements[i].is_shard()}
+    if not split:
+        return None
+    dims = tuple(sorted(split))
+    if len(set(split.values())) != 1:
+        return ProductPlan("gather", dims, -1)
+    wd = split[dims[0]]
+    xs = [x.placements[i] for i in dims]
+    parts = math.prod(mesh.size(i) for i in dims)
+    wl, xl = w.to_local(), x.to_local()
+    gather = wl.numel() * wl.element_size() * parts
+    if lookup_dt is None:
+        last = x.ndim - 1
+        rows = xl.numel() // max(xl.shape[-1], 1)
+        out_item = torch.promote_types(x.dtype, w.dtype).itemsize
+    else:
+        last, rows, out_item = x.ndim, xl.numel(), lookup_dt.itemsize
+    if all(p.is_shard() and p.dim != last for p in xs):
+        if (wd == 0 and len(dims) == 1 and model is not None
+                and mesh.size(dims[0]) == mesh.size(model)
+                and w.placements[model].is_replicate()
+                and x.placements[model].is_replicate()):
+            permute = (wl.numel() * wl.element_size()
+                       + rows * wl.shape[1] * out_item)
+            if permute < gather:
+                return ProductPlan("permute", dims, wd)
+        return ProductPlan("gather", dims, wd)
+    whole = all(p.is_replicate() for p in xs)
+    if whole or (wd == 0 and all(p.is_shard(last) or p.is_replicate()
+                                 for p in xs)):
+        # x whole over them, or (a row-parallel product) split there
+        # along its features as the weight's rows are
+        cols = wl.shape[1] * (parts if wd == 1 else 1)
+        if rows * cols * out_item < gather:
+            return ProductPlan("rows" if wd == 0 else "cols", dims, wd)
+    return ProductPlan("gather", dims, wd)
+
+
+def gathers_flat(w) -> bool:
+    """Does `gather_data` gather ``w`` in one call over several data mesh
+    dims (no gradient recorded, and they split one tensor dim)?"""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(w, DTensor) or recorded(w):
+        return False
+    split = [q.dim for i, q in enumerate(w.placements)
+             if i in _dims(w.device_mesh)[1] and q.is_shard()]
+    return len(split) > 1 and len(set(split)) == 1
+
+
+def gather_data(w, dims=None):
+    """``w`` (a DTensor) whole over the data mesh dims ``dims`` (all that
+    split it when None): DTensor's redistribution, or where several data
+    dims split one tensor dim and no gradient is recorded, one tiled
+    all-gather over them together, as GSPMD gathers over
+    ``("pod", "data")`` (DTensor gathers each in turn: 1.5 times the
+    bytes on 2 x 16 x 16)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    if dims is None:
+        dims = [i for i in _dims(mesh)[1] if w.placements[i].is_shard()]
+    dims = list(dims)
+    if not dims:
+        return w
+    pl = list(w.placements)
+    if (recorded(w) or len(dims) < 2
+            or len({pl[i].dim for i in dims}) != 1):
+        for i in dims:
+            pl[i] = Replicate()
+        return w.redistribute(mesh, pl)
+    group, _ = _group(mesh, dims)
+    local = _gather(w.to_local(), pl[dims[0]].dim, group)
+    for i in dims:
+        pl[i] = Replicate()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=w.shape, stride=w.stride())
+
+
+def permute_to_model(w, dim: int):
+    """``w`` (a DTensor split over the data mesh dim ``dim`` along its
+    dim 0, whole over ``model``, the two of equal size) split over
+    ``model`` instead: rank (d, m) sends its block d to rank (m, d) and
+    receives block m from it (`permute_op`), as GSPMD moves an FSDP
+    shard to the model axis for a row-parallel product."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = w.device_mesh
+    model, _ = _dims(mesh)
+    coord = list(mesh.get_coordinate())
+    coord[dim], coord[model] = coord[model], coord[dim]
+    peer = _rank_at(mesh, coord)
+    local = permute_op()(w.to_local().contiguous(), peer)
+    pl = list(w.placements)
+    pl[dim], pl[model] = Replicate(), Shard(0)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=w.shape, stride=w.stride())
+
+
+def place_for_product(w, plan: ProductPlan):
+    """``w`` moved as ``plan`` asks (gathered, or permuted to the model
+    ranks); left in place for ``"rows"`` and ``"cols"``."""
+    if plan.kind == "gather":
+        return gather_data(w, plan.dims)
+    if plan.kind == "permute":
+        return permute_to_model(w, plan.dims[0])
+    return w
+
+
+def sum_partial(out, dims):
+    """A DTensor `Partial` over mesh dims ``dims`` reduced there: one
+    all-reduce over them together (no gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dims = [i for i in dims if out.placements[i].is_partial()]
+    if not dims:
+        return out
+    mesh = out.device_mesh
+    group, _ = _group(mesh, dims)
+    local = _reduce(out.to_local(), "sum", group)
+    pl = list(out.placements)
+    for i in dims:
+        pl[i] = Replicate()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=out.shape, stride=out.stride())
+
+
+def finish_product(y, plan: ProductPlan):
+    """The result of a product placed by ``plan``, reduced or gathered at
+    once where GSPMD does: the partial sums over ``model`` (a permuted
+    block) or over the data dims (rows in place), the columns over the
+    data dims (columns in place)."""
+    if plan.kind == "permute":
+        return sum_partial(y, [_dims(y.device_mesh)[0]])
+    if plan.kind == "rows":
+        return sum_partial(y, plan.dims)
+    if plan.kind == "cols":
+        return gather_data(y, plan.dims)
+    return y
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalPlan:
+    """A planned weight's block inside a region (`layer_region`), which
+    the body reads only through `models.blocks._linear` (it is no
+    tensor): ``"rows"``: the input's features ``[index * k, (index + 1)
+    * k)`` times ``block`` (k rows), summed over ``group``; ``"cols"``:
+    the input times ``block``, its columns gathered over ``group``."""
+    kind: str
+    index: int
+    group: object
+    block: torch.Tensor | None = None
+
+    def apply(self, x, dt):
+        w = self.block.to(dt)
+        if self.kind == "cols":
+            return _gather(x @ w, x.ndim - 1, self.group)
+        k = w.shape[0]
+        return _reduce(x[..., self.index * k:(self.index + 1) * k] @ w,
+                       "sum", self.group)
+
+
+def local_plan(w, plan: ProductPlan):
+    """The `LocalPlan` of a weight placed by `place_for_product`, its
+    block to be bound in the region (None where its product is a plain
+    local one: gathered)."""
+    mesh = w.device_mesh
+    if plan.kind == "permute":
+        model, _ = _dims(mesh)
+        return LocalPlan("rows", mesh.get_local_rank(model),
+                         mesh.get_group(model))
+    if plan.kind in ("rows", "cols"):
+        group, index = _group(mesh, list(plan.dims))
+        return LocalPlan(plan.kind, index, group)
+    return None

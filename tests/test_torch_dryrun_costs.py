@@ -162,51 +162,85 @@ JAX_SIDE = """
     import dataclasses, json, sys
     from repro.launch import dryrun as jd
     from repro import configs
-    kind, mesh, tp_only = sys.argv[1], tuple(json.loads(sys.argv[2])), \\
-        sys.argv[3] == "1"
-    name = kind + "_t"
-    configs.SHAPES[name] = configs.Shape(name, 16, 4, kind)
-    texts = []
-    inner = jd.collective_bytes
+    cases = json.loads(sys.argv[1])
+    texts, recs = [], []
+    inner, lower = jd.collective_bytes, jd._lower_one
 
     def recorded(text):
         texts.append(text)
         return inner(text)
-    jd.collective_bytes = recorded
-    cfg = dataclasses.replace(configs.get_smoke_config("internlm2-1.8b"),
-                              serve_tp_only=tp_only)
-    rec = jd._lower_one(cfg, name, multi_pod=False, mesh_shape=mesh)
-    cal = jd.calibrated_costs(cfg.name, name, cfg, multi_pod=False,
-                              mesh_shape=mesh)
-    counts, lines = [], []
-    for text in texts[1:]:          # the two calibration lowerings
-        n = {}
+
+    def lowered(*a, **k):
+        recs.append(lower(*a, **k))
+        return recs[-1]
+    jd.collective_bytes, jd._lower_one = recorded, lowered
+
+    def calls(text):
+        # each collective line: its op and its result shapes
+        out = []
         for line in text.splitlines():
             m = jd.COLLECTIVE_RE.search(line)
             if m:
-                n[m.group(1)] = n.get(m.group(1), 0) + 1
-                if len(counts) == 0:
-                    lines.append(line.strip()[:160])
-        counts.append(n)
-    print(json.dumps({"direct": rec["collectives"], "cal": cal,
-                      "counts": counts, "layers": cfg.n_layers,
-                      "hlo_lines": lines}))
+                shapes = [[dt, [int(d) for d in dims.split(",") if d]]
+                          for dt, dims in jd.SHAPE_RE.findall(
+                              line[:m.start()]) if dt in jd.DTYPE_BYTES]
+                out.append([m.group(1), shapes])
+        return out
+
+    results = []
+    for arch, kind, seq, batch, mesh, over in cases:
+        name = f"{kind}_{seq}x{batch}"
+        configs.SHAPES[name] = configs.Shape(name, seq, batch, kind)
+        cfg = dataclasses.replace(configs.get_smoke_config(arch), **over)
+        del texts[:], recs[:]
+        rec = jd._lower_one(cfg, name, multi_pod=False,
+                            mesh_shape=tuple(mesh))
+        cal = jd.calibrated_costs(cfg.name, name, cfg, multi_pod=False,
+                                  mesh_shape=tuple(mesh))
+        counts, lines = [], []
+        for text in texts[1:]:          # the two calibration lowerings
+            n = {}
+            for line in text.splitlines():
+                m = jd.COLLECTIVE_RE.search(line)
+                if m:
+                    n[m.group(1)] = n.get(m.group(1), 0) + 1
+                    if len(counts) == 0:
+                        lines.append(line.strip()[:160])
+            counts.append(n)
+        results.append({"direct": rec["collectives"], "cal": cal,
+                        "counts": counts, "layers": cfg.n_layers,
+                        "hlo_lines": lines,
+                        "costs": [r["cost"] for r in recs[1:]],
+                        "calls": [calls(t) for t in texts[1:]]})
+    print(json.dumps(results))
 """
 
 
-def _jax_dry_run(kind="prefill", mesh=(1, 2), tp_only=True):
-    """The JAX dry run of internlm2's smoke config at a 16-token,
-    4-sequence ``kind`` step on ``mesh`` (a subprocess: it sets its own
-    512 host devices): the direct and calibrated collectives, the
-    calibrated costs, the collective calls of the one- and two-repeat
-    lowerings, and the one-repeat lowering's collective lines."""
+def _jax_dry_runs(cases):
+    """The JAX dry run of each case ``(arch, kind, seq_len, batch, mesh,
+    overrides)``: a ``kind`` step of ``batch`` sequences (a cache of
+    ``seq_len`` at decode) at the arch's smoke config with ``overrides``,
+    on ``mesh`` (data, model), in one subprocess (it sets its own 512
+    host devices).  Each: the direct and calibrated collectives, the
+    calibrated costs, and of the one- and two-repeat lowerings the
+    collective calls by op, the costs, and every collective line's op
+    and result shapes; the one-repeat lowering's collective lines."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)   # the JAX dry run sets its 512 devices
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SIDE),
-                        kind, json.dumps(list(mesh)), str(int(tp_only))],
+                        json.dumps([list(c) for c in cases])],
                        capture_output=True, text=True, timeout=600, env=env)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _jax_dry_run(kind="prefill", mesh=(1, 2), tp_only=True,
+                 arch="internlm2-1.8b", seq_len=16, batch=4):
+    """`_jax_dry_runs` of one case: ``arch``'s smoke config (internlm2's
+    by default) at a ``seq_len``-token, ``batch``-sequence ``kind``
+    step on ``mesh``, ``serve_tp_only`` as ``tp_only`` says."""
+    return _jax_dry_runs([(arch, kind, seq_len, batch, list(mesh),
+                           {"serve_tp_only": tp_only})])[0]
 
 
 def test_all_reduces_against_the_jax_dry_run():

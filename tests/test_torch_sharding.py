@@ -206,6 +206,31 @@ def _jax_block(spec, coord):
     return block
 
 
+def test_serve_moves_on_2x2x2(placed):
+    """The serve steps' moves on gloo ranks of a (pod, data, model) mesh,
+    where no gradient is recorded: a split over ("pod", "data") gathered
+    whole by one all-gather; a split over data moved to the model ranks
+    by one collective-permute, each rank then holding the block JAX
+    gives the spec ("model", None, None) at its coordinate; a sum over
+    pod and data by one all-reduce."""
+    for out in placed:
+        coord = out["coord"]
+        got, calls, pl = out["moves"]["gathered"]
+        np.testing.assert_array_equal(got, FULL)
+        assert calls == ["all_gather_into_tensor"], calls
+        assert pl == ["Replicate"] * 3
+        got, calls, pl = out["moves"]["permuted"]
+        np.testing.assert_array_equal(
+            got, _jax_block(("model", None, None), coord))
+        assert calls == ["collective_permute"], calls
+        assert pl == ["Replicate", "Replicate", 0]
+        got, calls, _ = out["moves"]["summed"]
+        # the ranks at this model coordinate: pod * 4 + data * 2 + model
+        ranks = [p * 4 + d * 2 + coord[2] for p in (0, 1) for d in (0, 1)]
+        np.testing.assert_array_equal(got, FULL * sum(r + 1 for r in ranks))
+        assert calls == ["all_reduce"], calls
+
+
 @pytest.mark.parametrize("i", range(len(SPECS)))
 def test_to_placements_gives_jax_blocks(placed, i):
     coords = set()

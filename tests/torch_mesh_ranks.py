@@ -227,6 +227,51 @@ def lm_mesh_2x2(rank, world, cases):
     return out
 
 
+def serve_one_sequence(rank, world, shape, cases):
+    """``cases``: {arch: (cfg, params, batch)}, numpy, float32, a batch
+    of one sequence.  On a mesh of ``shape`` ((data, model) or (pod,
+    data, model)), the parameters placed by the port's specs (FSDP:
+    split over the data axes), prefill + STEPS greedy decode steps with
+    the batch whole over the data axes: the tokens, the logits, the
+    plans the products took (`regions.product_plan`, by kind; a table
+    lookup's as ``"lookup <kind>"``) and the same run on the port's
+    single device, held here."""
+    import collections
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.parallel import regions as R, sharding as shd
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    mesh = M.make_mesh(shape, axes, device="cpu")
+    inner = R.product_plan
+    out = {}
+    for arch, (cfg, params_np, batch_np) in cases.items():
+        ctx = shd.make_shard_ctx(mesh, cfg)
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        want_toks, want_logits = _serve(cfg, params, batch)
+        kinds = collections.Counter()
+
+        def product_plan(x, w, lookup_dt=None):
+            plan = inner(x, w, lookup_dt)
+            if plan is not None:
+                kinds[("lookup " if lookup_dt is not None else "")
+                      + plan.kind] += 1
+            return plan
+        R.product_plan = product_plan
+        try:
+            got_toks, got_logits = _serve(cfg, sp, batch, ctx)
+        finally:
+            R.product_plan = inner
+        out[arch] = {
+            "tokens": got_toks.numpy(), "logits": got_logits.numpy(),
+            "plans": dict(kinds),
+            "tokens_equal": bool(torch.equal(want_toks, got_toks)),
+            "logit_gap": float((got_logits - want_logits).abs().max())}
+    return out
+
+
 def _routes_equal(ref, got, shard):
     """The mesh run's routes (one per MoE call on this rank) against the
     reference's calls on the same data shard (it ran shard 0's whole
@@ -547,12 +592,47 @@ def _placed(x):
 def placements_2x2x2(rank, world, full, specs):
     """Each spec's local block on a (pod, data, model) = 2 x 2 x 2 mesh,
     this rank's coordinate, and whether `make_host_mesh` refuses a
-    wrong world size."""
-    from repro_torch.launch import mesh as M
-    from repro_torch.parallel import sharding as shd
+    wrong world size; and the serve steps' moves there (no gradient):
+    ``full`` split over ("pod", "data") gathered in one call
+    (`regions.gather_data`), split over data moved to the model ranks
+    (`regions.permute_to_model`), and a sum `Partial` over pod and data
+    of (rank + 1) * ``full`` reduced in one call (`regions.sum_partial`),
+    with the calls each made."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch import dryrun, mesh as M
+    from repro_torch.parallel import regions as R, sharding as shd
     mesh = M.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
     t = torch.from_numpy(full)
     blocks = [shd.place(t, spec, mesh).to_local().numpy() for spec in specs]
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name.split("::")[-1]
+            if (func.namespace in dryrun.COLLECTIVE_NAMESPACES
+                    and name in dryrun.COLLECTIVE_OPS):
+                self.names.append(name)
+            return func(*args, **(kwargs or {}))
+
+    moves = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("gathered", lambda: R.gather_data(
+                    shd.place(t, (("pod", "data"), None, None), mesh))),
+                ("permuted", lambda: R.permute_to_model(
+                    shd.place(t, ("data", None, None), mesh), 1)),
+                ("summed", lambda: R.sum_partial(DTensor.from_local(
+                    t * (dist.get_rank() + 1), mesh,
+                    [Partial(), Partial(), Replicate()]), [0, 1]))):
+            calls = Calls()
+            with calls:
+                out = fn()
+            moves[name] = (out.to_local().numpy(), calls.names, _placed(out))
     refused = []
     for d, m in ((2, 2), (3, 3), (1, 4)):
         try:
@@ -561,7 +641,7 @@ def placements_2x2x2(rank, world, full, specs):
         except ValueError:
             refused.append(True)
     return {"coord": tuple(mesh.get_coordinate()), "blocks": blocks,
-            "refused": refused}
+            "refused": refused, "moves": moves}
 
 
 # ---- the fabric over a chips mesh, and the collectives ---------------------

@@ -1,16 +1,25 @@
-"""The dry runs' per-device memory of one shape, the port's beside JAX's.
+"""The dry runs' per-device memory, FLOPs and collective bytes, the
+port's beside JAX's.
 
     python tools/dryrun_memory_table.py --shape train_4k \\
         --port build/dryrun_torch --jax build/dryrun_jax [--before DIR]
+    python tools/dryrun_memory_table.py --view costs \\
+        --shape decode_32k,long_500k,prefill_32k --port build/dryrun_torch \\
+        --jax build/dryrun_jax --before DIR [--arch rwkv6-3b,llama3.2-3b]
 
 Reads the cell records that ``python -m repro_torch.launch.dryrun``
 (``--out``: the port's ``memory.peak_bytes``, rank 0's peak of the step
-with its placed operands) and ``python -m repro.launch.dryrun``
-(``--out``: XLA's ``memory_analysis``, argument + temp bytes) write, one
-JSON a cell, and prints a markdown table of GB (1e9 B): for each arch
-of ``--shape``, on each production mesh, the port's peak (and, given
+with its placed operands, and ``cost_calibrated``) and ``python -m
+repro.launch.dryrun`` (``--out``: XLA's ``memory_analysis``, argument +
+temp bytes, and ``cost_calibrated``) write, one JSON a cell, and prints
+a markdown table.  ``--view peak`` (GB, 1e9 B): for each arch of
+``--shape``, on each production mesh, the port's peak (and, given
 ``--before``, an earlier run's beside it), JAX's argument + temp and
-their ratio.  A cell with no record reads "not run".
+their ratio.  ``--view costs``: a row a cell (arch, shape, mesh) of
+every shape listed, per device and calibrated to the real depth: FLOPs
+and collective bytes (GB), each the earlier run's (``--before``), the
+port's, JAX's and port / JAX, and the port's peak beside the earlier
+run's.  A cell with no record reads "not run".
 """
 
 from __future__ import annotations
@@ -49,6 +58,63 @@ def _gb(n):
 MESHES = (("singlepod", "16 × 16"), ("multipod", "2 × 16 × 16"))
 
 
+def _cost(rec, key):
+    """A record's calibrated per-device FLOPs (``"flops"``) or total
+    collective bytes (``"collectives"``); None without a record."""
+    if rec is None or "cost_calibrated" not in rec:
+        return None
+    cal = rec["cost_calibrated"]
+    return cal["flops"] if key == "flops" else cal["collectives"].get(
+        "total", 0)
+
+
+def _ratio(new, jax):
+    return f"{new / jax:.2f}" if new is not None and jax else "-"
+
+
+def _flops(n):
+    return "not run" if n is None else f"{n:.3e}"
+
+
+def _gb4(n):
+    return "not run" if n is None else f"{n / 1e9:.4g}"
+
+
+def cost_rows(shapes, port, jax_dir, before=None, archs=None):
+    """A row a (arch, shape, mesh) that either side recorded: FLOPs and
+    collective bytes before, now and JAX's, and the peak before and
+    now."""
+    out = []
+    for shape in shapes:
+        names = {arch for arch, _ in rows(shape, port, jax_dir, before)}
+        for arch in sorted(names & set(archs) if archs else names):
+            for mesh, label in MESHES:
+                recs = [_record(d, arch, shape, mesh)
+                        for d in (before, port, jax_dir)]
+                if not any(recs):
+                    continue
+                out.append((arch, shape, label,
+                            [_cost(r, "flops") for r in recs],
+                            [_cost(r, "collectives") for r in recs],
+                            [_port_peak(r) for r in recs[:2]]))
+    return out
+
+
+def print_costs(shapes, port, jax_dir, before=None, archs=None):
+    head = ["arch", "shape", "mesh", "FLOPs before", "FLOPs", "FLOPs JAX",
+            "FLOPs port / JAX", "collectives GB before", "collectives GB",
+            "collectives GB JAX", "collectives port / JAX",
+            "peak GB before", "peak GB"]
+    print("| " + " | ".join(head) + " |")
+    print("|" + " --- |" * len(head))
+    for arch, shape, mesh, flops, coll, peak in cost_rows(
+            shapes, port, jax_dir, before, archs):
+        line = [arch, shape, mesh, *map(_flops, flops),
+                _ratio(flops[1], flops[2]), *map(_gb4, coll),
+                _ratio(coll[1], coll[2]), *map(_gb, peak)]
+        print("| " + " | ".join(line) + " |")
+
+
 def rows(shape, port, jax_dir, before=None):
     """(arch, [(before peak, peak, JAX argument + temp) for each of
     `MESHES`]) of every arch of ``shape`` that either side recorded."""
@@ -71,7 +137,14 @@ def main(argv=None):
     ap.add_argument("--port", required=True)
     ap.add_argument("--jax", required=True)
     ap.add_argument("--before", default=None)
+    ap.add_argument("--view", choices=("peak", "costs"), default="peak")
+    ap.add_argument("--arch", default=None,
+                    help="comma-separated archs (--view costs)")
     args = ap.parse_args(argv)
+    if args.view == "costs":
+        print_costs(args.shape.split(","), args.port, args.jax, args.before,
+                    args.arch.split(",") if args.arch else None)
+        return
     head = ["arch"]
     for _, name in MESHES:
         head += ([f"{name} port before"] if args.before else []) + [
