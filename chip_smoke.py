@@ -2550,9 +2550,19 @@ def _staged_since(before):
             if n - before[0].get(op, 0)}
 
 
+def _gathered_since(before):
+    """{result shape: staged all-gathers} since ``before``
+    (`_staged_now`)."""
+    from repro_torch.launch import staging
+    return {shape: n - before[2].get((op, shape), 0)
+            for (op, shape), n in staging.SHAPES.items()
+            if op == "all_gather_into_tensor"
+            and n - before[2].get((op, shape), 0)}
+
+
 def _staged_now():
     from repro_torch.launch import staging
-    return dict(staging.COUNTS), dict(staging.BYTES)
+    return dict(staging.COUNTS), dict(staging.BYTES), dict(staging.SHAPES)
 
 
 def _in_turn(fn, order):
@@ -2702,12 +2712,14 @@ def _rank_serve(rank, world, seed, prompts):
 
 def _generate_on_mesh(cfg, params, mesh, prompts, new):
     """``ServeEngine(..., ctx=ctx).generate`` on ``mesh`` (timed; the
-    staged collectives it made, by op with their bytes; the widths the
-    mixers ran on), then one prefill for its logits (rank 0 returns
-    them), its own staged collectives (the gather of its logits left
-    out) and peak memory, then one decode step at the cache's next
-    position and its staged collectives (rank 0 returns its logits);
-    the generate's peak memory above the parameters."""
+    staged collectives it made, by op with their bytes, and its staged
+    all-gathers by result shape; the widths the mixers ran on), then one
+    prefill for its logits (rank 0 returns them), its own staged
+    collectives (the gather of its logits left out) and peak memory,
+    then one decode step at the cache's next position, its staged
+    collectives and all-gathers by result shape, and the plans of its
+    embedding lookups (`regions.product_plan` by kind; rank 0 returns
+    its logits); the generate's peak memory above the parameters."""
     from repro_torch.models import lm
     from repro_torch.parallel import regions as R, sharding as shd
     from repro_torch.serve.lm_engine import (ServeEngine, make_decode_step,
@@ -2723,7 +2735,7 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
                              ctx=ctx).generate(prompts, new)
         _sync()
         secs = time.perf_counter() - t0
-    staged = _staged_since(before)
+    staged, gathered = _staged_since(before), _gathered_since(before)
     peak = _peak() - base
     cache = lm.init_cache(cfg, batch, prompt + new, device=_dev())
     cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx), mesh)
@@ -2735,16 +2747,21 @@ def _generate_on_mesh(cfg, params, mesh, prompts, new):
     prefill_staged = _staged_since(before)
     prefill_peak = _peak()
     before = _staged_now()
-    step, _ = make_decode_step(cfg, ctx)(params, cache, prompts[:, -1:],
-                                         prompt)
+    with Capture(R, "product_plan") as plans:
+        step, _ = make_decode_step(cfg, ctx)(params, cache, prompts[:, -1:],
+                                             prompt)
     _sync()
     decode_staged = _staged_since(before)
+    decode_gathered = _gathered_since(before)
     logits, step = R.full(logits), R.full(step)
     first = torch.distributed.get_rank() == 0
     return {"tokens": tokens.cpu(), "decode_staged": decode_staged,
+            "decode_gathered": decode_gathered,
+            "decode_lookup": sorted(out.kind for _, kw, out in plans
+                                    if "lookup_dt" in kw and out is not None),
             "prefill": logits.float().cpu() if first else None,
             "decode": step.float().cpu() if first else None,
-            "peak": peak, "s": secs, "staged": staged,
+            "peak": peak, "s": secs, "staged": staged, "gathered": gathered,
             "prefill_staged": prefill_staged, "prefill_peak": prefill_peak,
             "widths": sorted(widths)}
 
@@ -3613,11 +3630,19 @@ def _mixers_report(tag, results, refs):
               f"{', '.join(str(r['peak'] // mib) for r in runs)} MiB above "
               f"the parameters ({results[0]['mixers']['param_bytes'][0] // mib}"
               f" of {refs['rwkv_bytes'] // mib} MiB a rank); staged a "
-              f"generate, rank 0, by op (calls, bytes): {runs[0]['staged']}")
+              f"generate, rank 0, by op (calls, bytes): {runs[0]['staged']};"
+              f" its all-gathers by result shape {runs[0]['gathered']}")
+        hd = rwkv.rwkv.head_dim
         for r, run in enumerate(runs):
             check(torch.equal(run["tokens"], refs["rwkv_tokens"]),
                   f"rank {r}: rwkv6-3b pad {pad} tokens differ from one "
                   f"device")
+            # the WKV state stays where the cache holds it: no staged
+            # all-gather returns it, (heads, batch / data, D, D)
+            state = {sh: n for sh, n in run["gathered"].items()
+                     if len(sh) == 4 and sh[2:] == (hd, hd)}
+            check(not state, f"rank {r}: rwkv6-3b pad {pad} gathered the "
+                  f"WKV state: {state}")
             check(run["widths"] == [("WKV heads", rwkv_heads(pad))],
                   f"rank {r}: rwkv6-3b pad {pad} ran on {run['widths']}")
         check(gap <= LOGIT_ATOL + LOGIT_RTOL * scale,
@@ -3642,10 +3667,19 @@ def _mixers_report(tag, results, refs):
           f"{refs['fsdp_s']:.2f} s on one device; parameter bytes a rank "
           f"{loc // mib} of {full // mib} MiB; staged a generate, rank 0, by "
           f"op (calls, bytes): {runs[0]['staged']}; a decode step: "
-          f"{runs[0]['decode_staged']}")
+          f"{runs[0]['decode_staged']}, its all-gathers by result shape "
+          f"{runs[0]['decode_gathered']}, its lookup's plan "
+          f"{runs[0]['decode_lookup']}")
     for r, run in enumerate(runs):
         check(torch.equal(run["tokens"], refs["fsdp_tokens"]),
               f"rank {r}: rwkv6-3b FSDP cut tokens differ from one device")
+        # the decode lookup in place: the table's blocks stay, the rows
+        # move by one all-to-all
+        check(run["decode_lookup"] == ["all_to_all"]
+              and run["decode_staged"].get("all_to_all_single",
+                                           (0, 0))[0] == 1,
+              f"rank {r}: the FSDP cut's decode lookup took "
+              f"{run['decode_lookup']}, staged {run['decode_staged']}")
         check(run["decode_staged"].get("collective_permute", (0, 0))[0] > 0,
               f"rank {r}: the FSDP cut's decode step permuted no block: "
               f"{run['decode_staged']}")

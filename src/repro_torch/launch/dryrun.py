@@ -180,17 +180,21 @@ def _flat(tree) -> list:
 
 
 def per_device_bytes(tree, specs, sizes: dict, itemsize=None) -> int:
-    """Bytes one device holds of ``tree`` placed by ``specs``: each leaf's
-    bytes over the product of the axes that split it."""
+    """Bytes the first device holds of ``tree`` placed by ``specs``: each
+    leaf's bytes over the product of the axes that split it, a dim that
+    they do not divide taking its first block (`sharding.block`)."""
     spec_of = dict(_flat(specs))
     total = 0
     for path, leaf in _flat(tree):
-        parts = 1
-        for entry in spec_of[path]:
-            for a in shd._axes(entry):
-                parts *= sizes[a]
+        numel = 1
+        for d, n in enumerate(leaf.shape):
+            parts = 1
+            if d < len(spec_of[path]):
+                for a in shd._axes(spec_of[path][d]):
+                    parts *= sizes[a]
+            numel *= shd.block(n, parts, 0)[1]
         size = itemsize if itemsize is not None else leaf.element_size()
-        total += leaf.numel() * size // parts
+        total += numel * size
     return total
 
 

@@ -9,10 +9,11 @@ and ``all_gather_into_tensor`` there ended the ranks on an H100
 (torch 2.11; `tools/gloo_cuda_probe.py`).  `install` registers CUDA
 kernels for those ops that copy the operand to host memory, run the
 collective there over the same gloo group, and copy the result back to
-the card.  Every staged call adds one to `COUNTS` under its op's name
-and the bytes it copies between the card and the host (its operand
-down, its result back) to `BYTES`, so a caller can print how many
-collectives, and how many bytes, went through the host.  The port's
+the card.  Every staged call adds one to `COUNTS` under its op's name,
+the bytes it copies between the card and the host (its operand down,
+its result back) to `BYTES` and one to `SHAPES` under its op's name and
+result shape, so a caller can print how many collectives, and how many
+bytes, went through the host, and which tensors they returned.  The port's
 own ``repro_torch::collective_permute`` (a pair exchange by
 ``batch_isend_irecv``) is staged and counted the same way.
 
@@ -29,6 +30,7 @@ import torch.distributed as dist
 
 COUNTS: collections.Counter = collections.Counter()
 BYTES: collections.Counter = collections.Counter()
+SHAPES: collections.Counter = collections.Counter()
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
@@ -43,6 +45,7 @@ def _group(name):
 def _count(op: str, x: torch.Tensor, out: torch.Tensor) -> None:
     COUNTS[op] += 1
     BYTES[op] += (x.numel() + out.numel()) * x.element_size()
+    SHAPES[op, tuple(out.shape)] += 1
 
 
 def _reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:

@@ -1021,8 +1021,9 @@ def moe_apply(p, x, cfg: ModelConfig, ctx: ShardCtx = LOCAL):
                                      ws, cfg, ctx)
         # the layer's aux losses reduced here, as the JAX package's pmean
         # is, not left `Partial` for DTensor to reduce where the sums over
-        # layers meet it (which differs between torch versions)
-        aux_l, z_l = (_regions().replicate(a) for a in (aux_l, z_l))
+        # layers meet it (which differs between torch versions); at a
+        # serve step in one all-reduce for both
+        aux_l, z_l = _regions().sum_losses(aux_l, z_l)
     if mo.num_shared:
         y = y + mlp_apply(p["shared"], xf, cfg)
     aux = {"moe_aux": aux_l * mo.aux_loss_weight,
@@ -1041,7 +1042,11 @@ def _moe_sharded(local_moe, xf, router_w, ws, cfg: ModelConfig,
     1/(model x data) of its shard's value (the JAX package's ``pmean``
     over the data axes).  Where the tokens do not divide the data axes
     every data rank routes them all, and ``y`` is summed over the data
-    axes too, each adding 1/data of it."""
+    axes too, each adding 1/data of it.  Where autograd records nothing,
+    an expert weight that several data axes split along one dim is
+    gathered over them in one call first (`regions.gather_data`; int8
+    ones as int8), as GSPMD gathers it over ``("pod", "data")``, where
+    the region's redistribution would gather each axis in turn."""
     from torch.distributed.tensor import Partial
     R = _regions()
     mo = cfg.moe
@@ -1055,6 +1060,8 @@ def _moe_sharded(local_moe, xf, router_w, ws, cfg: ModelConfig,
     y_share = 1.0 if bspec is not None else 1.0 / dp
     aux_share = 1.0 / (dp * ctx.model_size)
     keys = sorted(ws)
+    ws = {k_: R.gather_data(w) if R.gathers_flat(w) else w
+          for k_, w in ws.items()}
 
     def body(xf_, router_w_, *wl):
         y, aux, z = local_moe(xf_, router_w_, dict(zip(keys, wl)),

@@ -281,8 +281,17 @@ def _reduced_like(o, x):
     joins: an all-reduce where ``x`` is whole over the model axis, a
     reduce-scatter where it holds the tokens split there.  GSPMD reduces
     it so; DTensor left alone may keep the sum `Partial` through the add
-    and reduce it again at each reader, as torch's versions differ."""
+    and reduce it again at each reader, as torch's versions differ.
+    Where autograd records nothing, a sum over several mesh dims (a
+    MoE's output at one sequence: over the data axes and ``model``) is
+    one all-reduce over them together, as GSPMD makes it, not one a
+    dim."""
     if isinstance(o, DTensor) and any(p.is_partial() for p in o.placements):
+        from repro_torch.parallel import regions as R
+        dims = [i for i, (p, q) in enumerate(zip(o.placements, x.placements))
+                if p.is_partial() and q.is_replicate()]
+        if len(dims) > 1 and not R.recorded(o):
+            o = R.sum_partial(o, dims)
         return o.redistribute(x.device_mesh, x.placements)
     return o
 
@@ -328,8 +337,15 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
     """`_embed` on a mesh.  Tokens are looked up vocab-parallel: each
     rank reads the rows of its own vocab slice (zeros elsewhere) and the
     slices sum over the model axis, exactly, since one rank holds each
-    row.  The audio frontend runs on each rank's batch shard with its
-    projection gathered."""
+    row.  Where autograd records nothing, the table's split over the
+    data axes (its columns) takes `regions.product_plan`'s lookup rule:
+    gathered, or left in place with each rank's columns looked up for
+    every token, then the columns gathered (the tokens whole over the
+    data axes) or the rows moved to their owners by one all-to-all (the
+    tokens split there: decode's, as GSPMD looks them up).  The audio
+    frontend runs on each rank's batch shard with its projection
+    gathered (in one call over the data axes where no gradient is
+    recorded, `regions.gathers_flat`)."""
     from repro_torch.parallel import regions as R
     cdt = blocks.dtype_of(cfg.compute_dtype)
     keys = sorted(batch)
@@ -344,12 +360,14 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
                           dict(zip(keys, args[len(names):])), cfg)
 
         w_specs = [(None,) * params[k].ndim for k in names]
+        ws = [R.gather_data(params[k]) if R.gathers_flat(params[k])
+              else params[k] for k in names]
         return R.region(
             body, ctx, w_specs + [split(batch[k]) for k in keys],
             (bspec, None, None),
             in_grad=[R.grad_of_replicated(sp, ctx, bspec is not None)
                      for sp in w_specs] + [None] * len(keys))(
-                *[params[k] for k in names], *[batch[k] for k in keys])
+                *ws, *[batch[k] for k in keys])
 
     vocab_split = cfg.vocab % ctx.model_size == 0
     e_spec = (ctx.model_axis if vocab_split else None, None)
@@ -357,12 +375,20 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
     out = (R.partial_on_model((bspec, None, None), ctx) if vocab_split
            else R.placements((bspec, None, None), ctx))
     recorded = R.recorded(embed)
+    tokens, t_spec = batch["tokens"], (bspec, None)
     # `blocks._linear`'s rule for the lookup (no gradient recorded)
-    plan = R.product_plan(batch["tokens"], embed, lookup_dt=cdt)
-    if plan is not None and plan.kind == "cols":
-        # tokens whole over the data axes: each rank reads its block of
-        # the table's columns, gathered after the lookup
+    plan = R.product_plan(tokens, embed, lookup_dt=cdt)
+    in_place = plan is not None and plan.kind in ("cols", "all_to_all")
+    if in_place:
+        # each rank reads its block of the table's columns for every
+        # token, gathered after the lookup ("cols": the tokens whole over
+        # the data axes) or its rows moved to their owners ("all_to_all":
+        # the tokens split there, gathered first)
         from torch.distributed.tensor import Shard
+        if plan.kind == "all_to_all":
+            tokens, t_spec = R.gather_data(tokens, plan.dims), (None, None)
+            out = (R.partial_on_model((None, None, None), ctx)
+                   if vocab_split else R.placements((None, None, None), ctx))
         e_spec = tuple(embed.placements)
         out = tuple(Shard(2) if e.is_shard(1) else q
                     for q, e in zip(out, e_spec))
@@ -378,10 +404,10 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
 
     grads = ([R.grad_of_replicated(e_spec, ctx, bspec is not None), None]
              if recorded else None)
-    tok = R.region(lookup, ctx, [e_spec, (bspec, None)], out,
-                   in_grad=grads)(embed, batch["tokens"])
-    if plan is not None and plan.kind == "cols":
-        # the vocab blocks' sum, then the columns
+    tok = R.region(lookup, ctx, [e_spec, t_spec], out,
+                   in_grad=grads)(embed, tokens)
+    if in_place:
+        # the vocab blocks' sum, then the columns or the rows
         tok = R.finish_product(R.sum_partial(tok, [
             ctx.mesh.mesh_dim_names.index(ctx.model_axis)]), plan)
     tok = R.constrain(tok, (bspec, None, None), ctx)

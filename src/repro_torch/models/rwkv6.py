@@ -173,17 +173,27 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
     through `blocks._linear`: at decode each FSDP block moves to the
     model ranks and the products run row-parallel there, at one
     sequence the blocks stay in place, as GSPMD partitions the JAX
-    package's steps.  At H' > H with H' a multiple of the model size the
-    padded r, k, v and decay split over ``model`` by heads (the JAX
-    package's ``with_sharding_constraint``), each rank runs the WKV on
-    its H'/model heads, and the output heads and the new state are
-    gathered before the per-head norm, the gate and ``wo``: the new
-    state whole, as the cache's spec holds its heads.  GSPMD keeps it
-    split instead: the JAX package's decode step at H' = 48 on 16 x 16
-    returns each rank 5 of the 40 heads (``f32[1,8,5,64,64]``, after an
-    all-gather of 3 padded heads to 6 over pairs of model ranks), its
-    output's placement being XLA's to choose.  At H' = H the WKV runs
-    whole on every model rank, as in the JAX package.
+    package's steps.  At H' > H with H' a multiple of the model size
+    (`head_split`) the WKV runs on a head split over ``model``, H'/model
+    heads a rank, the output heads gathered before the per-head norm,
+    the gate and ``wo``:
+
+    * with a state (prefill, decode) the cache holds the H heads split
+      over ``model`` (`sharding.cache_pspecs`: DTensor's blocks of
+      ceil(H / model) heads, `sharding.block`), and each rank runs the WKV
+      on its own block of r, k, v, decay and state padded to H'/model
+      heads, and writes its block back: no collective moves the state.
+      GSPMD moves some: the JAX package's decode step at H' = 48 on
+      16 x 16 gathers 3 padded heads to 6 over pairs of model ranks and
+      returns each rank 5 of the 40 (``f32[1,8,5,64,64]``), its output's
+      placement being XLA's to choose; read out whole, the port's state
+      is the H heads' as on one device;
+    * without (the train step) the padded r, k, v and decay split over
+      ``model`` by heads (the JAX package's ``with_sharding_constraint``),
+      and the new state is gathered whole.
+
+    At H' = H the WKV runs whole on every model rank, as in the JAX
+    package.
     """
     if not ctx.enabled:
         return _time_mix(p, x, cfg, state, chunked, ctx)
@@ -191,6 +201,14 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
     return R.layer_region(
         lambda p_, x_, s_: _time_mix(p_, x_, cfg, s_, chunked, ctx), ctx,
         p, x, state)
+
+
+def head_split(cfg: ModelConfig, ctx: ShardCtx) -> bool:
+    """Does the WKV run on a head split over ``model`` under ``ctx``
+    (``rwkv_pad_heads`` H' > H, a multiple of the model size)?"""
+    h = cfg.d_model // cfg.rwkv.head_dim
+    pad = cfg.rwkv_pad_heads
+    return ctx.enabled and pad > h and pad % ctx.model_size == 0
 
 
 def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
@@ -222,18 +240,36 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
     wkv_state = (state["wkv"] if state is not None else torch.zeros(
         (b, h, r_cfg.head_dim, r_cfg.head_dim), dtype=torch.float32,
         device=x.device))
-    if h_pad > h:
+    split = head_split(cfg, ctx)
+    own = split and state is not None
+    if own:
+        # this rank's block of the heads, its state's (the cache's
+        # split), each padded to H'/model heads
+        from repro_torch.parallel import regions as R
+        from repro_torch.parallel.sharding import block
+        kh = h_pad // ctx.model_size
+        first, n = block(h, ctx.model_size, R.model_index(ctx))
+        if wkv_state.shape[1] != n:
+            raise ValueError(
+                f"the WKV state holds {wkv_state.shape[1]} heads on this "
+                f"rank, not its {n}: place the cache by "
+                f"sharding.cache_pspecs")
+        pads = (0, 0, 0, kh - n)
+        r, k, v = (F.pad(a.narrow(2, first, n), pads) for a in (r, k, v))
+        w4 = F.pad(w4.narrow(2, first, n), pads, value=1.0)
+        u = F.pad(u.narrow(0, first, n), pads)
+        wkv_state = F.pad(wkv_state, (0, 0, 0, 0, 0, kh - n))
+    elif h_pad > h:
         pads = (0, 0, 0, h_pad - h)
         r, k, v = (F.pad(a, pads) for a in (r, k, v))
         w4 = F.pad(w4, pads, value=1.0)                    # decay 1 on pads
         u = F.pad(u, (0, 0, 0, h_pad - h))
         wkv_state = F.pad(wkv_state, (0, 0, 0, 0, 0, h_pad - h))
-    split = ctx.enabled and h_pad > h and h_pad % ctx.model_size == 0
-    if split:
-        from repro_torch.parallel import regions as R
-        r, k, v, w4 = (R.split_model(a, 2, ctx) for a in (r, k, v, w4))
-        u = R.split_model(u, 0, ctx)
-        wkv_state = R.split_model(wkv_state, 1, ctx)
+        if split:
+            from repro_torch.parallel import regions as R
+            r, k, v, w4 = (R.split_model(a, 2, ctx) for a in (r, k, v, w4))
+            u = R.split_model(u, 0, ctx)
+            wkv_state = R.split_model(wkv_state, 1, ctx)
 
     args = (r.float(), k.float(), v.float(), w4.float(), u,
             wkv_state.float())
@@ -242,10 +278,17 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
     else:
         o, new_wkv = wkv_recurrent(*args)
 
-    if split:
+    if own:
         o = R.gather_whole(o, 2, ctx)
-        new_wkv = R.gather_whole(new_wkv, 1, ctx)
-    if h_pad > h:
+        heads = [m * kh + j for m in range(ctx.model_size)
+                 for j in range(block(h, ctx.model_size, m)[1])]
+        o = (o[:, :, :h] if heads == list(range(h))
+             else o[:, :, torch.tensor(heads, device=o.device)])
+        new_wkv = new_wkv[:, :n]
+    elif split:
+        o = R.gather_whole(o, 2, ctx)[:, :, :h]
+        new_wkv = R.gather_whole(new_wkv, 1, ctx)[:, :h]
+    elif h_pad > h:
         o = o[:, :, :h]
         new_wkv = new_wkv[:, :h]
 

@@ -22,6 +22,10 @@ is partitioned, as GSPMD partitions the JAX package's serve steps, and
 `place_for_product` moves the weight for it (`collective_permute`, a
 staged op the dry run counts as ``collective-permute``, or one gather
 over the data axes together); `models.blocks._linear` states the rule.
+A table lookup may instead leave the table in place and move its rows
+to their owners (`rows_to_owners`, one all-to-all), and a region's
+scalar sums over every mesh dim are reduced in one call
+(`sum_losses`).
 """
 
 from __future__ import annotations
@@ -330,8 +334,16 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
         in_grad=[partial_on_model(xs, ctx) if partial else None]
         + [g for _, _, g, _ in w_pl] + [None] * len(keys))(
             x, *[w for w, _, _, _ in w_pl], *[state[k] for k in keys])
-    return outs[0], (dict(zip(keys, outs[1:])) if state is not None
-                     else None)
+    if state is None:
+        return outs[0], None
+    # each new leaf in its leaf's shape: ``local_map`` takes a split to be
+    # even, which the WKV state's split by heads need not be
+    # (`sharding.cache_pspecs`)
+    from torch.distributed.tensor import DTensor
+    return outs[0], {k: DTensor.from_local(
+        o.to_local(), ctx.mesh, o.placements, run_check=False,
+        shape=state[k].shape, stride=state[k].stride())
+        for k, o in zip(keys, outs[1:])}
 
 
 def replicate(x):
@@ -454,7 +466,9 @@ class ProductPlan:
     along its dim ``dim`` (`product_plan`): ``kind`` is ``"gather"``
     (the split gathered), ``"permute"`` (the block moved to the model
     ranks, the product row-parallel there), ``"rows"`` or ``"cols"``
-    (the weight left in place, row- or column-parallel over ``dims``)."""
+    (the weight left in place, row- or column-parallel over ``dims``),
+    ``"all_to_all"`` (a lookup: the table left in place, the indices
+    gathered over ``dims`` and the rows moved back, `rows_to_owners`)."""
     kind: str
     dims: tuple
     dim: int
@@ -467,7 +481,13 @@ def product_plan(x, w, lookup_dt=None):
     splits ``w``.  With ``lookup_dt``, ``x`` holds indices of ``w``'s
     rows instead, each a row of the product (a table lookup: the
     product of their one-hot rows with ``w``, in ``lookup_dt``).  The
-    rule and its costs: `models.blocks._linear`."""
+    rule and its costs: `models.blocks._linear`; a lookup whose indices
+    are split by rows over those dims and whose table is split there by
+    columns may also take ``"all_to_all"``: the indices gathered there
+    (D R of them), each rank's columns looked up for all of them and the
+    rows moved to their owners by one all-to-all (R D N), as GSPMD looks
+    up the decode step's tokens, where that is cheaper than the
+    gather (D |W|)."""
     from torch.distributed.tensor import DTensor
     if (not isinstance(w, DTensor) or not isinstance(x, DTensor)
             or recorded(x, w)):
@@ -493,6 +513,11 @@ def product_plan(x, w, lookup_dt=None):
     else:
         last, rows, out_item = x.ndim, xl.numel(), lookup_dt.itemsize
     if all(p.is_shard() and p.dim != last for p in xs):
+        if lookup_dt is not None and wd == 1:
+            moved = (xl.numel() * x.dtype.itemsize * parts
+                     + rows * parts * wl.shape[1] * out_item)
+            if moved < gather:
+                return ProductPlan("all_to_all", dims, wd)
         if (wd == 0 and len(dims) == 1 and model is not None
                 and mesh.size(dims[0]) == mesh.size(model)
                 and w.placements[model].is_replicate()
@@ -604,14 +629,61 @@ def finish_product(y, plan: ProductPlan):
     """The result of a product placed by ``plan``, reduced or gathered at
     once where GSPMD does: the partial sums over ``model`` (a permuted
     block) or over the data dims (rows in place), the columns over the
-    data dims (columns in place)."""
+    data dims (columns in place), the rows to their owners (a lookup
+    by ``"all_to_all"``)."""
     if plan.kind == "permute":
         return sum_partial(y, [_dims(y.device_mesh)[0]])
     if plan.kind == "rows":
         return sum_partial(y, plan.dims)
     if plan.kind == "cols":
         return gather_data(y, plan.dims)
+    if plan.kind == "all_to_all":
+        return rows_to_owners(y, plan.dims)
     return y
+
+
+def rows_to_owners(y, dims):
+    """``y`` (a DTensor whole along dim 0 over the data mesh dims
+    ``dims`` and split there along its last dim) split along dim 0
+    there instead, its last dim whole: one all-to-all over them
+    together, rank j of their group receiving each rank's columns of
+    its block j of rows (no gradient)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = y.device_mesh
+    group, _ = _group(mesh, list(dims))
+    n = group.size()
+    local = y.to_local()
+    rows = local.shape[0] // n
+    out = _done(torch.ops._c10d_functional.all_to_all_single(
+        local.contiguous(), [rows] * n, [rows] * n, group.group_name))
+    out = out.reshape(n, rows, *local.shape[1:]).movedim(0, -2).reshape(
+        rows, *local.shape[1:-1], n * local.shape[-1])
+    pl = list(y.placements)
+    for i in dims:
+        pl[i] = Shard(0)
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=y.shape,
+                              stride=y.stride())
+
+
+def sum_losses(*xs):
+    """DTensors `Partial` over mesh dims (a region's scalar sums: the MoE
+    aux losses), replicated: where autograd records, by DTensor's
+    redistribution (an all-reduce a mesh dim, as the train step has
+    them), otherwise by one all-reduce of them stacked, over those dims
+    together."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if recorded(*xs):
+        return tuple(replicate(x) for x in xs)
+    dims = [i for i, p in enumerate(xs[0].placements) if p.is_partial()]
+    if not dims:
+        return xs
+    mesh = xs[0].device_mesh
+    group, _ = _group(mesh, dims)
+    total = _reduce(torch.stack([x.to_local() for x in xs]), "sum", group)
+    return tuple(DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False, shape=x.shape,
+                                    stride=x.stride())
+                 for t, x in zip(total.unbind(0), xs))
 
 
 @dataclasses.dataclass(frozen=True)

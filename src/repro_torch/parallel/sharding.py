@@ -26,7 +26,9 @@ specs.  Per-family rules:
   embed / lm_head              vocab over `model`, d_model over `data`
 
 Caches: KV/latent caches are sequence-sharded over `model`; SSM states
-shard d_inner, RWKV states replicate their heads.
+shard d_inner, RWKV states replicate their heads, but split them over
+`model` where the WKV runs on a head split (``rwkv_pad_heads``; the
+JAX package replicates them there too, and GSPMD returns them split).
 """
 
 from __future__ import annotations
@@ -193,11 +195,22 @@ def batch_pspecs(batch_shapes: dict, cfg: ModelConfig, ctx: ShardCtx):
 
 
 def cache_pspecs(cache, cfg: ModelConfig, ctx: ShardCtx):
-    """Decode-cache specs: sequence-sharded KV, sharded SSM state."""
+    """Decode-cache specs: sequence-sharded KV, sharded SSM state.  The
+    WKV state's heads split over ``model`` where the WKV runs on a head
+    split (`repro_torch.models.rwkv6.head_split`), in DTensor's blocks
+    of heads whether or not the model size divides H (`block`), so that
+    each rank reads and writes its own heads (the JAX package's spec
+    keeps them whole, and its decode step leaves the state's placement
+    to XLA)."""
+    from repro_torch.models.rwkv6 import head_split
     dp = ctx.batch_spec
 
     def one(s, leaf):
         name = s.rsplit("/", 1)[-1]
+        if name == "wkv" and head_split(cfg, ctx):
+            spec = sanitize_spec((None, dp, None, None, None), leaf.shape,
+                                 ctx)
+            return spec[:2] + ("model",) + spec[3:]
         # leading dim is the layer stack
         if name in ("k", "v"):          # (L, B, S, KH, D) -> shard S
             spec = (None, dp, "model", None, None)
@@ -257,8 +270,17 @@ def to_placements(spec: tuple, mesh) -> list:
     return placements
 
 
+def block(n: int, parts: int, index: int) -> tuple:
+    """(start, length) of block ``index`` of ``parts`` of a dim of ``n``,
+    as DTensor splits it: ceil(n / parts) long, the last ones shorter or
+    empty where ``parts`` does not divide ``n``."""
+    size = -(-n // parts)
+    start = min(index * size, n)
+    return start, min(size, n - start)
+
+
 def local_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of ``full`` under ``spec`` (a view)."""
+    """This rank's block of ``full`` under ``spec`` (a view; `block`)."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     out = full
@@ -270,8 +292,7 @@ def local_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         for a in axes:                       # major to minor
             idx = idx * sizes[a] + coord[a]
             parts *= sizes[a]
-        n = full.shape[d] // parts
-        out = out.narrow(d, idx * n, n)
+        out = out.narrow(d, *block(full.shape[d], parts, idx))
     return out
 
 

@@ -104,6 +104,7 @@ SERVE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "gemma3-12b", "rwkv6-3b",
                "deepseek-v2-lite-16b+int8", "phi-3-vision-4.2b")
 ENGINE_ARCHS = ("internlm2-1.8b", "deepseek-v2-lite-16b")
 PROMPT, STEPS, BATCH = 16, 4, 4
+SNAP = 2                          # decode steps before the cache is read
 
 
 def _record_routes(log):
@@ -120,22 +121,29 @@ def _record_routes(log):
     return inner
 
 
-def _serve(cfg, params, batch, ctx=None, snap=None):
+def _serve(cfg, params, batch, ctx=None, snap=None, keep=None, logs=None):
     """Prefill then STEPS greedy decode steps: (tokens, logits of every
     step), and with ``snap`` the cache's full values by path after that
-    many decode steps."""
+    many decode steps; the cache appended to the list ``keep``; the
+    prefill run under the context ``logs["prefill"]`` and each decode
+    step under ``logs["decode"]``."""
+    import contextlib
     from repro_torch.models import lm
     from repro_torch.models.blocks import LOCAL
     from repro_torch.parallel import regions as R, sharding as shd
     from repro_torch.serve.lm_engine import make_decode_step, make_prefill_step
     ctx = ctx or LOCAL
+    logs = logs or {}
     b = batch["tokens"].shape[0]
     prefix = cfg.frontend.max_prefix if "image_embeds" in batch else 0
     cache = lm.init_cache(cfg, b, prefix + PROMPT + STEPS + 4, device="cpu")
     if ctx.enabled:
         cache = shd.shard_tree(cache, shd.cache_pspecs(cache, cfg, ctx),
                                ctx.mesh)
-    logits, _ = make_prefill_step(cfg, ctx)(params, batch, cache)
+    if keep is not None:
+        keep.append(cache)
+    with logs.get("prefill", contextlib.nullcontext()):
+        logits, _ = make_prefill_step(cfg, ctx)(params, batch, cache)
     decode = make_decode_step(cfg, ctx)
     toks, steps = [], [R.full(logits)]
     clen = prefix + PROMPT
@@ -143,7 +151,8 @@ def _serve(cfg, params, batch, ctx=None, snap=None):
     for i in range(STEPS):
         nxt = R.full(logits).argmax(-1).to(torch.int32)
         toks.append(nxt)
-        logits, _ = decode(params, cache, nxt[:, None], clen + i)
+        with logs.get("decode", contextlib.nullcontext()):
+            logits, _ = decode(params, cache, nxt[:, None], clen + i)
         steps.append(R.full(logits))
         if i + 1 == snap:
             state = _by_path(cache)
@@ -270,6 +279,110 @@ def serve_one_sequence(rank, world, shape, cases):
             "tokens_equal": bool(torch.equal(want_toks, got_toks)),
             "logit_gap": float((got_logits - want_logits).abs().max())}
     return out
+
+
+def _collective_log():
+    """A dispatch mode that logs each functional collective (and the
+    port's permute) a rank runs, one entry a result tensor: (op under
+    the dry run's names, `repro_torch.launch.dryrun.COLLECTIVE_OPS`,
+    result shape, group size of an all-gather or None)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch import dryrun
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name.split("::")[-1]
+            if (func.namespace in dryrun.COLLECTIVE_NAMESPACES
+                    and name in dryrun.COLLECTIVE_OPS):
+                op = dryrun.COLLECTIVE_OPS[name]
+                size = args[1] if op == "all-gather" else None
+                for t in (out if isinstance(out, (list, tuple)) else [out]):
+                    self.calls.append((op, tuple(t.shape), size))
+            return out
+
+    return Log()
+
+
+def serve_gspmd(rank, world, shape, cases):
+    """``cases``: {name: (cfg, params, batch)}, numpy, float32.  On a
+    mesh of ``shape`` ((data, model) or (pod, data, model)), the
+    parameters placed by the port's specs (FSDP: split over the data
+    axes), the batch split over the data axes: prefill + STEPS greedy
+    decode steps (`_serve`), the cache read out whole after SNAP of
+    them; the plans the products took (`regions.product_plan` by kind,
+    a lookup's as ``"lookup <kind>"``) and the functional collectives of
+    the prefill and of the decode steps (op, result shape, group size);
+    whether each cache leaf's block on this rank is its block of the
+    leaf read out whole (`sharding.local_slice`); and the same run on
+    the port's single device (per data shard where a MoE routes), held
+    here."""
+    import collections
+    import math
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.parallel import regions as R, sharding as shd
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    mesh = M.make_mesh(shape, axes, device="cpu")
+    data = math.prod(shape[:-1])
+    inner = R.product_plan
+    out = {}
+    for name, (cfg, params_np, batch_np) in cases.items():
+        ctx = shd.make_shard_ctx(mesh, cfg)
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        moe = any(map(cfg.layer_is_moe, range(cfg.n_layers)))
+        want_toks, want_logits = (
+            _per_shard(lambda b: _serve(cfg, params, b), batch, data)
+            if moe else _serve(cfg, params, batch))
+        kinds = collections.Counter()
+        logs = {"prefill": _collective_log(), "decode": _collective_log()}
+
+        def product_plan(x, w, lookup_dt=None):
+            plan = inner(x, w, lookup_dt)
+            if plan is not None:
+                kinds[("lookup " if lookup_dt is not None else "")
+                      + plan.kind] += 1
+            return plan
+        R.product_plan = product_plan
+        caches = []
+        try:
+            got_toks, got_logits, state = _serve(
+                cfg, sp, batch, ctx, snap=SNAP, keep=caches, logs=logs)
+        finally:
+            R.product_plan = inner
+        blocks_equal = []
+        shd.map_with_path(lambda p, leaf: blocks_equal.append(
+            torch.equal(shd.local_slice(R.full(leaf), _spec_of(leaf, mesh),
+                                        mesh), leaf.to_local())),
+            caches[0])
+        out[name] = {
+            "tokens": got_toks.numpy(), "logits": got_logits.numpy(),
+            "state": state, "plans": dict(kinds),
+            "calls": {k: v.calls for k, v in logs.items()},
+            "blocks_equal": all(blocks_equal),
+            "tokens_equal": bool(torch.equal(want_toks, got_toks)),
+            "logit_gap": float((got_logits - want_logits).abs().max())}
+    return out
+
+
+def _spec_of(leaf, mesh):
+    """The spec of a DTensor's placements on ``mesh`` (the axes that
+    split each dim, major to minor)."""
+    names = list(mesh.mesh_dim_names)
+    spec = [[] for _ in range(leaf.ndim)]
+    for name, p in zip(names, leaf.placements):
+        if p.is_shard():
+            spec[p.dim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in spec)
+
 
 
 def _routes_equal(ref, got, shard):

@@ -6,6 +6,7 @@ port's beside JAX's.
     python tools/dryrun_memory_table.py --view costs \\
         --shape decode_32k,long_500k,prefill_32k --port build/dryrun_torch \\
         --jax build/dryrun_jax --before DIR [--arch rwkv6-3b,llama3.2-3b]
+        [--variant rwkv48]
 
 Reads the cell records that ``python -m repro_torch.launch.dryrun``
 (``--out``: the port's ``memory.peak_bytes``, rank 0's peak of the step
@@ -19,7 +20,9 @@ their ratio.  ``--view costs``: a row a cell (arch, shape, mesh) of
 every shape listed, per device and calibrated to the real depth: FLOPs
 and collective bytes (GB), each the earlier run's (``--before``), the
 port's, JAX's and port / JAX, and the port's peak beside the earlier
-run's.  A cell with no record reads "not run".
+run's.  ``--variant`` reads each directory's records of that dry-run
+variant instead (``--variant rwkv48``).  A cell with no record reads
+"not run".
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ import json
 import os
 
 
+VARIANT = ""                      # "__<name>" under --variant
+
+
 def _record(directory, arch, shape, mesh):
     if directory is None:
         return None
-    path = os.path.join(directory, f"{arch}__{shape}__{mesh}.json")
+    path = os.path.join(directory, f"{arch}__{shape}__{mesh}{VARIANT}.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
@@ -122,8 +128,9 @@ def rows(shape, port, jax_dir, before=None):
     for d in (port, jax_dir, before):
         if d is not None and os.path.isdir(d):
             archs |= {n.split("__")[0] for n in os.listdir(d)
-                      if n.endswith(".json") and f"__{shape}__" in n
-                      and n.count("__") == 2}
+                      if n.endswith(f"{VARIANT}.json")
+                      and f"__{shape}__" in n
+                      and n.count("__") == 2 + bool(VARIANT)}
     return [(arch, [(_port_peak(_record(before, arch, shape, mesh)),
                      _port_peak(_record(port, arch, shape, mesh)),
                      _jax_bytes(_record(jax_dir, arch, shape, mesh)))
@@ -140,7 +147,11 @@ def main(argv=None):
     ap.add_argument("--view", choices=("peak", "costs"), default="peak")
     ap.add_argument("--arch", default=None,
                     help="comma-separated archs (--view costs)")
+    ap.add_argument("--variant", default=None,
+                    help="a dry-run variant's records (rwkv48, ...)")
     args = ap.parse_args(argv)
+    global VARIANT
+    VARIANT = f"__{args.variant}" if args.variant else ""
     if args.view == "costs":
         print_costs(args.shape.split(","), args.port, args.jax, args.before,
                     args.arch.split(",") if args.arch else None)

@@ -2,7 +2,8 @@
 card, with the collectives the ranks stage through the host.
 
     python tools/time_mesh_generate.py [--root CHECKOUT] [--label NAME]
-        [--layers N] [--tp-only] [--new N] [--runs N] [--device cpu]
+        [--layers N] [--tp-only] [--pad H] [--new N] [--runs N]
+        [--device cpu]
 
 Imports ``repro_torch`` from ``CHECKOUT/src`` (default: this checkout),
 so two checkouts (say a commit and its parent, unpacked with
@@ -11,7 +12,8 @@ ranks (`repro_torch.launch.spawn`, gloo, all on CUDA device 0) build a
 2 x 2 (data x model) mesh and draw rwkv6-3b at full width (float32
 compute; ``--layers`` cuts its depth, 0 keeps it) from a seed, one rank
 at a time, placed by the port's specs: FSDP x TP, or with ``--tp-only``
-the serving placement (``serve_tp_only``: no data split).  After a
+the serving placement (``serve_tp_only``: no data split); ``--pad``
+sets ``rwkv_pad_heads`` (48: the WKV on 24 padded heads a rank).  After a
 one-token warm-up, ``--runs`` generates of 4 x 128 prompt tokens and
 ``--new`` new ones are timed (host clock around a synchronized
 ``ServeEngine.generate``).  Prints one JSON line: the seconds of each
@@ -34,7 +36,7 @@ import time
 BATCH, PROMPT, SEED = 4, 128, 7
 
 
-def _rank(rank, world, root, layers, tp_only, new, runs, device):
+def _rank(rank, world, root, layers, tp_only, pad, new, runs, device):
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     import torch.distributed as dist
@@ -48,7 +50,7 @@ def _rank(rank, world, root, layers, tp_only, new, runs, device):
     cfg = (configs.get_config if cuda else configs.get_smoke_config)(
         "rwkv6-3b")
     cfg = dataclasses.replace(cfg, compute_dtype="float32",
-                              serve_tp_only=tp_only)
+                              serve_tp_only=tp_only, rwkv_pad_heads=pad)
     if layers and cuda:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     mesh = M.make_host_mesh(2, 2, device=device)
@@ -94,6 +96,7 @@ def main() -> int:
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--layers", type=int, default=0)
     parser.add_argument("--tp-only", action="store_true")
+    parser.add_argument("--pad", type=int, default=0)
     parser.add_argument("--new", type=int, default=8)
     parser.add_argument("--runs", type=int, default=2)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -108,15 +111,16 @@ def main() -> int:
     t0 = time.perf_counter()
     res = spawn(_rank, 4, device_id=0 if args.device == "cuda" else None,
                 timeout=1800,
-                args=(root, args.layers, args.tp_only, args.new, args.runs,
-                      args.device))
+                args=(root, args.layers, args.tp_only, args.pad, args.new,
+                      args.runs, args.device))
     card = (subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
             if args.device == "cuda" else "cpu")
     print(json.dumps({
         "label": args.label, "root": root, "layers": args.layers,
-        "tp_only": args.tp_only, "new": args.new, "card": card,
+        "tp_only": args.tp_only, "pad": args.pad, "new": args.new,
+        "card": card,
         "s": [max(r[i]["s"] for r in res) for i in range(args.runs)],
         "staged_rank0": res[0][0]["staged"],
         "tokens_equal": all(torch.equal(r[i]["tokens"], res[0][0]["tokens"])
