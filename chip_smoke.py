@@ -3370,6 +3370,11 @@ DRY_PEAK_RTOL = 0.10
 # on 16 x 16 as torch 2.13 counts them (`python -m
 # repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k` on a
 # CPU): the card machine's torch must count the same
+# rank 0's staged all-gather bytes (operand down + result back) in a
+# generate of SHARD_RWKV at rwkv_pad_heads 48 when the WKV's output heads
+# were gathered over ``model`` before the norm, the gate and ``wo`` (an
+# H100 run: 306 gathers, 288 of them the heads')
+PAD48_GATHERED_BEFORE = 181_665_792
 TRAIN_4K_CALLS = {"all-gather": 434, "all-reduce": 131,
                   "reduce-scatter": 218, "total": 783}
 STAGED_NAMES = {"all-reduce": "all_reduce",
@@ -3643,8 +3648,21 @@ def _mixers_report(tag, results, refs):
                      if len(sh) == 4 and sh[2:] == (hd, hd)}
             check(not state, f"rank {r}: rwkv6-3b pad {pad} gathered the "
                   f"WKV state: {state}")
+            # on a head split the time mix runs on the rank's heads: no
+            # staged all-gather returns the WKV's output heads, (H',
+            # batch / data, tokens, D)
+            heads_back = {sh: n for sh, n in run["gathered"].items()
+                          if len(sh) == 4 and sh[0] == pad and sh[3] == hd}
+            check(not heads_back, f"rank {r}: rwkv6-3b pad {pad} gathered "
+                  f"the output heads: {heads_back}")
             check(run["widths"] == [("WKV heads", rwkv_heads(pad))],
                   f"rank {r}: rwkv6-3b pad {pad} ran on {run['widths']}")
+        if pad > heads:
+            print(f"{tag} sharded rwkv6-3b pad {pad}: rank 0's staged "
+                  f"all-gathers a generate "
+                  f"{runs[0]['staged'].get('all_gather_into_tensor')} "
+                  f"(calls, bytes) against {PAD48_GATHERED_BEFORE:,} B when "
+                  f"the output heads were gathered")
         check(gap <= LOGIT_ATOL + LOGIT_RTOL * scale,
               f"rwkv6-3b pad {pad} prefill logits gap {gap}")
     layers, new_fsdp = SHARD_RWKV_FSDP

@@ -87,12 +87,20 @@ def _regions():
 
 def _use(w, dt):
     """A parameter at its use, in ``dt``: a sharded one (a DTensor) is
-    gathered whole first, the use-site all-gather of FSDP / TP (its data
-    split in one gather over the data axes together where no gradient
-    is recorded, `regions.gathers_flat`)."""
+    gathered whole first, the use-site all-gather of FSDP / TP.  Where
+    several data axes split it (`regions.gathers_flat`), its model split
+    is gathered first and then its data split in one call over the data
+    axes together, whose gradient comes back in one reduce-scatter
+    there (`regions.gather_data`)."""
     R = _regions()
     if R.gathers_flat(w):
-        w = R.gather_data(w)
+        from torch.distributed.tensor import Replicate
+        data = R.data_dims(w.device_mesh)
+        pl = [q if i in data else Replicate()
+              for i, q in enumerate(w.placements)]
+        if pl != list(w.placements):
+            w = w.redistribute(w.device_mesh, pl)
+        return R.gather_data(w).to(dt)
     return R.replicate(w).to(dt)
 
 
@@ -134,11 +142,13 @@ def _linear(x, w, dt):
       (R N D).
 
     The train step keeps the rules above it (gradients recorded: the
-    split is gathered where ``x`` is split by rows).  No dim of ``x`` is
-    reshaped, and each operand's gradient comes back in the placements
-    the rule gives it.  Inside a region (`regions.layer_region`), a
-    weight placed so comes as its `regions.LocalPlan`, which runs the
-    product on the rank's block.
+    split is gathered where ``x`` is split by rows, in one call over the
+    data axes together where several split one dim of ``w``, its
+    gradient reduce-scattered in one call too, `regions.gather_data`).
+    No dim of ``x`` is reshaped, and each operand's gradient comes back
+    in the placements the rule gives it.  Inside a region
+    (`regions.layer_region`), a weight placed so comes as its
+    `regions.LocalPlan`, which runs the product on the rank's block.
     """
     if not _is_dtensor(x):
         if not isinstance(w, torch.Tensor):          # a LocalPlan
@@ -149,9 +159,15 @@ def _linear(x, w, dt):
     R = _regions()
     w = w.to(dt)
     plan = R.product_plan(x, w)
+    last = x.ndim - 1
     if plan is not None:
         w = R.place_for_product(w, plan)
-    last = x.ndim - 1
+    else:          # the train step's gather over the rows' data axes
+        rows = [i for i in R.data_dims(x.device_mesh)
+                if x.placements[i].is_shard()
+                and x.placements[i].dim != last]
+        if R.gathers_flat(w, rows):
+            w = R.gather_data(w, rows)
     x_in, w_in, out, x_grad, w_grad = [], [], [], [], []
     for a, b in zip(x.placements, w.placements):
         if a.is_shard() and a.dim != last:         # rows split here
@@ -1042,11 +1058,12 @@ def _moe_sharded(local_moe, xf, router_w, ws, cfg: ModelConfig,
     1/(model x data) of its shard's value (the JAX package's ``pmean``
     over the data axes).  Where the tokens do not divide the data axes
     every data rank routes them all, and ``y`` is summed over the data
-    axes too, each adding 1/data of it.  Where autograd records nothing,
-    an expert weight that several data axes split along one dim is
-    gathered over them in one call first (`regions.gather_data`; int8
-    ones as int8), as GSPMD gathers it over ``("pod", "data")``, where
-    the region's redistribution would gather each axis in turn."""
+    axes too, each adding 1/data of it.  An expert weight that several
+    data axes split along one dim is gathered over them in one call
+    first (`regions.gather_data`; int8 ones as int8; its gradient
+    reduce-scattered in one), as GSPMD gathers it over ``("pod",
+    "data")``, where the region's redistribution would gather each axis
+    in turn."""
     from torch.distributed.tensor import Partial
     R = _regions()
     mo = cfg.moe

@@ -308,7 +308,8 @@ class _GradReduced(torch.autograd.Function):
     @staticmethod
     def backward(ctx_, g):
         if any(p.is_partial() for p in g.placements):
-            g = g.redistribute(ctx_.mesh, ctx_.placements)
+            from repro_torch.parallel import regions as R
+            g = R.reduce_data(g, ctx_.placements)
         return g
 
 
@@ -344,8 +345,9 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
     data axes) or the rows moved to their owners by one all-to-all (the
     tokens split there: decode's, as GSPMD looks them up).  The audio
     frontend runs on each rank's batch shard with its projection
-    gathered (in one call over the data axes where no gradient is
-    recorded, `regions.gathers_flat`)."""
+    gathered, and the train step's lookup with the table's data split
+    gathered (each in one call over the data axes together,
+    `regions.gather_data`)."""
     from repro_torch.parallel import regions as R
     cdt = blocks.dtype_of(cfg.compute_dtype)
     keys = sorted(batch)
@@ -392,8 +394,8 @@ def _embed_sharded(params, batch, cfg: ModelConfig, ctx: ShardCtx):
         e_spec = tuple(embed.placements)
         out = tuple(Shard(2) if e.is_shard(1) else q
                     for q, e in zip(out, e_spec))
-    elif plan is not None:
-        embed = R.gather_data(embed, plan.dims)
+    elif plan is not None or R.gathers_flat(embed):
+        embed = R.gather_data(embed, plan.dims if plan is not None else None)
 
     def lookup(e, tok):
         v_loc = e.shape[0]

@@ -28,6 +28,8 @@ State is float32; activations are in the compute type outside the WKV.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -175,8 +177,7 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
     sequence the blocks stay in place, as GSPMD partitions the JAX
     package's steps.  At H' > H with H' a multiple of the model size
     (`head_split`) the WKV runs on a head split over ``model``, H'/model
-    heads a rank, the output heads gathered before the per-head norm,
-    the gate and ``wo``:
+    heads a rank:
 
     * with a state (prefill, decode) the cache holds the H heads split
       over ``model`` (`sharding.cache_pspecs`: DTensor's blocks of
@@ -187,7 +188,16 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
       16 x 16 gathers 3 padded heads to 6 over pairs of model ranks and
       returns each rank 5 of the 40 (``f32[1,8,5,64,64]``), its output's
       placement being XLA's to choose; read out whole, the port's state
-      is the H heads' as on one device;
+      is the H heads' as on one device.
+      Where it moves fewer bytes at decode (`own_heads`), the whole layer
+      runs on the rank's heads: the columns of r, k, v, the decay and
+      the gate of its heads alone (their weights' column blocks, gathered
+      over the data axes in one call where FSDP splits their rows), the
+      per-head norm and the gate on them, ``wo`` row-parallel on their
+      rows, its partial sum reduced once over ``model``
+      (`lm._reduced_like`); otherwise the products run whole and the
+      output heads are gathered before the per-head norm, the gate and
+      ``wo``;
     * without (the train step) the padded r, k, v and decay split over
       ``model`` by heads (the JAX package's ``with_sharding_constraint``),
       and the new state is gathered whole.
@@ -198,9 +208,16 @@ def time_mix_apply(p, x, cfg: ModelConfig, state=None, chunked=True,
     if not ctx.enabled:
         return _time_mix(p, x, cfg, state, chunked, ctx)
     from repro_torch.parallel import regions as R
+    heads = own_heads(p, x, cfg, state, ctx)
+    blocks = None
+    if heads is not None:
+        hd = cfg.rwkv.head_dim
+        cols = (1, heads[0] * hd, heads[1] * hd)
+        blocks = {k: cols for k in HEAD_COLUMNS + ("decay_w2",)}
+        blocks["wo"] = (0,) + cols[1:]
     return R.layer_region(
-        lambda p_, x_, s_: _time_mix(p_, x_, cfg, s_, chunked, ctx), ctx,
-        p, x, state)
+        lambda p_, x_, s_: _time_mix(p_, x_, cfg, s_, chunked, ctx, heads),
+        ctx, p, x, state, partial=heads is not None, blocks=blocks)
 
 
 def head_split(cfg: ModelConfig, ctx: ShardCtx) -> bool:
@@ -211,35 +228,95 @@ def head_split(cfg: ModelConfig, ctx: ShardCtx) -> bool:
     return ctx.enabled and pad > h and pad % ctx.model_size == 0
 
 
-def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
+# the time mix's products whose columns are its heads' (``wo``'s rows)
+HEAD_COLUMNS = ("wr", "wk", "wv", "wg")
+
+
+def own_heads(p, x, cfg: ModelConfig, state, ctx: ShardCtx):
+    """(first, n): this rank's block of the H heads (`sharding.block`)
+    where a serve step runs the whole time mix on it, or None.
+
+    On a head split with a state and no gradient recorded, two
+    partitions: (a) the whole layer on the rank's heads: the columns of
+    `HEAD_COLUMNS` and the rows of ``wo`` of its heads
+    (`regions.block_of`: where the data axes split a weight's rows, only
+    the column block gathered over them in one call; ``wo``'s rows,
+    split there, gathered whole), the per-head norm and the gate on its
+    heads, ``wo`` row-parallel and its partial sum reduced once over
+    ``model``; or (b) the products whole (`regions.product_plan` each:
+    at decode on 16 x 16 the permute) and the WKV's output heads
+    gathered over ``model``.  The cheaper in bytes a rank moves at the
+    decode step (one token a sequence), counted for a block of
+    H'/model heads so that every rank chooses alike: (a) the blocks'
+    gathers and the partial sum's all-reduce, (b) the five plans'
+    bytes and the output heads' gather; ``decay_w2`` moves alike in
+    both (gathered whole) and is left out.  A prefill takes the decode
+    step's choice: a request's steps run one partition.  GSPMD's at
+    ``rwkv_pad_heads`` 48 on 2 x 16 x 16 is (a) but for ``wo``: it
+    gathers (2560, 320) column blocks of ``wr``, ``wk``, ``wv`` and
+    ``wg``, the gated heads over ``model`` and ``wo`` whole."""
+    from repro_torch.ckpt.manager import tree_leaves
+    from repro_torch.models.blocks import _bspec_for
+    from repro_torch.parallel import regions as R
+    from repro_torch.parallel.sharding import block
+    if (state is None or not head_split(cfg, ctx)
+            or R.recorded(x, *tree_leaves(p))):
+        return None
+    hd = cfg.rwkv.head_dim
+    h, d = cfg.d_model // hd, cfg.d_model
+    width = cfg.rwkv_pad_heads // ctx.model_size * hd
+    b = x.shape[0]
+    bspec = _bspec_for(ctx, b)
+    rows = (b // math.prod(n for _, n in R.data_coords(ctx))
+            if bspec is not None else b)
+    own = (sum(R.block_bytes(p[k], 1, width) for k in HEAD_COLUMNS)
+           + R.block_bytes(p["wo"], 0, width) + rows * d * x.dtype.itemsize)
+    token = R.constrain(x, (bspec, None, None), ctx)[:, :1]
+    plans = [R.product_plan(token, p[k]) for k in HEAD_COLUMNS + ("wo",)]
+    whole = (sum(q.bytes for q in plans if q is not None)
+             + rows * cfg.rwkv_pad_heads * hd * 4)
+    if own >= whole:
+        return None
+    return block(h, ctx.model_size, R.model_index(ctx))
+
+
+def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx,
+              heads=None):
     """`time_mix_apply` on one device, or on this rank's batch shard
-    inside the region of an enabled ``ctx``."""
+    inside the region of an enabled ``ctx``; with ``heads`` (first, n)
+    (`own_heads`) on this rank's n heads, ``p``'s head weights their
+    blocks, the result this rank's summand of ``wo``'s product."""
     b, t, d = x.shape
     r_cfg = cfg.rwkv
-    h = d // r_cfg.head_dim
+    hd = r_cfg.head_dim
+    h = d // hd
     dt = x.dtype
     prev_x = (state["prev_x_tm"] if state is not None
               else torch.zeros((b, 1, d), dtype=dt, device=x.device))
     xs = _token_shift(x, prev_x.to(dt))
     xw, xk, xv, xr, xg = _ddlerp(p, x, xs)
 
+    # the heads this rank computes (all but with ``heads``) and their
+    # channels of the per-channel parameters
+    first, hh = heads if heads is not None else (0, h)
+    chan = (lambda a: a) if heads is None else (
+        lambda a: a.narrow(0, first * hd, hh * hd))
     f32 = torch.float32
-    decay_logit = (p["decay_base"].float()
+    decay_logit = (chan(p["decay_base"]).float()
                    + _linear(torch.tanh(_linear(xw.float(), p["decay_w1"],
                                                 f32)), p["decay_w2"], f32))
     w = torch.exp(-torch.clamp_max(torch.exp(decay_logit), DECAY_CLAMP))
 
-    r = _linear(xr, p["wr"], dt).reshape(b, t, h, r_cfg.head_dim)
-    k = _linear(xk, p["wk"], dt).reshape(b, t, h, r_cfg.head_dim)
-    v = _linear(xv, p["wv"], dt).reshape(b, t, h, r_cfg.head_dim)
+    r = _linear(xr, p["wr"], dt).reshape(b, t, hh, hd)
+    k = _linear(xk, p["wk"], dt).reshape(b, t, hh, hd)
+    v = _linear(xv, p["wv"], dt).reshape(b, t, hh, hd)
     g = F.silu(_linear(xg, p["wg"], dt))
 
     h_pad = max(cfg.rwkv_pad_heads, h)
     u = p["bonus"].float()
-    w4 = w.reshape(b, t, h, r_cfg.head_dim)
+    w4 = w.reshape(b, t, hh, hd)
     wkv_state = (state["wkv"] if state is not None else torch.zeros(
-        (b, h, r_cfg.head_dim, r_cfg.head_dim), dtype=torch.float32,
-        device=x.device))
+        (b, h, hd, hd), dtype=torch.float32, device=x.device))
     split = head_split(cfg, ctx)
     own = split and state is not None
     if own:
@@ -255,8 +332,10 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
                 f"rank, not its {n}: place the cache by "
                 f"sharding.cache_pspecs")
         pads = (0, 0, 0, kh - n)
-        r, k, v = (F.pad(a.narrow(2, first, n), pads) for a in (r, k, v))
-        w4 = F.pad(w4.narrow(2, first, n), pads, value=1.0)
+        if heads is None:
+            r, k, v, w4 = (a.narrow(2, first, n) for a in (r, k, v, w4))
+        r, k, v = (F.pad(a, pads) for a in (r, k, v))
+        w4 = F.pad(w4, pads, value=1.0)
         u = F.pad(u.narrow(0, first, n), pads)
         wkv_state = F.pad(wkv_state, (0, 0, 0, 0, 0, kh - n))
     elif h_pad > h:
@@ -278,12 +357,14 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
     else:
         o, new_wkv = wkv_recurrent(*args)
 
-    if own:
+    if heads is not None:
+        o, new_wkv = o[:, :, :hh], new_wkv[:, :hh]
+    elif own:
         o = R.gather_whole(o, 2, ctx)
-        heads = [m * kh + j for m in range(ctx.model_size)
-                 for j in range(block(h, ctx.model_size, m)[1])]
-        o = (o[:, :, :h] if heads == list(range(h))
-             else o[:, :, torch.tensor(heads, device=o.device)])
+        heads_ = [m * kh + j for m in range(ctx.model_size)
+                  for j in range(block(h, ctx.model_size, m)[1])]
+        o = (o[:, :, :h] if heads_ == list(range(h))
+             else o[:, :, torch.tensor(heads_, device=o.device)])
         new_wkv = new_wkv[:, :n]
     elif split:
         o = R.gather_whole(o, 2, ctx)[:, :, :h]
@@ -293,9 +374,9 @@ def _time_mix(p, x, cfg: ModelConfig, state, chunked, ctx: ShardCtx):
         new_wkv = new_wkv[:, :h]
 
     # per-head group norm (per-channel scale reshaped to heads)
-    ln = {"scale": p["ln_x"]["scale"].reshape(h, r_cfg.head_dim)}
+    ln = {"scale": chan(p["ln_x"]["scale"]).reshape(hh, hd)}
     o = rms_norm(o, ln, eps=1e-5 * 64)                    # (B,T,H,D) per head
-    o = o.reshape(b, t, d).to(dt) * g
+    o = o.reshape(b, t, hh * hd).to(dt) * g
     out = _linear(o, p["wo"], dt)
     new_state = None
     if state is not None:

@@ -93,17 +93,19 @@ def global_norm(tree) -> torch.Tensor:
 
 def _global_norm_sharded(leaves) -> torch.Tensor:
     from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.parallel.regions import reduce_data
     mesh = leaves[0].device_mesh
     total = 0
     for g in leaves:
         if any(p.is_partial() for p in g.placements):
-            g = g.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                      for p in g.placements])
+            g = reduce_data(g, [Replicate() if p.is_partial() else p
+                                for p in g.placements])
         copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
                            if p.is_replicate())
         total = total + g.to_local().to(torch.float32).square().sum() / copies
     total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim)
-    return torch.sqrt(total.full_tensor())
+    return torch.sqrt(reduce_data(total, [Replicate()] * mesh.ndim)
+                      .to_local())
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params):

@@ -23,9 +23,16 @@ is partitioned, as GSPMD partitions the JAX package's serve steps, and
 staged op the dry run counts as ``collective-permute``, or one gather
 over the data axes together); `models.blocks._linear` states the rule.
 A table lookup may instead leave the table in place and move its rows
-to their owners (`rows_to_owners`, one all-to-all), and a region's
-scalar sums over every mesh dim are reduced in one call
-(`sum_losses`).
+to their owners (`rows_to_owners`, one all-to-all), a region's scalar
+sums over every mesh dim are reduced in one call (`sum_losses`), and a
+layer may read only its rank's block of a weight (`block_of`).
+
+Where several data axes split one dim of a weight (``("pod", "data")``
+on 2 x 16 x 16), it moves in one collective over them together, as
+GSPMD moves it, where DTensor runs one a mesh dim: the use-site gather
+and, where autograd records, its gradient's reduce-scatter
+(`gather_data`), and a sum over them (`sum_partial`, `reduce_data`: a
+replicated leaf's gradient, the loss).
 """
 
 from __future__ import annotations
@@ -264,12 +271,13 @@ def region(fn, ctx: ShardCtx, in_specs, out_specs, in_grad=None):
 
 
 def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
-                 partial: bool = False):
+                 partial: bool = False, blocks=None):
     """``body(p, x, state) -> (out, new_state)``, a layer whose weights
     stay where the port's specs place them over the model axis, run on
     each rank's blocks.  Its operands: each weight of the tree ``p`` (a
     DTensor) in its own placements with its data (FSDP) split gathered,
-    the use-site gather GSPMD makes; ``x`` (B, T, d) split by batch over
+    the use-site gather GSPMD makes (in one call where several data
+    axes split it, `gather_data`); ``x`` (B, T, d) split by batch over
     the data axes (when they divide it) and whole over ``model``; each
     leaf of the ``state`` dict in its own placements (the cache specs),
     which the new state's leaves keep.
@@ -286,12 +294,22 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
     `models.blocks._linear`): gathered, moved to the model ranks, or left
     in place; the body gets each weight placed so as a `LocalPlan`
     bound to its block, which only ``_linear`` reads (it runs the
-    product on the rank's blocks).
+    product on the rank's blocks).  ``blocks`` ({key of ``p``: (dim,
+    start, length)}, serve steps only) names weights the body reads only
+    a block of on this rank: it gets that block as a plain tensor
+    (`block_of`), not an operand of the region.
     """
     from torch.distributed.tensor import Partial, Replicate
     from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
     from repro_torch.models.blocks import _bspec_for
     leaves = tree_leaves(p)
+    blocks = blocks or {}
+    if blocks and recorded(x, *leaves):
+        raise ValueError("a region's weight blocks are for serve steps: "
+                         "autograd records this one")
+    owners = [k for k in sorted(p) for _ in tree_leaves(p[k])]
+    fixed = {i: block_of(w, *blocks[k])
+             for i, (k, w) in enumerate(zip(owners, leaves)) if k in blocks}
     keys = sorted(state) if state is not None else []
     bspec = _bspec_for(ctx, x.shape[0])
     names = list(ctx.mesh.mesh_dim_names)
@@ -306,6 +324,8 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
         if plan is not None:
             w = place_for_product(w, plan)
             return w, tuple(w.placements), None, local_plan(w, plan)
+        if gathers_flat(w):
+            w = gather_data(w)
         pin = [Replicate() if i in data else q
                for i, q in enumerate(w.placements)]
         grad = list(pin)
@@ -315,15 +335,16 @@ def layer_region(body, ctx: ShardCtx, p, x, state=None, *,
             grad[model] = Partial()
         return w, tuple(pin), tuple(grad), None
 
-    w_pl = [weight(w) for w in leaves]
+    w_pl = [weight(w) for i, w in enumerate(leaves) if i not in fixed]
     s_pl = [tuple(state[k].placements) for k in keys]
     out = partial_on_model(xs, ctx) if partial else placements(xs, ctx)
 
     def run(x_, *rest):
-        p_ = tree_unflatten(p, [
-            b if lp is None else dataclasses.replace(lp, block=b)
-            for b, (_, _, _, lp) in zip(rest[:len(leaves)], w_pl)])
-        s_ = (dict(zip(keys, rest[len(leaves):])) if state is not None
+        bound = iter(b if lp is None else dataclasses.replace(lp, block=b)
+                     for b, (_, _, _, lp) in zip(rest[:len(w_pl)], w_pl))
+        p_ = tree_unflatten(p, [fixed[i] if i in fixed else next(bound)
+                                for i in range(len(leaves))])
+        s_ = (dict(zip(keys, rest[len(w_pl):])) if state is not None
               else None)
         o, ns = body(p_, x_, s_)
         return (o,) + tuple(ns[k] for k in keys)
@@ -418,6 +439,11 @@ def _dims(mesh):
     return model, [i for i in range(len(names)) if i != model]
 
 
+def data_dims(mesh) -> list:
+    """The data mesh dims of ``mesh`` (all but ``model``)."""
+    return _dims(mesh)[1]
+
+
 def _rank_at(mesh, coord) -> int:
     """The global rank at mesh coordinate ``coord``, from this rank's
     groups along each mesh dim (a mesh over evenly spaced ranks, as
@@ -468,16 +494,18 @@ class ProductPlan:
     ranks, the product row-parallel there), ``"rows"`` or ``"cols"``
     (the weight left in place, row- or column-parallel over ``dims``),
     ``"all_to_all"`` (a lookup: the table left in place, the indices
-    gathered over ``dims`` and the rows moved back, `rows_to_owners`)."""
+    gathered over ``dims`` and the rows moved back, `rows_to_owners`);
+    ``bytes`` what it moves a rank (`product_plan`'s costs)."""
     kind: str
     dims: tuple
     dim: int
+    bytes: int = dataclasses.field(default=0, compare=False)
 
 
 def product_plan(x, w, lookup_dt=None):
     """The plan of ``x @ w`` (DTensors, ``w`` 2-D) over the data mesh
     dims that split ``w``, where autograd does not record it; None where
-    it does (the train step gathers as before) or when no data dim
+    it does (the train step gathers, `gather_data`) or when no data dim
     splits ``w``.  With ``lookup_dt``, ``x`` holds indices of ``w``'s
     rows instead, each a row of the product (a table lookup: the
     product of their one-hot rows with ``w``, in ``lookup_dt``).  The
@@ -499,13 +527,13 @@ def product_plan(x, w, lookup_dt=None):
     if not split:
         return None
     dims = tuple(sorted(split))
+    wl, xl = w.to_local(), x.to_local()
+    parts = math.prod(mesh.size(i) for i in dims)
+    gather = wl.numel() * wl.element_size() * parts
     if len(set(split.values())) != 1:
-        return ProductPlan("gather", dims, -1)
+        return ProductPlan("gather", dims, -1, gather)
     wd = split[dims[0]]
     xs = [x.placements[i] for i in dims]
-    parts = math.prod(mesh.size(i) for i in dims)
-    wl, xl = w.to_local(), x.to_local()
-    gather = wl.numel() * wl.element_size() * parts
     if lookup_dt is None:
         last = x.ndim - 1
         rows = xl.numel() // max(xl.shape[-1], 1)
@@ -517,7 +545,7 @@ def product_plan(x, w, lookup_dt=None):
             moved = (xl.numel() * x.dtype.itemsize * parts
                      + rows * parts * wl.shape[1] * out_item)
             if moved < gather:
-                return ProductPlan("all_to_all", dims, wd)
+                return ProductPlan("all_to_all", dims, wd, moved)
         if (wd == 0 and len(dims) == 1 and model is not None
                 and mesh.size(dims[0]) == mesh.size(model)
                 and w.placements[model].is_replicate()
@@ -525,8 +553,8 @@ def product_plan(x, w, lookup_dt=None):
             permute = (wl.numel() * wl.element_size()
                        + rows * wl.shape[1] * out_item)
             if permute < gather:
-                return ProductPlan("permute", dims, wd)
-        return ProductPlan("gather", dims, wd)
+                return ProductPlan("permute", dims, wd, permute)
+        return ProductPlan("gather", dims, wd, gather)
     whole = all(p.is_replicate() for p in xs)
     if whole or (wd == 0 and all(p.is_shard(last) or p.is_replicate()
                                  for p in xs)):
@@ -534,28 +562,84 @@ def product_plan(x, w, lookup_dt=None):
         # along its features as the weight's rows are
         cols = wl.shape[1] * (parts if wd == 1 else 1)
         if rows * cols * out_item < gather:
-            return ProductPlan("rows" if wd == 0 else "cols", dims, wd)
-    return ProductPlan("gather", dims, wd)
+            return ProductPlan("rows" if wd == 0 else "cols", dims, wd,
+                               rows * cols * out_item)
+    return ProductPlan("gather", dims, wd, gather)
 
 
-def gathers_flat(w) -> bool:
+def gathers_flat(w, dims=None) -> bool:
     """Does `gather_data` gather ``w`` in one call over several data mesh
-    dims (no gradient recorded, and they split one tensor dim)?"""
+    dims (``dims``; all that split it when None): do they split one
+    tensor dim?"""
     from torch.distributed.tensor import DTensor
-    if not isinstance(w, DTensor) or recorded(w):
+    if not isinstance(w, DTensor):
         return False
-    split = [q.dim for i, q in enumerate(w.placements)
-             if i in _dims(w.device_mesh)[1] and q.is_shard()]
-    return len(split) > 1 and len(set(split)) == 1
+    if dims is None:
+        dims = [i for i in _dims(w.device_mesh)[1]
+                if w.placements[i].is_shard()]
+    split = [w.placements[i].dim if w.placements[i].is_shard() else None
+             for i in dims]
+    return len(split) > 1 and len(set(split)) == 1 and None not in split
+
+
+def _from_local(local, like, placements):
+    """``local`` as a DTensor of ``like``'s mesh, shape and stride in
+    ``placements``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+class _GatherData(torch.autograd.Function):
+    """A DTensor whole over the data mesh dims ``dims`` that split its
+    tensor dim ``dim``: one tiled all-gather over their group (major to
+    minor, `_group`), as GSPMD gathers an FSDP weight over ``("pod",
+    "data")``.  Its gradient comes back in the operand's placements:
+    one reduce-scatter over the same group where it is a `Partial` sum
+    there (each rank used the weight on its own batch shard), this
+    rank's block where it is whole there.  Nothing is saved: under remat
+    the gather runs again."""
+
+    @staticmethod
+    def forward(ctx_, w, dims, dim, group, index):
+        from torch.distributed.tensor import Replicate
+        ctx_.dims, ctx_.dim, ctx_.group, ctx_.index = dims, dim, group, index
+        ctx_.placements = tuple(w.placements)
+        local = _gather(w.to_local(), dim, group)
+        return _from_local(local, w, [Replicate() if i in dims else q
+                                      for i, q in enumerate(w.placements)])
+
+    @staticmethod
+    def backward(ctx_, g):
+        dims, dim = ctx_.dims, ctx_.dim
+        pl = list(g.placements)
+        for i in dims:
+            pl[i] = ctx_.placements[i]
+        if all(g.placements[i].is_partial() for i in dims):
+            local = g.to_local().movedim(dim, 0).contiguous()
+            local = _done(torch.ops._c10d_functional.reduce_scatter_tensor(
+                local, "sum", ctx_.group.size(), ctx_.group.group_name))
+            local = local.movedim(0, dim)
+        elif all(g.placements[i].is_replicate() for i in dims):
+            n = g.shape[dim] // ctx_.group.size()
+            local = g.to_local().narrow(dim, ctx_.index * n, n)
+        else:
+            raise ValueError(
+                f"the gradient of a weight gathered over mesh dims {dims} "
+                f"comes back {tuple(g.placements)}: neither a sum nor whole "
+                f"there")
+        return _from_local(local, g, pl), None, None, None, None
 
 
 def gather_data(w, dims=None):
     """``w`` (a DTensor) whole over the data mesh dims ``dims`` (all that
-    split it when None): DTensor's redistribution, or where several data
-    dims split one tensor dim and no gradient is recorded, one tiled
-    all-gather over them together, as GSPMD gathers over
+    split it when None): where several of them split one tensor dim, one
+    tiled all-gather over them together, as GSPMD gathers over
     ``("pod", "data")`` (DTensor gathers each in turn: 1.5 times the
-    bytes on 2 x 16 x 16)."""
+    bytes on 2 x 16 x 16), and where autograd records, its gradient
+    reduce-scattered in one call too (`_GatherData`); otherwise
+    DTensor's redistribution."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(w, DTensor):
         return w
@@ -565,18 +649,12 @@ def gather_data(w, dims=None):
     dims = list(dims)
     if not dims:
         return w
-    pl = list(w.placements)
-    if (recorded(w) or len(dims) < 2
-            or len({pl[i].dim for i in dims}) != 1):
-        for i in dims:
-            pl[i] = Replicate()
-        return w.redistribute(mesh, pl)
-    group, _ = _group(mesh, dims)
-    local = _gather(w.to_local(), pl[dims[0]].dim, group)
-    for i in dims:
-        pl[i] = Replicate()
-    return DTensor.from_local(local, mesh, pl, run_check=False,
-                              shape=w.shape, stride=w.stride())
+    if not gathers_flat(w, dims):
+        return w.redistribute(mesh, [Replicate() if i in dims else q
+                                     for i, q in enumerate(w.placements)])
+    group, index = _group(mesh, dims)
+    return _GatherData.apply(w, tuple(dims), w.placements[dims[0]].dim,
+                             group, index)
 
 
 def permute_to_model(w, dim: int):
@@ -608,21 +686,114 @@ def place_for_product(w, plan: ProductPlan):
     return w
 
 
+def _block_split(w):
+    """(the data mesh dims that split ``w``, the tensor dim they split)
+    of a DTensor whole over ``model``."""
+    model, data = _dims(w.device_mesh)
+    dims = [i for i in data if w.placements[i].is_shard()]
+    split = {w.placements[i].dim for i in dims}
+    if (model is not None and not w.placements[model].is_replicate()) \
+            or len(split) > 1:
+        raise ValueError(f"a weight block needs the weight whole over "
+                         f"model and split along one dim, not "
+                         f"{tuple(w.placements)}")
+    return dims, (split.pop() if split else None)
+
+
+def block_of(w, dim: int, start: int, length: int) -> torch.Tensor:
+    """The block ``[start, start + length)`` along ``dim`` of ``w`` (a
+    DTensor whole over ``model``; a plain tensor as it is), whole, as a
+    plain tensor of this rank, where no gradient is recorded.  Where the
+    data mesh dims split ``w``'s other dim, each rank's part of the
+    block gathered in one call over them (the columns of a row-split
+    weight: GSPMD's column block); where they split ``dim``, ``w``
+    gathered whole in one call and the block taken; else the block of
+    this rank's tensor, no collective."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(w, DTensor):
+        return w.narrow(dim, start, length)
+    dims, split = _block_split(w)
+    local = w.to_local()
+    if not dims:
+        return local.narrow(dim, start, length)
+    group, _ = _group(w.device_mesh, dims)
+    if split == dim:
+        return _gather(local, split, group).narrow(dim, start, length)
+    part = local.narrow(dim, start, length)
+    if not length:         # every rank of the group holds the same block
+        shape = list(part.shape)
+        shape[split] *= group.size()
+        return part.new_empty(shape)
+    return _gather(part, split, group)
+
+
+def block_bytes(w, dim: int, length: int) -> int:
+    """The bytes `block_of` gathers for a block ``length`` long along
+    ``dim`` of ``w`` (the gathered result, as the dry run counts an
+    all-gather)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(w, DTensor):
+        return 0
+    dims, split = _block_split(w)
+    if not dims:
+        return 0
+    shape = list(w.shape)
+    if split != dim:
+        shape[dim] = length
+    return math.prod(shape) * w.element_size()
+
+
+class _SumPartial(torch.autograd.Function):
+    """A DTensor `Partial` over mesh dims ``dims`` reduced there by one
+    all-reduce over their group; its gradient (whole there, as every
+    rank reads the sum) goes back to each summand as it is, as DTensor's
+    own reduction passes it."""
+
+    @staticmethod
+    def forward(ctx_, x, dims, group):
+        from torch.distributed.tensor import Replicate
+        ctx_.dims = dims
+        return _from_local(_reduce(x.to_local(), "sum", group), x,
+                           [Replicate() if i in dims else q
+                            for i, q in enumerate(x.placements)])
+
+    @staticmethod
+    def backward(ctx_, g):
+        if not all(g.placements[i].is_replicate() for i in ctx_.dims):
+            raise ValueError(
+                f"the gradient of a sum over mesh dims {ctx_.dims} comes "
+                f"back {tuple(g.placements)}, not whole there")
+        return g, None, None
+
+
 def sum_partial(out, dims):
     """A DTensor `Partial` over mesh dims ``dims`` reduced there: one
-    all-reduce over them together (no gradient)."""
-    from torch.distributed.tensor import DTensor, Replicate
+    all-reduce over them together (`_SumPartial`, differentiable)."""
     dims = [i for i in dims if out.placements[i].is_partial()]
     if not dims:
         return out
-    mesh = out.device_mesh
-    group, _ = _group(mesh, dims)
-    local = _reduce(out.to_local(), "sum", group)
-    pl = list(out.placements)
-    for i in dims:
-        pl[i] = Replicate()
-    return DTensor.from_local(local, mesh, pl, run_check=False,
-                              shape=out.shape, stride=out.stride())
+    group, _ = _group(out.device_mesh, dims)
+    return _SumPartial.apply(out, tuple(dims), group)
+
+
+def reduce_data(x, placements=None):
+    """``x`` (a DTensor; a plain tensor as it is) with its `Partial`
+    sums over several data mesh dims reduced in one all-reduce over them
+    together, as GSPMD reduces a sum over ``("pod", "data")``, where
+    ``placements`` holds them whole (None: only that); then in
+    ``placements`` by DTensor's redistribution (one collective a mesh
+    dim), as where one data dim holds the sum."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    dims = [i for i in _dims(mesh)[1] if x.placements[i].is_partial()
+            and (placements is None or placements[i].is_replicate())]
+    if len(dims) > 1:
+        x = sum_partial(x, dims)
+    if placements is None or tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
 
 
 def finish_product(y, plan: ProductPlan):
@@ -667,13 +838,14 @@ def rows_to_owners(y, dims):
 
 def sum_losses(*xs):
     """DTensors `Partial` over mesh dims (a region's scalar sums: the MoE
-    aux losses), replicated: where autograd records, by DTensor's
-    redistribution (an all-reduce a mesh dim, as the train step has
-    them), otherwise by one all-reduce of them stacked, over those dims
-    together."""
+    aux losses), replicated: where autograd records, each by
+    `reduce_data` (one all-reduce over the data dims, one over
+    ``model``), otherwise by one all-reduce of them stacked, over those
+    dims together."""
     from torch.distributed.tensor import DTensor, Replicate
     if recorded(*xs):
-        return tuple(replicate(x) for x in xs)
+        return tuple(reduce_data(x, [Replicate()] * x.device_mesh.ndim)
+                     for x in xs)
     dims = [i for i, p in enumerate(xs[0].placements) if p.is_partial()]
     if not dims:
         return xs

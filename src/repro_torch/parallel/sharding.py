@@ -21,8 +21,12 @@ specs.  Per-family rules:
                                sequence-sharded (llama3.2: 24 heads % 16)
   MoE experts                  EP: leading expert dim over `model`
   mamba                        d_inner over `model`
-  rwkv time-mix                replicated over `model` (40 heads), FSDP
-                               over `data`; channel-mix FFN + vocab TP
+  rwkv time-mix                weights replicated over `model` (40
+                               heads), FSDP over `data`; at
+                               rwkv_pad_heads a serve step may run it on
+                               each rank's heads (`rwkv6.own_heads`:
+                               their column blocks gathered, `wo`
+                               row-parallel); channel-mix FFN + vocab TP
   embed / lm_head              vocab over `model`, d_model over `data`
 
 Caches: KV/latent caches are sequence-sharded over `model`; SSM states

@@ -125,7 +125,8 @@ def _cross_entropy_sharded(logits, labels, mask, ctx: ShardCtx):
 
     specs = [(bspec, None, ctx.model_axis if split else None),
              (bspec, None)] + ([(bspec, None)] if mask is not None else [])
-    nll, count = R.region(body, ctx, specs, [part, part])(*ops)
+    nll, count = (R.reduce_data(a) for a in R.region(body, ctx, specs,
+                                                     [part, part])(*ops))
     return (nll / count.clamp_min(1.0))[0]
 
 
@@ -166,7 +167,8 @@ def value_and_grad(params, batch, cfg: ModelConfig, ctx: ShardCtx = LOCAL,
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     if ctx.enabled:       # partial sums reduced: each in its leaf's placement
-        grads = [g.redistribute(p.device_mesh, p.placements)
+        from repro_torch.parallel import regions as R
+        grads = [R.reduce_data(g, p.placements)
                  for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)

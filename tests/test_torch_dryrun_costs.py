@@ -161,10 +161,20 @@ def test_per_device_flops_sum_to_the_global_count():
 JAX_SIDE = """
     import dataclasses, json, sys
     from repro.launch import dryrun as jd
+    from repro.launch import mesh as jm
     from repro import configs
     cases = json.loads(sys.argv[1])
     texts, recs = [], []
     inner, lower = jd.collective_bytes, jd._lower_one
+    production = jd.make_production_mesh
+
+    def mesh_of(*, multi_pod=False, shape=None):
+        # a (pod, data, model) mesh of any shape for the smoke cells
+        if shape is not None and len(shape) == 3:
+            return jd.jax.make_mesh(tuple(shape), ("pod", "data", "model"),
+                                    **jm._axis_kwargs(3))
+        return production(multi_pod=multi_pod, shape=shape)
+    jd.make_production_mesh = mesh_of
 
     def recorded(text):
         texts.append(text)
@@ -193,9 +203,10 @@ JAX_SIDE = """
         configs.SHAPES[name] = configs.Shape(name, seq, batch, kind)
         cfg = dataclasses.replace(configs.get_smoke_config(arch), **over)
         del texts[:], recs[:]
-        rec = jd._lower_one(cfg, name, multi_pod=False,
+        pods = len(mesh) == 3
+        rec = jd._lower_one(cfg, name, multi_pod=pods,
                             mesh_shape=tuple(mesh))
-        cal = jd.calibrated_costs(cfg.name, name, cfg, multi_pod=False,
+        cal = jd.calibrated_costs(cfg.name, name, cfg, multi_pod=pods,
                                   mesh_shape=tuple(mesh))
         counts, lines = [], []
         for text in texts[1:]:          # the two calibration lowerings
@@ -220,11 +231,12 @@ def _jax_dry_runs(cases):
     """The JAX dry run of each case ``(arch, kind, seq_len, batch, mesh,
     overrides)``: a ``kind`` step of ``batch`` sequences (a cache of
     ``seq_len`` at decode) at the arch's smoke config with ``overrides``,
-    on ``mesh`` (data, model), in one subprocess (it sets its own 512
-    host devices).  Each: the direct and calibrated collectives, the
-    calibrated costs, and of the one- and two-repeat lowerings the
-    collective calls by op, the costs, and every collective line's op
-    and result shapes; the one-repeat lowering's collective lines."""
+    on ``mesh`` (data, model) or (pod, data, model), in one subprocess
+    (it sets its own 512 host devices).  Each: the direct and calibrated
+    collectives, the calibrated costs, and of the one- and two-repeat
+    lowerings the collective calls by op, the costs, and every collective
+    line's op and result shapes; the one-repeat lowering's collective
+    lines."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)   # the JAX dry run sets its 512 devices
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SIDE),

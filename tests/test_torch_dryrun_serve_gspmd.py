@@ -15,6 +15,11 @@ the mesh's world size; `repro.launch.dryrun` in a subprocess):
   it split by heads, `rwkv6.head_split`), so the state's collective
   bytes a layer (results shaped ``(..., D, D)``) are at most JAX's (GSPMD
   gathers 3 padded heads to 6 over pairs of model ranks at full size);
+- rwkv6-3b's decode step at ``rwkv_pad_heads`` 48 at full size on the
+  production 2 x 16 x 16 mesh: the time mix on each rank's block of
+  heads (`rwkv6.own_heads`), its head weights gathered as column blocks
+  in one call over ``("pod", "data")``, so its collective bytes and
+  FLOPs are within 1.25 times JAX's;
 - rwkv6-3b's decode step with its parameters FSDP-placed on 2 x 2 (the
   smoke size): the embedding lookup gathers no table, only the tokens,
   and moves its rows by one all-to-all (`regions.product_plan`'s
@@ -57,9 +62,10 @@ SMOKE_STEP = (16, 4)                        # cache length, batch
 # name -> (arch, overrides, production mesh (multi-pod) or None (smoke))
 CASES = {"dsl": ("deepseek-v2-lite-16b", {}, True),
          "rwkv48": ("rwkv6-3b", {"rwkv_pad_heads": 48}, False),
+         "rwkv48_pods": ("rwkv6-3b", {"rwkv_pad_heads": 48}, True),
          "pad8": ("rwkv6-3b", {"rwkv_pad_heads": 8}, None),
          "fsdp": ("rwkv6-3b", {}, None)}
-JAX_CASES = ("dsl", "rwkv48", "pad8")
+JAX_CASES = ("dsl", "rwkv48", "rwkv48_pods", "pad8")
 
 JAX_SIDE = """
     import dataclasses, json, sys
@@ -157,12 +163,11 @@ def _port(name, multi_pod=None):
     return recs, calls
 
 
-def _calibrated_total(name, recs):
+def _calibrated_total(name, recs, field="collectives", key="total"):
     cfg = _cfg(name)
     base = cfg.moe.first_k_dense if cfg.moe is not None else 0
     reps = (cfg.n_layers - base) / max(cfg.scan_group, 1)
-    return dryrun._affine(recs[0]["collectives"]["total"],
-                          recs[1]["collectives"]["total"], reps)
+    return dryrun._affine(recs[0][field][key], recs[1][field][key], reps)
 
 
 def _state_bytes(calls, hd):
@@ -242,6 +247,38 @@ def test_experts_gathered_in_one_call_within_the_bound(runs):
     assert 0 < total <= BOUND * jax_total
     single, _ = _port("dsl", multi_pod=False)
     assert _calibrated_total("dsl", single) <= DSL_SINGLEPOD_BEFORE
+
+
+def test_rwkv48_time_mix_on_its_heads_within_the_bound(runs):
+    """rwkv48's decode_32k on 2 x 16 x 16: each rank runs the time mix on
+    its block of heads (`rwkv6.own_heads`), ``wr``, ``wk``, ``wv`` and
+    ``wg`` gathered as column blocks of its 3 heads over the 32 ranks of
+    ``("pod", "data")`` (GSPMD gathers 5 heads' (2560, 320)), ``wo``
+    whole as GSPMD gathers it, none of the four whole: collective bytes
+    and FLOPs within 1.25 times JAX's (the parent read 2.10 and 1.63
+    times)."""
+    cal = runs[0]["rwkv48_pods"]["cal"]
+    recs, calls = _port("rwkv48_pods")
+    cfg = _cfg("rwkv48_pods")
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    block = -(-d // hd // make_production_mesh(multi_pod=True).sizes[
+        "model"]) * hd
+    for k, c in zip(dryrun.CALIBRATION_REPEATS, calls):
+        gathers = collections.Counter(
+            (s, size) for op, s, size in c if op == "all-gather"
+            and len(s) == 2 and d in s)
+        print(f"{k} repeats: 2-D gathers of d rows (shape, group size) "
+              f"{dict(gathers)}")
+        assert gathers[((d, block), 32)] == 4 * k, k
+        # wo and the channel mix's wr
+        assert gathers[((d, d), 32)] == 2 * k, k
+    total = _calibrated_total("rwkv48_pods", recs)
+    flops = _calibrated_total("rwkv48_pods", recs, "cost", "flops")
+    jax_total, jax_flops = cal["collectives"]["total"], cal["flops"]
+    print(f"rwkv48 {DECODE} 2 x 16 x 16: port {total} B, {flops:.4g} "
+          f"FLOPs; JAX {jax_total} B, {jax_flops:.4g} FLOPs")
+    assert 0 < total <= BOUND * jax_total
+    assert 0 < flops <= BOUND * jax_flops
 
 
 @pytest.mark.parametrize("name", ["rwkv48", "pad8"])

@@ -187,3 +187,25 @@ def test_serve_moves_as_gspmd(runs, param):
             losses = [s for op, s, _ in calls["decode"]
                       if op == "all-reduce" and s in ((), (2,))]
             assert losses == [(2,)] * moe * ranks.STEPS, (rank, losses)
+
+
+@pytest.mark.parametrize("mesh", [m for m, cases in CASES.items()
+                                  if "rwkv6-3b+pad6" in cases])
+def test_time_mix_runs_on_its_heads(runs, mesh):
+    """rwkv6-3b at pad 6: where `rwkv6.own_heads` chooses the rank's
+    heads (on 2 x 2 x 2, where ``("pod", "data")`` split the weights; on
+    2 x 2 the permute at decode moves fewer bytes), the rank's ``wr``,
+    ``wk``, ``wv`` and ``wg`` products run at its block's width: 2 heads
+    of 16 of the 4."""
+    cfg = _jax_cfg("rwkv6-3b")
+    for rank, out in enumerate(runs[0][mesh]):
+        got = out["rwkv6-3b+pad6"]
+        own = [h for h in got["heads"] if h is not None]
+        print(f"{'x'.join(map(str, mesh))} rank {rank}: heads "
+              f"{set(own)} in {len(own)} of {len(got['heads'])} time "
+              f"mixes, products {got['products']}")
+        assert len(own) == (len(got["heads"]) if mesh == (2, 2, 2) else 0)
+        width = {n * cfg.rwkv.head_dim for _, n in own}
+        assert width <= {cfg.d_model // 2}, (rank, width)
+        for w in width:
+            assert got["products"][(cfg.d_model, w)] == 4 * len(own), rank

@@ -9,6 +9,7 @@ body takes numpy inputs and returns numpy results (or plain values).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -285,7 +286,8 @@ def _collective_log():
     """A dispatch mode that logs each functional collective (and the
     port's permute) a rank runs, one entry a result tensor: (op under
     the dry run's names, `repro_torch.launch.dryrun.COLLECTIVE_OPS`,
-    result shape, group size of an all-gather or None)."""
+    result shape, group size of an all-gather or a reduce-scatter or
+    None)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.launch import dryrun
 
@@ -300,7 +302,8 @@ def _collective_log():
             if (func.namespace in dryrun.COLLECTIVE_NAMESPACES
                     and name in dryrun.COLLECTIVE_OPS):
                 op = dryrun.COLLECTIVE_OPS[name]
-                size = args[1] if op == "all-gather" else None
+                size = {"all-gather": 1, "reduce-scatter": 2}.get(op)
+                size = args[size] if size is not None else None
                 for t in (out if isinstance(out, (list, tuple)) else [out]):
                     self.calls.append((op, tuple(t.shape), size))
             return out
@@ -315,8 +318,10 @@ def serve_gspmd(rank, world, shape, cases):
     axes), the batch split over the data axes: prefill + STEPS greedy
     decode steps (`_serve`), the cache read out whole after SNAP of
     them; the plans the products took (`regions.product_plan` by kind,
-    a lookup's as ``"lookup <kind>"``) and the functional collectives of
-    the prefill and of the decode steps (op, result shape, group size);
+    a lookup's as ``"lookup <kind>"``), the functional collectives of
+    the prefill and of the decode steps (op, result shape, group size),
+    each time mix's choice of `rwkv6.own_heads` and the shapes of the
+    weight blocks its products took as plain tensors;
     whether each cache leaf's block on this rank is its block of the
     leaf read out whole (`sharding.local_slice`); and the same run on
     the port's single device (per data shard where a MoE routes), held
@@ -324,13 +329,14 @@ def serve_gspmd(rank, world, shape, cases):
     import collections
     import math
     from repro_torch.launch import mesh as M
-    from repro_torch.models import lm
+    from repro_torch.models import lm, rwkv6
     from repro_torch.parallel import regions as R, sharding as shd
     axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                        "model")
     mesh = M.make_mesh(shape, axes, device="cpu")
     data = math.prod(shape[:-1])
     inner = R.product_plan
+    inner_heads, inner_linear = rwkv6.own_heads, rwkv6._linear
     out = {}
     for name, (cfg, params_np, batch_np) in cases.items():
         ctx = shd.make_shard_ctx(mesh, cfg)
@@ -350,13 +356,26 @@ def serve_gspmd(rank, world, shape, cases):
                 kinds[("lookup " if lookup_dt is not None else "")
                       + plan.kind] += 1
             return plan
+        heads, products = [], collections.Counter()
+
+        def own_heads(*args, **kw):
+            heads.append(inner_heads(*args, **kw))
+            return heads[-1]
+
+        def linear(x, w, dt):
+            # the time mix's products of a weight block the rank holds
+            if type(w) is torch.Tensor and w.ndim == 2:
+                products[tuple(w.shape)] += 1
+            return inner_linear(x, w, dt)
         R.product_plan = product_plan
+        rwkv6.own_heads, rwkv6._linear = own_heads, linear
         caches = []
         try:
             got_toks, got_logits, state = _serve(
                 cfg, sp, batch, ctx, snap=SNAP, keep=caches, logs=logs)
         finally:
             R.product_plan = inner
+            rwkv6.own_heads, rwkv6._linear = inner_heads, inner_linear
         blocks_equal = []
         shd.map_with_path(lambda p, leaf: blocks_equal.append(
             torch.equal(shd.local_slice(R.full(leaf), _spec_of(leaf, mesh),
@@ -366,6 +385,7 @@ def serve_gspmd(rank, world, shape, cases):
             "tokens": got_toks.numpy(), "logits": got_logits.numpy(),
             "state": state, "plans": dict(kinds),
             "calls": {k: v.calls for k, v in logs.items()},
+            "heads": heads, "products": dict(products),
             "blocks_equal": all(blocks_equal),
             "tokens_equal": bool(torch.equal(want_toks, got_toks)),
             "logit_gap": float((got_logits - want_logits).abs().max())}
@@ -626,20 +646,27 @@ def _staged_forwards(cases):
 # ---- the dry run's per-device pass against a real rank ---------------------
 
 
-def dryrun_costs_2x2(rank, world, cases):
+def dryrun_costs_2x2(rank, world, cases, mesh_shape=(2, 2)):
     """``cases``: {name: (cfg, Shape, train kwargs)}.  For each, the
     cell's step
-    (`repro_torch.launch.dryrun.cell_step`) on a real 2 x 2 mesh of gloo
-    CPU ranks, its operands placed by the dry run's specs from values
-    drawn here (parameters from seed 0, tokens and labels from seed 1,
-    a zero cache), measured as the dry run measures a fake rank
-    (`dryrun.measure`): this rank's record."""
+    (`repro_torch.launch.dryrun.cell_step`) on a real mesh of gloo CPU
+    ranks (2 x 2, or (pod, data, model) ``mesh_shape``), its operands
+    placed by the dry run's specs from values drawn here (parameters
+    from seed 0, tokens and labels from seed 1, a zero cache), measured
+    as the dry run measures a fake rank (`dryrun.measure`): this rank's
+    record."""
     from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as shd
     out = {}
     for name, (cfg, shape, train_kwargs) in cases.items():
-        mesh, ctx = _mesh_ctx(2, 2, cfg)
+        if len(mesh_shape) == 2:
+            mesh, ctx = _mesh_ctx(*mesh_shape, cfg)
+        else:
+            mesh = M.make_mesh(mesh_shape, ("pod", "data", "model"),
+                               device="cpu")
+            ctx = shd.make_shard_ctx(mesh, cfg)
         _, p_specs, meta_batch, b_specs, _, c_specs = dryrun._operands(
             cfg, shape, ctx)
         params = lm.init_model(torch.Generator().manual_seed(0), cfg,
@@ -659,6 +686,82 @@ def dryrun_costs_2x2(rank, world, cases):
                                           cache, train_kwargs=train_kwargs,
                                           decode_len=shape.seq_len - 1)
         out[name] = dryrun.measure(step, operands)
+    return out
+
+
+def dryrun_train_cell(cfg, shape, mesh, folded):
+    """The dry run's fake rank of ``cfg``'s ``shape`` train step, run in
+    a process of its own (the fake process group is process-global): on
+    ``mesh`` at `dryrun.CALIBRATION_REPEATS` repeats of the layer
+    pattern, with the redistributions run as sequential collectives at
+    the first (`tools/dryrun_sequential.py`'s record, described), the
+    calibrated collectives, and on ``folded`` at the first."""
+    import importlib.util
+    import os
+    from repro_torch.launch import dryrun
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_sequential", os.path.join(os.path.dirname(__file__), "..",
+                                          "tools", "dryrun_sequential.py"))
+    sequential = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sequential)
+    first, second = (dryrun._unrolled_variant(cfg, k)
+                     for k in dryrun.CALIBRATION_REPEATS)
+    with sequential.recording() as seen:
+        one = dryrun.per_device_costs(first, shape, mesh)
+    two = dryrun.per_device_costs(second, shape, mesh)
+    base = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    reps = (cfg.n_layers - base) / max(cfg.scan_group, 1)
+    return {"sequential": sequential.describe(seen), "repeats": one,
+            "folded": dryrun.per_device_costs(first, shape, folded),
+            "calibrated": {op: dryrun._affine(
+                one["collectives"].get(op, 0), two["collectives"].get(op, 0),
+                reps) for op in set(one["collectives"])
+                | set(two["collectives"])}}
+
+
+def train_multipod(rank, world, shape, cases):
+    """``cases``: {name: (cfg, params, batch)}, numpy, float32.  On a
+    (pod, data, model) mesh of ``shape``, the parameters placed by the
+    port's specs (FSDP over ``("pod", "data")``), the batch split over
+    the data axes: `train.step.value_and_grad` without remat (each
+    weight used once a forward): the loss, the gradients by path,
+    whether each has its parameter's placements, the functional
+    collectives the ranks ran (op, result shape, group size) and the
+    number of FSDP-split weights a step uses (a stacked leaf's repeats
+    each), split over the data axes together, or over one of them."""
+    from repro_torch.ckpt.manager import tree_leaves, tree_unflatten
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import step as ts
+    mesh = M.make_mesh(shape, ("pod", "data", "model"), device="cpu")
+    out = {}
+    for name, (cfg, params_np, batch_np) in cases.items():
+        ctx = shd.make_shard_ctx(mesh, cfg)
+        params = lm.lm_params_from_numpy(cfg, params_np, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        sp = shd.shard_tree(params, shd.params_pspecs(params, cfg, ctx), mesh)
+        sb = shd.shard_tree(batch, shd.batch_pspecs(batch, cfg, ctx), mesh)
+        log = _collective_log()
+        with log:
+            loss, _, grads = ts.value_and_grad(sp, sb, cfg, ctx, remat=False)
+        leaves = tree_leaves(sp)
+        stacked = tree_leaves(shd.map_with_path(
+            lambda p, _: p.startswith("groups/"), sp))
+        split = collections.Counter(
+            tuple(q.dim for q in w.placements[:2] if q.is_shard())
+            for w in leaves)
+        fsdp = sum((w.shape[0] if st else 1) for w, st in zip(leaves, stacked)
+                   if all(q.is_shard() for q in w.placements[:2])
+                   and w.placements[0] == w.placements[1])
+        out[name] = {
+            "loss": float(_np(loss)),
+            "grads": _by_path(tree_unflatten(sp, grads)),
+            "grads_like_params": all(g.placements == w.placements
+                                     for g, w in zip(grads, leaves)),
+            "calls": log.calls, "fsdp": fsdp,
+            "one_axis": sum(n for dims, n in split.items()
+                            if len(dims) == 1)}
     return out
 
 

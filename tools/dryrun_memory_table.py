@@ -17,12 +17,12 @@ a markdown table.  ``--view peak`` (GB, 1e9 B): for each arch of
 ``--shape``, on each production mesh, the port's peak (and, given
 ``--before``, an earlier run's beside it), JAX's argument + temp and
 their ratio.  ``--view costs``: a row a cell (arch, shape, mesh) of
-every shape listed, per device and calibrated to the real depth: FLOPs
-and collective bytes (GB), each the earlier run's (``--before``), the
-port's, JAX's and port / JAX, and the port's peak beside the earlier
-run's.  ``--variant`` reads each directory's records of that dry-run
-variant instead (``--variant rwkv48``).  A cell with no record reads
-"not run".
+every shape listed, per device and calibrated to the real depth: FLOPs,
+collective bytes and all-gather bytes (GB), each the earlier run's
+(``--before``), the port's, JAX's and port / JAX, and the port's peak
+beside the earlier run's.  ``--variant`` reads each directory's
+records of that dry-run variant instead (``--variant rwkv48``).  A
+cell with no record reads "not run".
 """
 
 from __future__ import annotations
@@ -65,13 +65,14 @@ MESHES = (("singlepod", "16 × 16"), ("multipod", "2 × 16 × 16"))
 
 
 def _cost(rec, key):
-    """A record's calibrated per-device FLOPs (``"flops"``) or total
-    collective bytes (``"collectives"``); None without a record."""
+    """A record's calibrated per-device FLOPs (``"flops"``) or collective
+    bytes of one op or in all (``"all-gather"``, ``"total"``); None
+    without a record."""
     if rec is None or "cost_calibrated" not in rec:
         return None
     cal = rec["cost_calibrated"]
     return cal["flops"] if key == "flops" else cal["collectives"].get(
-        "total", 0)
+        key, 0)
 
 
 def _ratio(new, jax):
@@ -87,9 +88,9 @@ def _gb4(n):
 
 
 def cost_rows(shapes, port, jax_dir, before=None, archs=None):
-    """A row a (arch, shape, mesh) that either side recorded: FLOPs and
-    collective bytes before, now and JAX's, and the peak before and
-    now."""
+    """A row a (arch, shape, mesh) that either side recorded: FLOPs,
+    collective bytes in all and all-gather bytes before, now and JAX's,
+    and the peak before and now."""
     out = []
     for shape in shapes:
         names = {arch for arch, _ in rows(shape, port, jax_dir, before)}
@@ -101,7 +102,8 @@ def cost_rows(shapes, port, jax_dir, before=None, archs=None):
                     continue
                 out.append((arch, shape, label,
                             [_cost(r, "flops") for r in recs],
-                            [_cost(r, "collectives") for r in recs],
+                            [_cost(r, "total") for r in recs],
+                            [_cost(r, "all-gather") for r in recs],
                             [_port_peak(r) for r in recs[:2]]))
     return out
 
@@ -110,14 +112,16 @@ def print_costs(shapes, port, jax_dir, before=None, archs=None):
     head = ["arch", "shape", "mesh", "FLOPs before", "FLOPs", "FLOPs JAX",
             "FLOPs port / JAX", "collectives GB before", "collectives GB",
             "collectives GB JAX", "collectives port / JAX",
-            "peak GB before", "peak GB"]
+            "all-gather GB before", "all-gather GB", "all-gather GB JAX",
+            "all-gather port / JAX", "peak GB before", "peak GB"]
     print("| " + " | ".join(head) + " |")
     print("|" + " --- |" * len(head))
-    for arch, shape, mesh, flops, coll, peak in cost_rows(
+    for arch, shape, mesh, flops, coll, gathers, peak in cost_rows(
             shapes, port, jax_dir, before, archs):
         line = [arch, shape, mesh, *map(_flops, flops),
                 _ratio(flops[1], flops[2]), *map(_gb4, coll),
-                _ratio(coll[1], coll[2]), *map(_gb, peak)]
+                _ratio(coll[1], coll[2]), *map(_gb4, gathers),
+                _ratio(gathers[1], gathers[2]), *map(_gb, peak)]
         print("| " + " | ".join(line) + " |")
 
 

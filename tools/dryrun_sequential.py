@@ -3,7 +3,7 @@ several collectives one after the other (DTensor gathers or sums each
 mesh dim in turn where it cannot take them together: 1.5 times the
 bytes of one gather over ``("pod", "data")``).
 
-    python tools/dryrun_sequential.py [--shape decode_32k,long_500k]
+    python tools/dryrun_sequential.py [--shape train_4k,decode_32k]
         [--arch rwkv6-3b,...] [--variant rwkv48] [--repeats 2]
 
 For each runnable cell of the shapes and archs given (all archs by
@@ -12,33 +12,32 @@ process group (`repro_torch.launch.dryrun.per_device_costs`, meta
 tensors) at ``--repeats`` repeats of the layer pattern, and prints one
 line a cell: each such redistribution (source and target placements,
 the collectives it runs, the local tensor's shape and bytes) and how
-many times it ran, or ``none``.
+many times it ran, or ``none``.  `recording` gives the same record to
+other code (the dry-run tests load this file).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import inspect
 import os
 import sys
 
+SHAPES = "train_4k,decode_32k,long_500k,prefill_32k"
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--shape", default="decode_32k,long_500k,prefill_32k")
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--variant", default="baseline")
-    ap.add_argument("--repeats", type=int, default=2)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "src"))
+
+@contextlib.contextmanager
+def recording():
+    """A counter of the redistributions run as sequential collectives
+    while the context is open, keyed (source placements, target
+    placements, collectives, their kind, the local tensor's shape, its
+    bytes).  DTensor calls the function it replaces where it plans one
+    collective a mesh dim (it warns once a process; this records every
+    time)."""
     import torch
     import torch.distributed.tensor._redistribute as rd
-    from repro_torch import configs
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_production_mesh
-
     seen: collections.Counter = collections.Counter()
 
     def record(device_mesh, mesh_dims, src, dst, num_ops, comm_type,
@@ -52,9 +51,36 @@ def main(argv=None) -> int:
                   else local.numel() * local.element_size())
         seen[(str(src), str(dst), num_ops, comm_type, shape, nbytes)] += 1
 
-    # called where DTensor plans one collective a mesh dim (it warns once
-    # a process; this records every time)
+    inner = rd._warn_flatten_optimization_not_possible
     rd._warn_flatten_optimization_not_possible = record
+    try:
+        yield seen
+    finally:
+        rd._warn_flatten_optimization_not_possible = inner
+
+
+def describe(seen) -> str:
+    """One line of a `recording` counter: each redistribution and its
+    count, or ``none``."""
+    return "; ".join(
+        f"{src} -> {dst}: {n} x {ops} {comm} of {shape} ({nbytes} B)"
+        for (src, dst, ops, comm, shape, nbytes), n in
+        sorted(seen.items(), key=str)) or "none"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shape", default=SHAPES)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--repeats", type=int, default=2)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
     spec = dryrun.VARIANTS[args.variant]
     archs = args.arch.split(",") if args.arch else list(configs.ARCHS)
     for shape in args.shape.split(","):
@@ -65,22 +91,17 @@ def main(argv=None) -> int:
             if "cfg_fn" in spec:
                 cfg = spec["cfg_fn"](cfg)
             for multi_pod in (False, True):
-                seen.clear()
-                dryrun.per_device_costs(
-                    dryrun._unrolled_variant(cfg, args.repeats),
-                    configs.SHAPES[shape],
-                    make_production_mesh(multi_pod=multi_pod,
-                                         shape=spec.get("mesh_shape")),
-                    train_kwargs=spec.get("train_kwargs", {}),
-                    opt_overrides=configs.train_overrides(arch))
+                with recording() as seen:
+                    dryrun.per_device_costs(
+                        dryrun._unrolled_variant(cfg, args.repeats),
+                        configs.SHAPES[shape],
+                        make_production_mesh(multi_pod=multi_pod,
+                                             shape=spec.get("mesh_shape")),
+                        train_kwargs=spec.get("train_kwargs", {}),
+                        opt_overrides=configs.train_overrides(arch))
                 mesh = "2 x 16 x 16" if multi_pod else "16 x 16"
-                found = "; ".join(
-                    f"{src} -> {dst}: {n} x {ops} {comm} of {shape_} "
-                    f"({nbytes} B)"
-                    for (src, dst, ops, comm, shape_, nbytes), n in
-                    sorted(seen.items())) or "none"
-                print(f"{arch} {shape} {args.variant} {mesh}: {found}",
-                      flush=True)
+                print(f"{arch} {shape} {args.variant} {mesh}: "
+                      f"{describe(seen)}", flush=True)
     return 0
 
 
