@@ -22,7 +22,15 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     pallas_sparse group's scenario streams, ragged, one lane at rest); the
     whole run with the inter-chip tier inside at 16 x 256 x 512 as 2 and
     4 chips, every arbiter x NoC pair, currents and all 12 stats bitwise
-    (its largest gap printed on its own line);
+    (its largest gap printed on its own line); the whole run's group
+    form (fabrics over one block's shared memory, G blocks a (tick,
+    lane)) at 128 x 256 x 512 on one chip for every arbiter x NoC pair
+    and at 256 x 256 x 512 as 16 chips x 16 cores at hier_tree for the
+    three NoC schemes, unseeded and seeded, with the per-core output
+    (currents, table, sums and per-core terms bitwise), each
+    pallas_sparse session's currents bitwise its xla twin's with one
+    launch a run, and G, the shared bytes a block and the device us a
+    launch over 256 Bernoulli 0.05 ticks beside the bound by bytes;
     cam_search's match counts at 8192 queries x 4096 sources x 1
     and 5 words, one lane at valid densities 0, one live source, 0.05,
     0.5 and 1, and three lanes at (0.05, 0.5, 1) and (1, 0, one live
@@ -180,10 +188,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
     pallas and xla sessions' ms a tick and the stream form's launch; the
     dense LMs' prefill ms, decode ms a step, tokens/s, host split,
     device profile and peak memory, and the trained LM's ms a step
-    (median and quartiles of 5), its forward/backward/update split,
+    (median and quartiles of 3), its forward/backward/update split,
     profile and peak memory; the same for the served rwkv6-3b, jamba cut
     and phi-3-vision, the hubert-xlarge encoder's ms a forward, and the
-    trained rwkv6-3b (3 timed steps); lif_step on bfloat16 with L2
+    trained rwkv6-3b (2 timed steps); lif_step on bfloat16 with L2
     flushed, beside its bound by bytes;
  6. a ``kernels`` JSON line, then the card line, then the ok line.
 
@@ -238,7 +246,7 @@ MOE_LONG = ((65536, 64), (65536, 160), (1048576, 64), (1048576, 160))
 MOE_BENCH = ((16384, 160), (65536, 160))   # benchmarks/kernel_bench.py times
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 128, 32
 LM_CHECK_BATCH, LM_CHECK_TOKENS = 2, 32
-LM_RUNS = 3
+LM_RUNS = 2                     # timed generates
 # the dense GQA LMs: the four architectures' 2-layer full-width checks
 # (gemma3-12b: its 6-layer group), the served models and the trained one
 DENSE_ARCHS = ("internlm2-1.8b", "llama3.2-3b", "qwen3-32b", "gemma3-12b")
@@ -252,7 +260,7 @@ DENSE_NEW_TOKENS = 32
 DENSE_PROFILE_STEPS = 4
 BANDED_TOKENS = 2048
 DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH = 4096, 2    # train_4k's seq_len
-DENSE_TRAIN_STEPS = 5
+DENSE_TRAIN_STEPS = 3           # timed steps, after a warm-up
 DENSE_DRILL_STEPS, DENSE_DRILL_FAIL, DENSE_DRILL_EVERY = 3, 2, 2
 DENSE_DRILL_SEQ, DENSE_DRILL_BATCH = 256, 2
 # the rest of the registry: RWKV6, the Jamba hybrid, the audio and vision
@@ -267,7 +275,7 @@ VISION_PROMPT = 128             # text tokens after phi-3-vision's patches
 AUDIO_BATCH, AUDIO_FRAMES = 4, 1024
 AUDIO_RUNS = 3
 RWKV_TRAIN_SEQ, RWKV_TRAIN_BATCH = 4096, 2      # train_4k's seq_len
-RWKV_TRAIN_STEPS = 3
+RWKV_TRAIN_STEPS = 2            # timed steps, after a warm-up
 INT8_REL = 0.15                 # tests/test_perf_variants.py's bound
 LIF_BF16_SHAPES = ((128, 4096), (8, 512), (16, 1024), (8, 4096), (32, 128))
 SERVE_TENANTS = 8               # benchmarks/noc_bench.py --serve's default
@@ -357,34 +365,62 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_events(fn, captures: int = 3):
-    """Run ``fn`` under the profiler; return (host wall us, the device-side
-    events: kernels, copies and sets, each with its duration in us).
+# the profiler on the card drops the device records of the first launches
+# of a capture, more the longer the process has run and the more the
+# capture holds (an H100 under torch 2.11 lost none 20 s in, the first
+# 12 of a capture 160 s in, 17 at 220 s, and 263 of a 16,460-launch
+# capture some 500 s in; the launches' host records all there): each
+# capture first launches this many small kernels, which take the loss,
+# and the count doubles whenever one of the window's own launches still
+# left no device record
+PROFILE_LEAD = [1024]
 
-    A capture of a short window with a handful of device ops now and then
-    comes back with no device event at all although the ops ran; such a
-    capture is taken again, at most ``captures`` times in all, and each
-    retry is printed.  The callers still fail when every capture came
-    back empty.
+
+def device_events(fn, captures: int = 6):
+    """Run ``fn`` under the profiler; return (host wall us, the device-side
+    events of ``fn``'s window: kernels, copies and sets, each with its
+    duration in us).
+
+    Each capture launches `PROFILE_LEAD` small kernels before the window
+    and leaves their records out.  A capture in which any kernel launch of
+    the window has no device record is taken again with twice the lead,
+    at most ``captures`` times in all, each retry printed; it fails when
+    no capture kept every launch's record, since a window with records
+    missing reads low.
     """
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
+    pad = torch.zeros(1, device=torch.cuda.current_device())
     for attempt in range(captures):
+        lead = PROFILE_LEAD[0]
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                pad.add_(1)
+            torch.cuda.synchronize()
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if device:
+        events = prof.events()
+        launches = sorted(e.id for e in events if e.device_type != cuda
+                          and "aunch" in e.name and "HostFunc" not in e.name)
+        ours, theirs = set(launches[:lead]), launches[lead:]
+        device = [e for e in events
+                  if e.device_type == cuda and e.id not in ours]
+        recorded = {e.id for e in device}
+        lost = sum(i not in recorded for i in theirs)
+        if len(launches) >= lead and not lost and (device or not theirs):
             break
-        print(f"profiler capture {attempt + 1} of {captures} recorded no "
-              f"device event; capturing again" if attempt + 1 < captures
-              else f"profiler: none of {captures} captures recorded a "
-              f"device event")
+        PROFILE_LEAD[0] = 2 * lead
+        what = (f"lost the device records of {lost} of the window's "
+                f"{len(theirs)} launches (lead {lead})")
+        check(attempt + 1 < captures, f"the profiler {what} in each of "
+              f"{captures} captures")
+        print(f"profiler capture {attempt + 1} of {captures} {what}; "
+              f"capturing again with a lead of {2 * lead}")
     return wall_us, device
 
 
@@ -551,6 +587,171 @@ def routed_card_vs_cpu(label, k, card_route, cpu_route, card_logits,
             f"{logit_gap:.3e} (within rtol {LOGIT_RTOL} / atol {LOGIT_ATOL}; "
             f"largest logit {float(lp.abs().max()):.3f}) and route weights "
             f"{weight_gap:.3e} (within rtol {ROUTE_RTOL} / atol {ROUTE_ATOL})")
+
+
+# B1's group form: fabrics over one block's shared memory, of the paper's
+# core (256 neurons, 512 CAM entries): 128 cores on one chip under every
+# arbiter x NoC pair, and 256 cores as 16 chips x 16 cores at hier_tree
+# under the three NoC schemes
+GROUP_FABRICS = ((128, 1, SCHEMES), (256, 16, ("hier_tree",)))
+GROUP_LAUNCHES = 40             # launches a profiled window
+
+
+def grouped_fabric(dev, tag, max_err):
+    """Phase 3's group form of B1 (`sparse_run_cuda` with G > 1 blocks a
+    (tick, lane)) on each of `GROUP_FABRICS`: the kernel bitwise its plain
+    version on two lanes of a stream whose RUN_BURST ticks overflow,
+    unseeded and seeded by a non-zero acc0, with the per-core output
+    (currents, table, sums, per-core terms); each pallas_sparse session's
+    currents bitwise its xla twin's, one B1 launch a run; then G, the
+    shared bytes a block and the device us a launch over TICKS Bernoulli
+    RATE ticks, beside the bound by bytes.  Returns each fabric's numbers
+    for the kernels line's B1 row."""
+    from repro_torch.interface import Interface, InterfaceConfig, pipeline
+    from repro_torch.interface.stats import StepStats
+    from repro_torch.interface.types import random_connectivity
+    from repro_torch.kernels.sparse_tick import kernel as sparse_kernel
+    from repro_torch.kernels.sparse_tick import ops as sparse_ops
+    from repro_torch.noc.topology import NocConfig
+
+    start = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    fields = len(StepStats._fields)
+    whole = [StepStats._fields.index(f) for f in WHOLE_FIELDS]
+    overflow = [t in RUN_BURST for t in range(RUN_TICKS)]
+    sparse = [t for t in range(RUN_TICKS) if not overflow[t]]
+    index = torch.tensor(sparse, dtype=torch.int32, device=dev)
+    results = {}
+    for cores, chips, schemes in GROUP_FABRICS:
+        def config(scheme, noc, impl="pallas_sparse"):
+            return InterfaceConfig(cores=cores, neurons_per_core=NEURONS,
+                                   cam_entries_per_core=ENTRIES,
+                                   scheme=scheme, noc=NocConfig(noc),
+                                   impl=impl, chips=chips)
+        fabric = f"{cores}x{NEURONS}x{ENTRIES} ({chips} chips)"
+        base = config("hier_tree", "multicast_tree")
+        params = random_connectivity(
+            torch.Generator(dev).manual_seed(SEED + cores), base)
+        routing = pipeline.build_routing_index(params, base)
+        frames = torch.rand((RUN_LANES, RUN_TICKS, cores, NEURONS),
+                            generator=gen, device=dev) < RATE
+        cases = 0
+        for noc in NOC_SCHEMES:
+            tables = pipeline.build_tables(params, config("hier_tree", noc))
+            for scheme in schemes:
+                cfg = config(scheme, noc)
+                label = f"group form {fabric} {scheme}/{noc}"
+                plan = pipeline.make_plan(params, cfg, tables=tables,
+                                          routing=routing)
+                kplan = plan.run.kernel.plan
+                check(kplan.grouped and kplan.groups > 1 and
+                      kplan.smem <= sparse_kernel.MAX_SHARED_BYTES,
+                      f"{label}: planned {kplan}")
+                stream = frames & (frames.to(torch.int32).cumsum(-1)
+                                   <= plan.run.capacity)
+                stream[:, list(RUN_BURST)] = True
+                acc0 = torch.rand((fields, RUN_LANES), generator=gen,
+                                  device=dev) * 1000
+                acc0[whole] = acc0[whole].round()
+                for seed in (None, acc0):
+                    cur = torch.full(tuple(stream.shape), math.nan,
+                                     device=dev)
+                    table = torch.full((RUN_TICKS, fields, RUN_LANES),
+                                       math.nan, device=dev)
+                    core = torch.full((2, RUN_TICKS, RUN_LANES, cores),
+                                      math.nan, device=dev)
+                    for t in RUN_BURST:
+                        c, st = pipeline.dense_tick(plan, params,
+                                                    stream[:, t])
+                        cur[:, t], table[t] = c, torch.stack(tuple(st))
+                    plain = (cur.clone(), table.clone(), core.clone())
+                    acc = sparse_kernel.sparse_run_cuda(
+                        stream, index, plan.run.kernel, cur, table, seed,
+                        core)
+                    want = sparse_ops.sparse_run_ref(
+                        stream, sparse, plan.run, plain[0], plain[1], seed,
+                        plain[2])
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(
+                            ("currents", "table", "sums", "per-core output"),
+                            (cur, table, acc, core),
+                            (plain[0], plain[1], want, plain[2])):
+                        check(torch.equal(g.nan_to_num(-1.0),
+                                          w.nan_to_num(-1.0)),
+                              f"{label}{'' if seed is None else ' seeded'}: "
+                              f"{name} differ from the plain version")
+                        max_err["sparse_tick"] = max(
+                            max_err["sparse_tick"],
+                            float((g - w).nan_to_num(0.0).abs().max()))
+                session = Interface(cfg).compile(params, device=dev)
+                xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(
+                    params, device=dev)
+                before = sparse_kernel.launches
+                got = session.run_batched(stream)
+                check(sparse_kernel.launches == before + 1,
+                      f"{label}: {sparse_kernel.launches - before} B1 "
+                      f"launches in a session run")
+                check(torch.equal(got[0], xla.run_batched(stream)[0]),
+                      f"{label}: session currents differ from the xla "
+                      f"session's")
+                cases += 1
+        one = sparse_kernel.run_shared_bytes(
+            cores, NEURONS, plan.run.kernel.src.shape[0], plan.run.capacity,
+            plan.run.kernel.links.shape[-1])
+        print(f"kernel == plain: sparse_run group form at {fabric}, G = "
+              f"{kplan.groups} blocks a (tick, lane) of {kplan.smem} B of "
+              f"shared memory (one block would need {one} B), "
+              f"{cases} arbiter x NoC pairs, {RUN_LANES} lanes x {RUN_TICKS} "
+              f"ticks (ticks {RUN_BURST} overflow), unseeded and seeded, "
+              f"with the per-core output: currents, table, sums and "
+              f"per-core terms bitwise; each pallas_sparse session's "
+              f"currents bitwise the xla session's, 1 launch a run")
+
+        # its time: one lane of TICKS Bernoulli RATE ticks at hier_tree /
+        # multicast_tree, the bound counted as for the 16-core row
+        kops = pipeline.make_plan(params, base, routing=routing).run.kernel
+        run_frames = torch.rand((1, TICKS, cores, NEURONS), generator=gen,
+                                device=dev) < RATE
+        run_frames &= (run_frames.to(torch.int32).cumsum(-1)
+                       <= kops.capacity)
+        out = (torch.empty(tuple(run_frames.shape), device=dev),
+               torch.empty((TICKS, fields, 1), device=dev))
+        acc = sparse_kernel.sparse_run_cuda(run_frames, None, kops, *out)
+        us = device_ms_per_call(
+            lambda: sparse_kernel.sparse_run_cuda(run_frames, None, kops,
+                                                  *out), GROUP_LAUNCHES,
+            "sparse_run_kernel") * 1e3
+        all_us = device_ms_per_call(
+            lambda: sparse_kernel.sparse_run_cuda(run_frames, None, kops,
+                                                  *out), GROUP_LAUNCHES) * 1e3
+        flat = run_frames.reshape(TICKS, -1)
+        hits = int((flat[:, routing.src_idx.reshape(-1).long()]
+                    & routing.active.reshape(-1)).sum())
+        events = int(flat.sum())
+        sources = int(flat.any(0).sum())
+        links = kops.links.shape[-1]
+        moved = nbytes(kops.ptr, kops.src, kops.weight, run_frames, *out,
+                       acc) + sources * (16 + 4 * links +
+                                         (8 if chips > 1 else 0))
+        ops = hits + events * links + 22 * TICKS + 2 * (flat.numel() +
+                                                         4 * events)
+        bound_ms, bound_by = bound(moved, ops, FP32_OPS_PER_S)
+        print(f"{tag} sparse_run group form at {fabric} (hier_tree, "
+              f"multicast_tree): G = {kops.plan.groups}, {kops.plan.smem} B "
+              f"of shared memory a block, {us:.3f} us a launch for {TICKS} "
+              f"Bernoulli {RATE} ticks = {us / TICKS:.4f} us a tick "
+              f"(profiler, {GROUP_LAUNCHES} launches; {all_us:.3f} us of "
+              f"device time a call with the scratch's zeroing); bound "
+              f"{bound_ms * 1e3:.4f} us by {bound_by} ({moved} bytes at "
+              f"3.35 TB/s; {ops} ops), kernel at "
+              f"{bound_ms * 1e3 / us:.4f} of it")
+        results[f"{cores}x{NEURONS}x{ENTRIES}_chips{chips}"] = {
+            "groups": kops.plan.groups, "smem": kops.plan.smem, "us": us,
+            "us_with_scratch": all_us, "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by}
+    print(f"{tag} group form phase: {time.perf_counter() - start:.1f} s "
+          f"(host clock)")
+    return results
 
 
 def served_lm(dev, tag, reset_launches, read_launches, no_launch):
@@ -1870,7 +2071,7 @@ def train_lm_full(dev, tag, reset_launches, read_launches, no_launch, cfg,
     print(f"{tag} trained LM {cfg.name} step split (each stage synchronized):"
           f" total {total * 1e3:.3f} ms = {parts}; the rest (loss, tree "
           f"walks) {(total - sum(spent.values())) * 1e3:.3f}")
-    wall_us, events = device_events(lambda: step(state, batch), captures=2)
+    wall_us, events = device_events(lambda: step(state, batch), captures=4)
     check(bool(events), "the profiler recorded no device op in a step")
     busy_us = sum(e.device_time_total for e in events)
     print(f"{tag} profile trained LM {cfg.name} step: wall {wall_us:.1f} us "
@@ -2222,7 +2423,7 @@ def serve_vision(dev, tag, reset_launches, read_launches, no_launch, cfg,
           f"{LM_BATCH * steps / total_s:.3f} new tokens/s (host clock, each "
           f"step synchronized); peak {peak:.2f} GiB")
     wall_us, events = device_events(lambda: run(DENSE_PROFILE_STEPS),
-                                    captures=2)
+                                    captures=4)
     check(bool(events), f"the profiler recorded no device op in "
           f"{cfg.name}'s run")
     busy_us = sum(e.device_time_total for e in events)
@@ -2289,7 +2490,7 @@ def encode_audio(dev, tag, reset_launches, read_launches, no_launch, cfg,
           f"{', '.join(f'{x:.3f}' for x in spent)}; host clock, "
           f"synchronized) = {AUDIO_BATCH * AUDIO_FRAMES / med * 1e3:.1f} "
           f"frames/s; peak {peak:.2f} GiB")
-    wall_us, events = device_events(encode, captures=2)
+    wall_us, events = device_events(encode, captures=4)
     check(bool(events), f"the profiler recorded no device op in "
           f"{cfg.name}'s forward")
     busy_us = sum(e.device_time_total for e in events)
@@ -2418,7 +2619,7 @@ def serve_dense(dev, tag, reset_launches, read_launches, no_launch, cfg,
     # the profile of a shorter generate (the prefill and DENSE_PROFILE_STEPS
     # decode steps): the profiler's own processing grows with its events
     wall_us, events = device_events(
-        lambda: engine.generate(prompts, DENSE_PROFILE_STEPS), captures=2)
+        lambda: engine.generate(prompts, DENSE_PROFILE_STEPS), captures=4)
     check(bool(events), f"the profiler recorded no device op in "
           f"{cfg.name}'s generate")
     busy_us = sum(e.device_time_total for e in events)
@@ -4085,6 +4286,9 @@ def main() -> int:
     print(f"kernel vs plain: sparse_run with the inter-chip tier, largest "
           f"absolute gap {chip_gap}")
 
+    # B1's group form: fabrics over one block's shared memory
+    group_times = grouped_fabric(dev, tag, max_err)
+
     # the seeded whole run at the serve path's shape: one pallas_sparse
     # group's SERVE_TENANTS // 2 lanes x SERVE_FLUSH ticks on the scaled
     # fabric, each lane its tenant's scenario stream, right-padded with
@@ -4863,7 +5067,8 @@ def main() -> int:
     rows[-1].update(ticks_per_launch=TICKS, us_per_tick=b1_ms * 1e3 / TICKS,
                     launches_per_512_ticks=path_launches["sparse_tick"],
                     serve_launches_per_flush=serve_per_flush["sparse_tick"],
-                    train_eval_launches=train_launches["sparse_tick"])
+                    train_eval_launches=train_launches["sparse_tick"],
+                    group_form=group_times)
     print(f"{tag} sparse_tick whole run: {b1_ms * 1e3 / TICKS:.4f} us per "
           f"tick; {path_launches['sparse_tick']} launches in the 512 "
           f"pallas_sparse ticks of phase 4 ({sources} sources spiked)")
@@ -4929,7 +5134,7 @@ def main() -> int:
         "sparse_run_kernel")
     print(f"{tag} sparse_run at 64 cores, {TICKS} ticks: {ms * 1e3:.3f} us "
           f"per launch, {ms * 1e3 / TICKS:.4f} us per tick (profiler, 40 "
-          f"launches; {wide_plan.run.kernel.smem} B of shared memory a "
+          f"launches; {wide_plan.run.kernel.plan.smem} B of shared memory a "
           f"block)")
 
     # the one-tick op (not on the path any more): its time, for reference

@@ -63,13 +63,32 @@
 //   bits of one uninterrupted run.  The session writes its dense fallback
 //   ticks' rows before the launch.
 //
-//   One block holds a whole (tick, lane): at 64 cores x 256 neurons x 512
-//   entries, nine in ten of them live, that is 221 KB of shared memory,
-//   near the 227 KB a block may take, so a fabric that needs more is
-//   refused (ValueError in the wrapper).  A thread block cluster splitting
-//   the cores was tried and timed: it helps only when a run has fewer
-//   (tick, lane) items than the card has SMs, and the session's runs have
-//   hundreds.
+//   One block holds a whole (tick, lane) where the fabric fits a block's
+//   227 KB of shared memory (at 64 cores x 256 neurons x 512 entries, nine
+//   in ten of them live, 221 KB).  A larger fabric takes the group form
+//   (kernel.py `plan_groups`, chosen once at bind time): the (tick, lane)
+//   is cut into G groups of consecutive cores, one block a (tick, lane,
+//   group).  A group's targets are a contiguous range of the CSR order, so
+//   its live entries are too: the block stages its cores' frames, its
+//   entries' contributions and its targets' CSR offsets, compacts its own
+//   cores' events, computes their arbiter latency and encode energy, walks
+//   its own targets' segments and does its own events' accounting, reading
+//   from global memory (L2) what it does not hold: every source's spike
+//   (a source may lie in any core), and where even one core does not fit
+//   a block the part that core needs most of (the CSR offsets of a core
+//   with very many neurons, the contributions of one with very many
+//   entries, its frame, its event buffers, the last kept in a scratch).
+//   Each target is still summed in one block in ascending entry order from
+//   0.0, so the currents keep their bits; every sum across groups is
+//   order-free (integer counts, maxima, exact dyadic energies, link loads
+//   that are whole numbers below 2^24) and goes into a per-(tick, lane)
+//   scratch by atomics; the last group of a (tick, lane) (a counter that
+//   wraps back to 0) writes its row.  So B1 takes every fabric the TPU
+//   kernel takes (cores x entries up to MAX_FUSED_ELEMS = 2^22).  A thread
+//   block cluster alone would not: 16 blocks x 227 KB is below the 16 MB
+//   of contributions at 2^22 live entries, and splitting the cores over a
+//   cluster was timed to help only when a run has fewer (tick, lane)
+//   items than the card has SMs.
 //
 // Bound.  At 16 cores x 256 neurons x 512 entries, capacity 32, a 256-tick
 // Bernoulli 0.05 run must read the 1 MB of frames, the routing operands and
@@ -94,6 +113,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRunThreads = 512;
 constexpr int kRunWarps = kRunThreads / 32;
 constexpr int kFields = 12;   // StepStats fields
+// what a group block holds in shared memory; the same bits as STAGE_* in
+// repro_torch/kernels/sparse_tick/kernel.py
+constexpr int kStageFrame = 1, kStageContrib = 2, kStageSeg = 4,
+              kStageEvents = 8;
+// a (tick, lane)'s words of item_acc before its link loads: events, hits,
+// hops, dest, swept, depth, chip hops, chip depth, latency (float bits,
+// max), encode energy (float), groups finished
+constexpr int kItemWords = 12;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Branch ids; the same numbers as ArbiterScheme.kernel_policy in
@@ -156,6 +183,16 @@ struct RunArgs {
   const float* acc0;         // (12, B) the sum's seed, or null: 0.0
   unsigned* done;            // finished (tick, lane) items; 0 at launch,
                              // 0 again after it
+  const int32_t* group_start;  // (G + 1,) first core of each group, or
+                               // null: one block a (tick, lane)
+  int* item_acc;             // (items, item_stride) zeroed: each (tick,
+                             // lane)'s partial sums (kItemWords), then its
+                             // link loads; group form only
+  int* spill;                // event buffers and lists of the blocks that
+                             // do not hold them, or null
+  int groups, group_cores;   // G, and the most cores in a group
+  int stage;                 // kStage* parts a group block holds
+  int item_stride;           // ints a (tick, lane) of item_acc
   int lanes, ticks_total, items, cores, links_n, noc_links_n;
   int flood;                 // 1: every event searched in every core
   int vec;                   // frames 16-byte aligned: stage with cp.async
@@ -399,11 +436,135 @@ __device__ void stats_row(const RunArgs& a, const Partial& s, float busiest,
   row[11] = chip ? __fmul_rn(chops, a.chip_hop_energy) : 0.0f;  // chip_energy
 }
 
+// 2. compaction and the scheme's policies, a warp per core, for the
+// block's ``cores`` cores (the fabric's c0, c0 + 1, ...; core lc's frame at
+// frame + lc * n): each core's ascending event addresses into its K + 1
+// slots of ``buf`` padded with n, its event count, arbiter latency and
+// encode energy x events, and on request the per-core output.
 template <int POLICY>
-__global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
-  extern __shared__ __align__(16) unsigned char run_smem[];
+__device__ __forceinline__ void compact_cores(
+    const RunArgs& a, const uint8_t* frame, int cores, int c0, int t, int b,
+    int* buf, int* cnt, float* lat, float* encc, int* lo_max) {
+  const int n = a.p.n, slots = a.p.slots;
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  int* lm = lo_max + warp * a.p.sqrt_n;
+  for (int lc = warp; lc < cores; lc += kRunWarps) {
+    const uint8_t* fr = frame + static_cast<size_t>(lc) * n;
+    int* row = buf + lc * slots;
+    int count = 0;
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int j = j0 + ln;
+      const bool on = j < n && fr[j];
+      const unsigned m = __ballot_sync(kFull, on);
+      if (on) {
+        const int pos = count + __popc(m & ((1u << ln) - 1u));
+        if (pos < slots) row[pos] = j;
+      }
+      count += __popc(m);
+    }
+    for (int j = min(count, slots) + ln; j < slots; j += 32) row[j] = n;
+    if (POLICY == kHierRing)
+      for (int q = ln; q < a.p.sqrt_n; q += 32) lm[q] = -1;
+    __syncwarp();
+    const float2 le = policies<POLICY>(a.p, row, count, lm);
+    if (ln == 0) {
+      const float e = __fmul_rn(le.y, static_cast<float>(count));
+      cnt[lc] = count;
+      lat[lc] = le.x;
+      encc[lc] = e;
+      if (a.core_out != nullptr) {
+        const size_t plane = static_cast<size_t>(a.ticks_total) * a.lanes *
+                             a.cores;
+        const size_t at = (static_cast<size_t>(t) * a.lanes + b) * a.cores +
+                          c0 + lc;
+        a.core_out[at] = le.x;
+        a.core_out[plane + at] = e;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// 3. the block's events over the first K slots of each core, as flat
+// sources in core order (warp 0 scans the per-core counts into ``off``);
+// returns their number.  Every thread of the block calls it.
+__device__ __forceinline__ int event_list(const RunArgs& a, int cores,
+                                          int c0, const int* buf,
+                                          const int* cnt, int* off, int* ev,
+                                          int& n_events) {
+  const int n = a.p.n, slots = a.p.slots, cap = slots - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
+  if (warp == 0) {
+    int total = 0;
+    for (int b0 = 0; b0 < cores; b0 += 32) {
+      const int lc = b0 + ln;
+      const int v = lc < cores ? min(cnt[lc], cap) : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, o);
+        if (ln >= o) incl += u;
+      }
+      if (lc < cores) off[lc] = total + incl - v;
+      total += __shfl_sync(kFull, incl, 31);
+    }
+    if (ln == 0) n_events = total;
+  }
+  __syncthreads();
+  for (int i = tid; i < cores * cap; i += kRunThreads) {
+    const int lc = i / cap, j = i - lc * cap;
+    if (j < min(cnt[lc], cap))
+      ev[off[lc] + j] = (c0 + lc) * n + buf[lc * slots + j];
+  }
+  __syncthreads();
+  return n_events;
+}
+
+// The events' table entries, summed (maxima for the depths) by the block
+// into ``part`` with the thread's CAM hits; exact integers, so the order
+// is free.  Every thread of the block calls it; ``part`` is ready after
+// the caller's next __syncthreads.
+__device__ __forceinline__ void tally_events(const RunArgs& a, const int* ev,
+                                             int nev, int hit,
+                                             Partial& part) {
+  int hops = 0, dest = 0, swept = 0, depth = 0, chops = 0, cdepth = 0;
+  for (int e = threadIdx.x; e < nev; e += kRunThreads) {
+    const int src = ev[e];
+    hops += a.hops[src];
+    depth = max(depth, a.depth[src]);
+    if (!a.flood) {
+      dest += a.dest[src];
+      swept += a.swept[src];
+    }
+    if (a.chip_hops != nullptr) {
+      chops += a.chip_hops[src];
+      cdepth = max(cdepth, a.chip_depth[src]);
+    }
+  }
+  hit = warp_sum(hit);
+  hops = warp_sum(hops);
+  dest = warp_sum(dest);
+  swept = warp_sum(swept);
+  depth = warp_max(depth);
+  chops = warp_sum(chops);
+  cdepth = warp_max(cdepth);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&part.hits, hit);
+    atomicAdd(&part.hops, hops);
+    atomicAdd(&part.dest, dest);
+    atomicAdd(&part.swept, swept);
+    atomicMax(&part.depth, depth);
+    atomicAdd(&part.chops, chops);
+    atomicMax(&part.cdepth, cdepth);
+  }
+}
+
+// The one-block form: block ``item`` holds the whole (tick, lane), 1-5.
+template <int POLICY>
+__device__ __forceinline__ void one_block(const RunArgs& a,
+                                          unsigned char* run_smem,
+                                          int& is_last) {
   __shared__ Partial part;
-  __shared__ int is_last, n_events;
+  __shared__ int n_events;
 
   const int n = a.p.n, slots = a.p.slots, cap = slots - 1;
   const int cores = a.cores;
@@ -472,84 +633,13 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
       }
     }
 
-    // 2. compaction and the scheme's policies, a warp per core
-    int* lm = lo_max + warp * a.p.sqrt_n;
-    for (int lc = warp; lc < cores; lc += kRunWarps) {
-      const uint8_t* fr = frame + lc * n;
-      int* row = buf + lc * slots;
-      int count = 0;
-      for (int j0 = 0; j0 < n; j0 += 32) {
-        const int j = j0 + ln;
-        const bool on = j < n && fr[j];
-        const unsigned m = __ballot_sync(kFull, on);
-        if (on) {
-          const int pos = count + __popc(m & ((1u << ln) - 1u));
-          if (pos < slots) row[pos] = j;
-        }
-        count += __popc(m);
-      }
-      for (int j = min(count, slots) + ln; j < slots; j += 32) row[j] = n;
-      if (POLICY == kHierRing)
-        for (int q = ln; q < a.p.sqrt_n; q += 32) lm[q] = -1;
-      __syncwarp();
-      const float2 le = policies<POLICY>(a.p, row, count, lm);
-      if (ln == 0) {
-        const float e = __fmul_rn(le.y, static_cast<float>(count));
-        cnt[lc] = count;
-        lat[lc] = le.x;
-        encc[lc] = e;
-        if (a.core_out != nullptr) {
-          const size_t plane = static_cast<size_t>(a.ticks_total) * a.lanes *
-                               cores;
-          const size_t at = (static_cast<size_t>(t) * a.lanes + b) * cores + lc;
-          a.core_out[at] = le.x;
-          a.core_out[plane + at] = e;
-        }
-      }
-      __syncwarp();
-    }
+    compact_cores<POLICY>(a, frame, cores, 0, t, b, buf, cnt, lat, encc,
+                          lo_max);
     __syncthreads();
 
-    // 3. event-indexed accounting over the first K slots of each core:
-    // the tick's events as flat sources in core order (warp 0 scans the
-    // per-core counts), then their table entries and link rows
-    if (warp == 0) {
-      int total = 0;
-      for (int b0 = 0; b0 < cores; b0 += 32) {
-        const int lc = b0 + ln;
-        const int v = lc < cores ? min(cnt[lc], cap) : 0;
-        int incl = v;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int u = __shfl_up_sync(kFull, incl, o);
-          if (ln >= o) incl += u;
-        }
-        if (lc < cores) off[lc] = total + incl - v;
-        total += __shfl_sync(kFull, incl, 31);
-      }
-      if (ln == 0) n_events = total;
-    }
-    __syncthreads();
-    for (int i = tid; i < cores * cap; i += kRunThreads) {
-      const int lc = i / cap, j = i - lc * cap;
-      if (j < min(cnt[lc], cap))
-        ev[off[lc] + j] = lc * n + buf[lc * slots + j];
-    }
-    __syncthreads();
-    const int nev = n_events;
-    int hops = 0, dest = 0, swept = 0, depth = 0, chops = 0, cdepth = 0;
-    for (int e = tid; e < nev; e += kRunThreads) {
-      const int src = ev[e];
-      hops += a.hops[src];
-      depth = max(depth, a.depth[src]);
-      if (!a.flood) {
-        dest += a.dest[src];
-        swept += a.swept[src];
-      }
-      if (a.chip_hops != nullptr) {
-        chops += a.chip_hops[src];
-        cdepth = max(cdepth, a.chip_depth[src]);
-      }
-    }
+    // 3. event-indexed accounting: the tick's events, their table entries
+    // and link rows
+    const int nev = event_list(a, cores, 0, buf, cnt, off, ev, n_events);
     // link loads: G groups of L threads, thread (g, l) sums link l of the
     // events g, g + G, ...; then each link adds its G partials (exact
     // integers: the order is free, and no shared atomics contend)
@@ -604,22 +694,7 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
     }
 
     // 5. the block's sums, then the row
-    hit = warp_sum(hit);
-    hops = warp_sum(hops);
-    dest = warp_sum(dest);
-    swept = warp_sum(swept);
-    depth = warp_max(depth);
-    chops = warp_sum(chops);
-    cdepth = warp_max(cdepth);
-    if (ln == 0) {
-      atomicAdd(&part.hits, hit);
-      atomicAdd(&part.hops, hops);
-      atomicAdd(&part.dest, dest);
-      atomicAdd(&part.swept, swept);
-      atomicMax(&part.depth, depth);
-      atomicAdd(&part.chops, chops);
-      atomicMax(&part.cdepth, cdepth);
-    }
+    tally_events(a, ev, nev, hit, part);
     __syncthreads();
     if (warp == 0) {           // latencies are >= 0; energies exact dyadics
       int events = 0;
@@ -662,56 +737,319 @@ __global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
   } else if (tid == 0) {
     is_last = 1;                     // no sparse tick: one block sums
   }
-  __syncthreads();
+}
 
-  // 6. the last block: the table summed in tick order from the seed (0.0
-  // without one), one thread per (field, lane), the rows staged into
-  // shared memory by cp.async in chunks (a row's fields are a multiple of
-  // 4 floats, 16-byte aligned)
-  if (is_last) {
-    __threadfence();
-    float* stage = reinterpret_cast<float*>(run_smem);
-    const int pairs = kFields * a.lanes, T = a.ticks_total;
-    for (int p0 = 0; p0 < pairs; p0 += kRunThreads) {
-      const int P = min(kRunThreads, pairs - p0);
-      const int rows = a.stage_floats / P;
-      float acc = (a.acc0 != nullptr && tid < P) ? a.acc0[p0 + tid] : 0.0f;
-      for (int t0 = 0; t0 < T; t0 += rows) {
-        const int nrows = min(rows, T - t0);
-        __syncthreads();             // the previous chunk is summed
-        for (int q = 4 * tid; q < nrows * P; q += 4 * kRunThreads) {
-          const int r = q / P;
-          cp_async16(stage + q, a.table + static_cast<size_t>(t0 + r) * pairs +
-                                    p0 + (q - r * P));
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        if (tid < P) {               // eight loads ahead of their adds
-          int r = 0;
-          for (; r + 8 <= nrows; r += 8) {
-            float x[8];
+// The group form: block (item, group) holds the group's consecutive cores
+// [c0, c1) of one (tick, lane), 1-5 over them: in shared memory the parts
+// ``a.stage`` names, the rest read from (or, the event buffers, kept in)
+// global memory; every source's spike is read from the frame in global
+// memory (L2).  Each target's live entries are still summed in ascending
+// entry order from 0.0 in one block, so the currents are the one-block
+// form's bits.  The block adds its sums into its item's row of item_acc:
+// counts with atomicAdd, maxima with atomicMax (latencies >= 0 as int
+// bits), encode energies (exact dyadics) and link loads (whole numbers
+// below 2^24) with float atomicAdd, so their order is free.  The item's
+// last group (a counter that wraps back to 0) writes the stats row.
+template <int POLICY>
+__device__ __forceinline__ void group_block(const RunArgs& a,
+                                            unsigned char* smem,
+                                            int& is_last) {
+  __shared__ Partial part;
+  __shared__ int n_events, last_group;
+
+  const int n = a.p.n, slots = a.p.slots, cap = slots - 1;
+  const int fabric = a.cores * n;
+  const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
+  const int item = blockIdx.x / a.groups;
+
+  if (tid == 0) is_last = 0;
+  if (item >= a.items) {
+    if (tid == 0) is_last = 1;       // no sparse tick: one block sums
+    return;
+  }
+  const int grp = blockIdx.x - item * a.groups;
+  const int b = item % a.lanes;
+  const int k = item / a.lanes;
+  const int t = a.ticks ? a.ticks[k] : k;
+  const size_t fi = static_cast<size_t>(b) * a.ticks_total + t;
+  const uint8_t* whole = a.stream + fi * fabric;      // the frame, global
+  const int c0 = a.group_start[grp];
+  const int gc = a.group_start[grp + 1] - c0;
+  const int t0 = c0 * n, nt = gc * n;                 // the group's targets
+  const int p0 = a.ptr[t0], p1 = a.ptr[t0 + nt];      // and live entries
+  const int L = a.links_n;
+  const bool hold_contrib = a.stage & kStageContrib;
+  int* item_row = a.item_acc + static_cast<size_t>(item) * a.item_stride;
+
+  // 1. this block's layout, the parts it holds staged with cp.async; the
+  // group's contributions meanwhile
+  unsigned char* at = smem;
+  const uint8_t* frame = whole + t0;                 // [nt] its cores' frames
+  if (a.stage & kStageFrame) {
+    uint8_t* staged = at;
+    if (a.vec && t0 % 16 == 0 && nt % 16 == 0) {
+      for (int q = tid; q < nt / 16; q += kRunThreads)
+        cp_async16(staged + 16 * q, frame + 16 * q);
+    } else {
+      for (int q = tid; q < nt; q += kRunThreads) staged[q] = frame[q];
+    }
+    frame = staged;
+    at += align16(nt);
+  }
+  float* contrib = reinterpret_cast<float*>(at);     // [p1 - p0]
+  if (hold_contrib) at += 4 * static_cast<size_t>(p1 - p0);
+  const int* seg = a.ptr + t0;                       // [nt + 1] CSR offsets
+  if (a.stage & kStageSeg) {
+    int* staged = reinterpret_cast<int*>(at);
+    for (int q = tid; q <= nt; q += kRunThreads)
+      cp_async4(staged + q, a.ptr + t0 + q);
+    seg = staged;
+    at += 4 * static_cast<size_t>(nt + 1);
+  }
+  int* buf;                                          // [gc][slots]
+  if (a.stage & kStageEvents) {
+    buf = reinterpret_cast<int*>(at);
+    at += 4 * static_cast<size_t>(gc) * (slots + cap);
+  } else {
+    buf = a.spill + static_cast<size_t>(blockIdx.x) * a.group_cores *
+                        (slots + cap);
+  }
+  int* ev = buf + gc * slots;                        // [gc * cap]
+  int* cnt = reinterpret_cast<int*>(at);             // [gc]
+  int* off = cnt + gc;                               // [gc]
+  float* lat = reinterpret_cast<float*>(off + gc);   // [gc]
+  float* encc = lat + gc;                            // [gc]
+  int* lo_max = reinterpret_cast<int*>(encc + gc);   // [warps][sqrt_n]
+
+  if (tid == 0) part = Partial{0, 0, 0, 0, 0, 0, 0, 0, 0.0f, 0.0f};
+  int hit = 0;
+  if (hold_contrib) {
+    constexpr int R = 8;
+    for (int base = p0; base < p1; base += kRunThreads * R) {
+      int s[R];
+      float w[R];
 #pragma unroll
-            for (int u = 0; u < 8; ++u) x[u] = stage[(r + u) * P + tid];
+      for (int r = 0; r < R; ++r) {
+        const int p = base + r * kRunThreads + tid;
+        s[r] = p < p1 ? a.src[p] : 0;
+        w[r] = p < p1 ? a.weight[p] : 0.0f;
+      }
 #pragma unroll
-            for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, x[u]);
-          }
-          for (; r < nrows; ++r) acc = __fadd_rn(acc, stage[r * P + tid]);
+      for (int r = 0; r < R; ++r) {
+        const int p = base + r * kRunThreads + tid;
+        if (p < p1) {
+          const bool d = __ldg(whole + s[r]);
+          contrib[p - p0] = d ? w[r] : 0.0f;
+          hit += d;
         }
       }
-      if (tid < P) a.acc[p0 + tid] = acc;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. compaction and the scheme's policies, a warp per core
+  compact_cores<POLICY>(a, frame, gc, c0, t, b, buf, cnt, lat, encc, lo_max);
+  __syncthreads();
+
+  // 3. the group's events as flat sources in core order, and their link
+  // loads: thread (g, l) sums link l of the events g, g + G, ... and adds
+  // it into the item's load of link l
+  const int nev = event_list(a, gc, c0, buf, cnt, off, ev, n_events);
+  // (eight rows' loads ahead of their adds: at 128 cores and more a
+  // block's events' link rows are megabytes, read mostly from L2)
+  float* loads = reinterpret_cast<float*>(item_row + kItemWords);
+  const int groups = max(1, kRunThreads / max(L, 1));
+  for (int q = tid; q < groups * L; q += kRunThreads) {
+    const int g = q / L, l = q - g * L;
+    float v = 0.0f;
+    int e = g;
+    for (; e + 7 * groups < nev; e += 8 * groups) {
+      float x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        x[u] = a.links[static_cast<size_t>(ev[e + u * groups]) * L + l];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v += x[u];
+    }
+    for (; e < nev; e += groups)
+      v += a.links[static_cast<size_t>(ev[e]) * L + l];
+    if (v != 0.0f) atomicAdd(loads + l, v);
+  }
+
+  // 4. currents: each of the group's targets' live entries in ascending
+  // order from 0.0, U targets a thread side by side; the contributions
+  // from shared memory or, where the block does not hold them, each
+  // entry's own from global memory (the same value, so the same bits)
+  constexpr int U = 8;
+  float* out = a.currents + fi * fabric + t0;
+  for (int g0 = tid; g0 < nt; g0 += kRunThreads * U) {
+    int p[U], end[U], longest = 0;
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int gl = g0 + u * kRunThreads;
+      p[u] = gl < nt ? seg[gl] : 0;
+      end[u] = gl < nt ? seg[gl + 1] : 0;
+      acc[u] = 0.0f;
+      longest = max(longest, end[u] - p[u]);
+    }
+    for (int j = 0; j < longest; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = p[u] + j;
+        if (q < end[u]) {
+          float c;
+          if (hold_contrib) {
+            c = contrib[q - p0];
+          } else {
+            const bool d = __ldg(whole + a.src[q]);
+            hit += d;
+            c = d ? a.weight[q] : 0.0f;
+          }
+          acc[u] = __fadd_rn(acc[u], c);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (g0 + u * kRunThreads < nt) out[g0 + u * kRunThreads] = acc[u];
+  }
+
+  // 5. the block's sums into the item's row; the item's last group writes
+  // the stats row
+  tally_events(a, ev, nev, hit, part);
+  __syncthreads();
+  if (warp == 0) {
+    int events = 0;
+    float lmax = 0.0f, esum = 0.0f;
+    for (int lc = ln; lc < gc; lc += 32) {
+      events += cnt[lc];
+      lmax = fmaxf(lmax, lat[lc]);
+      esum += encc[lc];
+    }
+    events = warp_sum(events);
+    lmax = warp_fmax(lmax);
+    esum = warp_fsum(esum);
+    if (ln == 0) {
+      atomicAdd(item_row + 0, events);
+      atomicAdd(item_row + 1, part.hits);
+      atomicAdd(item_row + 2, part.hops);
+      atomicAdd(item_row + 3, part.dest);
+      atomicAdd(item_row + 4, part.swept);
+      atomicMax(item_row + 5, part.depth);
+      atomicAdd(item_row + 6, part.chops);
+      atomicMax(item_row + 7, part.cdepth);
+      atomicMax(item_row + 8, __float_as_int(lmax));
+      atomicAdd(reinterpret_cast<float*>(item_row + 9), esum);
+    }
+  }
+  __threadfence();                   // the sums and link loads, then the count
+  __syncthreads();
+  if (tid == 0)
+    last_group = atomicInc(reinterpret_cast<unsigned*>(item_row + 10),
+                           static_cast<unsigned>(a.groups) - 1) ==
+                 static_cast<unsigned>(a.groups) - 1;
+  __syncthreads();
+  if (last_group && warp == 0) {
+    __threadfence();
+    const volatile int* h = item_row;
+    const volatile float* ld = loads;
+    float busiest = 0.0f, cbusiest = 0.0f;
+    for (int l = ln; l < a.noc_links_n; l += 32)
+      busiest = fmaxf(busiest, ld[l]);
+    for (int l = a.noc_links_n + ln; l < L; l += 32)
+      cbusiest = fmaxf(cbusiest, ld[l]);
+    busiest = warp_fmax(busiest);
+    cbusiest = warp_fmax(cbusiest);
+    if (ln == 0) {
+      const Partial s{h[0], h[1], h[2], h[3], h[4], h[5], h[6], h[7],
+                      __int_as_float(h[8]), __int_as_float(h[9])};
+      float row[kFields];
+      stats_row(a, s, busiest, cbusiest, row);
+      float* dst = a.table + static_cast<size_t>(t) * kFields * a.lanes + b;
+      for (int f = 0; f < kFields; ++f) dst[f * a.lanes] = row[f];
+      __threadfence();
+      is_last = atomicInc(a.done, static_cast<unsigned>(a.items) - 1) ==
+                static_cast<unsigned>(a.items) - 1;
     }
   }
 }
 
+// 6. the last block: the table summed in tick order from the seed (0.0
+// without one), one thread per (field, lane), the rows staged into shared
+// memory by cp.async in chunks (a row's fields are a multiple of 4 floats,
+// 16-byte aligned)
+__device__ __forceinline__ void sum_table(const RunArgs& a,
+                                          unsigned char* run_smem) {
+  const int tid = threadIdx.x;
+  __threadfence();
+  float* stage = reinterpret_cast<float*>(run_smem);
+  const int pairs = kFields * a.lanes, T = a.ticks_total;
+  for (int p0 = 0; p0 < pairs; p0 += kRunThreads) {
+    const int P = min(kRunThreads, pairs - p0);
+    const int rows = a.stage_floats / P;
+    float acc = (a.acc0 != nullptr && tid < P) ? a.acc0[p0 + tid] : 0.0f;
+    for (int t0 = 0; t0 < T; t0 += rows) {
+      const int nrows = min(rows, T - t0);
+      __syncthreads();             // the previous chunk is summed
+      for (int q = 4 * tid; q < nrows * P; q += 4 * kRunThreads) {
+        const int r = q / P;
+        cp_async16(stage + q, a.table + static_cast<size_t>(t0 + r) * pairs +
+                                  p0 + (q - r * P));
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (tid < P) {               // eight loads ahead of their adds
+        int r = 0;
+        for (; r + 8 <= nrows; r += 8) {
+          float x[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) x[u] = stage[(r + u) * P + tid];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, x[u]);
+        }
+        for (; r < nrows; ++r) acc = __fadd_rn(acc, stage[r * P + tid]);
+      }
+    }
+    if (tid < P) a.acc[p0 + tid] = acc;
+  }
+}
+
+template <int POLICY, bool GROUPED>
+__global__ void __launch_bounds__(kRunThreads) sparse_run_kernel(RunArgs a) {
+  extern __shared__ __align__(16) unsigned char run_smem[];
+  __shared__ int is_last;
+  if constexpr (GROUPED) {
+    group_block<POLICY>(a, run_smem, is_last);
+  } else {
+    one_block<POLICY>(a, run_smem, is_last);
+  }
+  __syncthreads();
+  if (is_last) sum_table(a, run_smem);
+}
+
+template <int POLICY, bool GROUPED>
+cudaError_t launch_form(const RunArgs& a, size_t smem, long long blocks,
+                        cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_run_kernel<POLICY, GROUPED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sparse_run_kernel<POLICY, GROUPED>
+      <<<static_cast<unsigned>(blocks), kRunThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// One block a (tick, lane), or with group_start one a (tick, lane, group).
 template <int POLICY>
 cudaError_t launch_run(const RunArgs& a, size_t smem, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      sparse_run_kernel<POLICY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>(max(a.items, 1));
-  sparse_run_kernel<POLICY><<<blocks, kRunThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (a.group_start == nullptr)
+    return launch_form<POLICY, false>(a, smem, max(a.items, 1), stream);
+  const long long blocks =     // no sparse tick: one block sums
+      a.items > 0 ? static_cast<long long>(a.items) * a.groups : 1;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  return launch_form<POLICY, true>(a, smem, blocks, stream);
 }
 
 PolicyArgs policy_args(int n, int slots, int levels, int sqrt_n,
@@ -765,19 +1103,22 @@ extern "C" int sparse_tick_launch(
 
 // ``ints``: lanes, ticks_total, items, cores, links_n, flood, vec,
 // contrib_cap, n, slots, levels, sqrt_n, ring_shift, stage_floats,
-// noc_links_n (15 values).
+// noc_links_n, groups, group_cores, stage, item_stride (19 values).
 // ``floats``: per_grant, log2n, flood_eps, cam_cycle_ns, e_match, e_mm,
 // e_fixed, hop_ns, link_ns, hop_energy, chip_hop_ns, chip_link_ns,
 // chip_hop_energy (13 values).
 // ``chip_hops``/``chip_depth`` null: one chip; ``core_out`` null: no
-// per-core output.
+// per-core output; ``group_start`` null: one block a (tick, lane), else
+// the group form with its zeroed ``item_acc`` and (where its blocks do not
+// hold their event buffers) ``spill``.
 extern "C" int sparse_run_launch(
     int policy, const void* stream_frames, const void* ticks, const void* ptr,
     const void* src, const void* weight, const void* hops, const void* depth,
     const void* dest, const void* swept, const void* links,
     const void* chip_hops, const void* chip_depth, void* currents,
     void* table, void* acc, const void* acc0, void* done, void* core_out,
-    const int* ints, const float* floats, unsigned long long smem,
+    const void* group_start, void* item_acc, void* spill, const int* ints,
+    const float* floats, unsigned long long smem,
     void* stream) {
   RunArgs a;
   a.p = policy_args(ints[8], ints[9], ints[10], ints[11], ints[12],
@@ -800,6 +1141,9 @@ extern "C" int sparse_run_launch(
   a.acc = static_cast<float*>(acc);
   a.acc0 = static_cast<const float*>(acc0);
   a.done = static_cast<unsigned*>(done);
+  a.group_start = static_cast<const int32_t*>(group_start);
+  a.item_acc = static_cast<int*>(item_acc);
+  a.spill = static_cast<int*>(spill);
   a.lanes = ints[0];
   a.ticks_total = ints[1];
   a.items = ints[2];
@@ -810,6 +1154,10 @@ extern "C" int sparse_run_launch(
   a.contrib_cap = ints[7];
   a.stage_floats = ints[13];
   a.noc_links_n = ints[14];
+  a.groups = ints[15];
+  a.group_cores = ints[16];
+  a.stage = ints[17];
+  a.item_stride = ints[18];
   a.flood_eps = floats[2];
   a.cam_cycle_ns = floats[3];
   a.e_match = floats[4];
@@ -824,6 +1172,10 @@ extern "C" int sparse_run_launch(
   if ((a.chip_hops == nullptr) != (a.chip_depth == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.cores < 1 || a.lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.group_start != nullptr &&
+      (a.groups < 1 || a.item_acc == nullptr ||
+       (!(a.stage & kStageEvents) && a.spill == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = static_cast<size_t>(smem);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -144,9 +144,14 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
         `kernel.RunOperands`), and the inter-chip tier's operands or None
         on one chip (`kernel.run_operands`).  Ignored for CPU operands.
 
+    On the card the kernel's blocks are planned here, once
+    (`kernel.plan_groups`): one block a (tick, lane), or G blocks of
+    consecutive cores where the fabric does not fit one.
+
     Raises:
       ValueError: for CUDA operands whose arbiter or NoC scheme has no
-        kernel form, or that the kernel does not take.
+        kernel form, or that the kernel does not take (over the JAX
+        package's `kernel.MAX_FUSED_ELEMS` CAM operand elements).
     """
     kernel = None
     if src_idx.is_cuda:
@@ -161,7 +166,7 @@ def bind_run(src_idx, active, weights, csr, *, n: int, capacity: int,
             weights.reshape(-1)[entry].contiguous(), hops, depth, dest,
             swept, links, cores=src_idx.shape[0], n=n, capacity=capacity,
             policy=policy.kernel_policy, levels=policy.levels, flood=flood,
-            floats=floats, chip=chip)
+            floats=floats, chip=chip, entries=src_idx.shape[1])
     return SparseRun(n, capacity, policy, src_idx, active, weights, csr,
                      account, kernel)
 

@@ -228,15 +228,32 @@ def test_sparse_run_without_sparse_ticks_still_sums():
     _assert_run_equal(*_kernel_and_plain(plan, params, stream, [True] * 3))
 
 
+def _assert_group_form(plan, params, stream, overflow):
+    """A fabric over one block's shared memory: planned in G > 1 groups,
+    each block within the limit, one launch a run; currents, table, sums
+    and the per-core output bitwise the plain version's, unseeded and
+    seeded."""
+    kplan = plan.run.kernel.plan
+    assert kplan.grouped and kplan.groups > 1
+    assert max(kplan.group_bytes) <= sparse_kernel.MAX_SHARED_BYTES
+    for acc0 in (None, _seed(stream.shape[0], 3, stream.device)):
+        got, want = _kernel_and_plain(plan, params, stream, overflow, acc0,
+                                      core=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g.nan_to_num(-1.0), w.nan_to_num(-1.0))
+
+
 @pytest.mark.gpu
 def test_sparse_run_refuses_what_it_cannot_hold():
+    """Only operands it does not take; 64 cores with every CAM entry live,
+    over one block since the first port, run in the group form."""
     device = _cuda()
     plan, _, stream, _ = _run_case("hier_tree", "multicast_tree", 16, 256,
                                    512, 1, 2, 3, device, burst=())
     ops = plan.run.kernel
-    with pytest.raises(ValueError, match="MAX_SHARED_BYTES"):
-        _run_case("hier_tree", "multicast_tree", 64, 256, 512, 1, 2, 3,
-                  device, fan_in=1.0)     # every CAM entry of 64 cores live
+    _assert_group_form(*_run_case("hier_tree", "multicast_tree", 64, 256,
+                                  512, 2, 6, 3, device, burst=(2,),
+                                  fan_in=1.0))
     table = torch.empty((2, 12, 1), device=device)
     cur = torch.empty((1, 2, 16, 256), device=device)
     before = sparse_kernel.launches
@@ -246,6 +263,65 @@ def test_sparse_run_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError):
         sparse_kernel.sparse_run_cuda(stream, None, ops, cur[:, :1], table)
     assert sparse_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,noc,cores,n,chips", [
+    ("hier_tree", "multicast_tree", 128, 256, 1),   # 128 cores on one chip
+    ("token_ring", "unicast", 128, 256, 1),
+    ("hier_tree", "broadcast", 256, 256, 16),       # 16 chips x 16 cores
+    ("binary_tree", "multicast_tree", 16, 16384, 1),  # 256 KB frames
+])
+def test_sparse_run_group_form_matches_plain_version(scheme, noc, cores, n,
+                                                     chips):
+    device = _cuda()
+    case = _run_case(scheme, noc, cores, n, 512, 2, 6, 5, device,
+                     burst=(3,), chips=chips)
+    _assert_group_form(*case)
+    plan, params, stream, _ = case
+    cfg = plan.cfg
+    sparse = Interface(cfg).compile(params, device=device)
+    xla = Interface(dataclasses.replace(cfg, impl="xla")).compile(
+        params, device=device)
+    before = sparse_kernel.launches
+    got = sparse.run_batched(stream)
+    assert sparse_kernel.launches == before + 1
+    assert torch.equal(got[0], xla.run_batched(stream)[0])
+
+
+def _forced_groups(plan, starts, stage):
+    """``plan`` with B1 forced into the group form: the groups ``starts``
+    and the blocks holding only the parts ``stage`` names, the rest read
+    from (or kept in) global memory."""
+    ops = plan.run.kernel
+    nnz = ops.ptr[::ops.n].diff().tolist()
+    sizes = tuple(sparse_kernel.group_shared_bytes(
+        hi - lo, ops.n, sum(nnz[lo:hi]), ops.capacity, stage)
+        for lo, hi in zip(starts, starts[1:]))
+    groups = sparse_kernel.GroupPlan(True, len(starts) - 1, starts, stage,
+                                     sizes, max(sizes))
+    kernel = ops._replace(plan=groups, starts=torch.tensor(
+        starts, dtype=torch.int32, device=ops.ptr.device))
+    return plan._replace(run=plan.run._replace(kernel=kernel))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", range(sparse_kernel.STAGE_ALL + 1))
+@pytest.mark.parametrize("cores,n,entries,starts", [
+    (16, 256, 512, (0, 5, 11, 16)),     # uneven groups
+    (3, 8, 16, (0, 1, 3)),              # 24-byte frames: no cp.async
+])
+def test_sparse_run_group_form_holds_any_part_in_global_memory(
+        cores, n, entries, starts, stage):
+    """Every subset of the parts a group block holds (its frames,
+    contributions, CSR offsets, event buffers), the rest read from global
+    memory or kept in the scratch: bitwise the plain version."""
+    device = _cuda()
+    plan, params, stream, overflow = _run_case(
+        "hier_tree" if n == 256 else "binary_tree", "multicast_tree", cores,
+        n, entries, 2, 6, 8, device, burst=(3,))
+    _assert_group_form(_forced_groups(plan, starts, stage), params, stream,
+                       overflow)
 
 
 def _seed(lanes, seed, device):

@@ -10,8 +10,8 @@ Pallas kernel in interpret mode) at `tests/conformance/paths.small_config`
 with overflowing ticks mixed in, at T = 0, T = 1 and three lanes, under
 the conformance contract (currents bitwise, `EXACT_FIELDS` exact, the
 rest within `REL_TOL`).  The op is also held bitwise to the per-tick
-composition it replaces, and the kernel's shared-memory limit is held
-to its formula.
+composition it replaces, and the kernel's plan of blocks to its
+shared-memory formulas.
 """
 
 import dataclasses
@@ -212,26 +212,50 @@ def test_cpu_runs_never_launch_and_shapes_are_guarded():
                               torch.empty((3, 12, 1)))
 
 
-@pytest.mark.parametrize("cores,n,nnz,fits", [
-    (4, 16, 128, True),         # the small grid
-    (16, 256, 8192, True),      # the scaled DYNAPs fabric, every entry live
-    (64, 256, 29491, True),     # 64 cores at random_connectivity's fan-in
-    (64, 256, 32768, False),    # 64 cores with every entry live
-    (16, 16384, 1024, False),   # a 256 KB frame
+@pytest.mark.parametrize("cores,n,nnz,one_block", [
+    (4, 16, 128, 8192),         # the small grid
+    (16, 256, 8192, 60868),     # the scaled DYNAPs fabric, every entry live
+    (64, 256, 29491, 221136),   # 64 cores at random_connectivity's fan-in
+    (64, 256, 32768, None),     # 64 cores with every entry live
+    (16, 16384, 1024, None),    # a 256 KB frame
+    (128, 256, 58982, None),    # 128 cores on one chip, fan-in 0.9
+    (256, 256, 117964, None),   # 16 chips x 16 cores, fan-in 0.9
 ])
-def test_shared_memory_limit_fits_one_block_or_refuses(cores, n, nnz, fits):
-    """One block holds a (tick, lane); a fabric over the limit is refused."""
-    args = (cores, n, nnz, 32, 2 * cores)
-    if not fits:
-        with pytest.raises(ValueError, match="MAX_SHARED_BYTES"):
-            sparse_kernel.run_shared_bytes(*args)
-        return
-    need = sparse_kernel.run_shared_bytes(*args)
-    assert sparse_kernel.MIN_SHARED_BYTES <= need <= \
+def test_shared_memory_limit_fits_one_block_or_refuses(cores, n, nnz,
+                                                       one_block):
+    """A fabric whose (tick, lane) fits one block's shared memory keeps the
+    one block (G = 1, the bytes of the first port's formula); a larger one
+    is planned in G > 1 groups of consecutive cores, every block within
+    the limit: none is refused below the JAX package's ceiling."""
+    core_nnz = [nnz // cores + (c < nnz % cores) for c in range(cores)]
+    plan = sparse_kernel.plan_groups(cores, n, 512, core_nnz, 32, 2 * cores)
+    assert plan.starts[0] == 0 and plan.starts[-1] == cores
+    assert len(plan.starts) == plan.groups + 1 == len(plan.group_bytes) + 1
+    assert all(a < b for a, b in zip(plan.starts, plan.starts[1:]))
+    assert plan.smem == max(plan.group_bytes) <= \
         sparse_kernel.MAX_SHARED_BYTES
-    # one more live entry a core costs 4 bytes a core
-    assert sparse_kernel.run_shared_bytes(cores, n, nnz + cores, 32,
-                                          2 * cores) in (need, need + 4 * cores)
+    if one_block is not None:
+        assert not plan.grouped and plan.groups == 1
+        assert plan.smem == one_block == sparse_kernel.run_shared_bytes(
+            cores, n, nnz, 32, 2 * cores)
+        # one more live entry a core costs 4 bytes a core
+        assert sparse_kernel.run_shared_bytes(
+            cores, n, nnz + cores, 32, 2 * cores) in (one_block,
+                                                     one_block + 4 * cores)
+        return
+    assert plan.grouped and plan.groups > 1
+    assert plan.stage == sparse_kernel.STAGE_ALL
+    assert sparse_kernel.run_shared_bytes(
+        cores, n, nnz, 32, 2 * cores) > sparse_kernel.MAX_SHARED_BYTES
+    for lo, hi, need in zip(plan.starts, plan.starts[1:], plan.group_bytes):
+        assert need == sparse_kernel.group_shared_bytes(
+            hi - lo, n, sum(core_nnz[lo:hi]), 32, plan.stage)
+    # the fewest groups: no two neighbours would fit one block
+    for g in range(plan.groups - 1):
+        lo, hi = plan.starts[g], plan.starts[g + 2]
+        assert sparse_kernel.group_shared_bytes(
+            hi - lo, n, sum(core_nnz[lo:hi]), 32,
+            plan.stage) > sparse_kernel.MAX_SHARED_BYTES
 
 
 def test_kernel_operands_refuse_cpu_tensors():
@@ -243,4 +267,4 @@ def test_kernel_operands_refuse_cpu_tensors():
             plan.routing.csr.ptr, plan.routing.csr.entry, tparams.weights,
             t.hops, t.depth, t.dest_counts, t.dest_counts, t.link_table,
             cores=4, n=16, capacity=CAPACITY, policy=4, levels=2,
-            flood=False, floats=(0.0,) * 8)
+            flood=False, floats=(0.0,) * 8, entries=32)
